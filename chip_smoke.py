@@ -1,0 +1,525 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port's main path on one GPU and check it.
+
+    python3 chip_smoke.py
+
+Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
+
+1. prints the card (``nvidia-smi`` name and power limit) and the build time;
+2. holds each kernel against its plain PyTorch version on the card at the
+   main path's shapes — f32, f16 and int8 stores, INVALID-padded sweeps,
+   all four block sizes; masks, flags and block counts exactly, scores
+   bitwise (the kernels are compiled without FMA contraction);
+3. drives K-SWEEP through ``make_executor("single", ...)`` at 2^20
+   documents in batches of 32 — plain, fused, geo-score kernel, each of the
+   three again with early termination, pruned plain and pruned fused — and
+   checks that each kernel launched once per batch and that the kernel
+   variants equal their plain twins in ids, scores and every stats counter
+   (at serve.py's budgets, without early termination, the unpruned
+   kernels' scores select nothing, so only the early-termination and
+   pruned variants hold a kernel's scores to the answer); a small corpus
+   gives the same answers on the card as on the CPU and as a brute-force
+   numpy oracle;
+4. times each kernel and its plain version with CUDA events (median of
+   20 runs) beside its bound, and each variant's batch latency;
+5. runs one profiler pass per variant: each K-SWEEP stage's host time and
+   device time, and the device's idle share over a batch.
+
+The line before the last is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
+exits non-zero without that line — as it does when CUDA is unavailable.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from dataclasses import replace
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# launch/serve.py's defaults with --n-docs 1048576 --fused: one shard of the
+# 2^26-document geoweb corpus at 64 doc shards
+N_DOCS = 1 << 20
+N_TERMS = 2000
+N_QUERIES = 256
+BATCH = 32
+BUDGETS = dict(
+    max_candidates=2048, max_tiles=256, k_sweeps=8, sweep_budget=N_DOCS // 8, top_k=10
+)
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and f32 operations/s
+# outside the tensor cores.  The sheet's 67 TFLOP/s counts an FMA as two;
+# the kernels are built with -fmad=false, so each counted operation is one
+# instruction, issued at half that rate (132 SMs x 128 lanes x 1.98 GHz).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12 / 2
+# per (toe print, query slot): 2 min, 2 max, 2 sub, 2 clamp, 2 mul, 1 add;
+# per toe print: the final multiply by the amp (an int8 store adds one
+# more, its scale; the main path's store is f32)
+OPS_PER_POSITION = 8 * 11 + 1
+STORE_BYTES = 20.0  # f32 rect (16 B) and amp (4 B) per toe print
+RUNS = 20
+DEVICE = "cuda"
+SOURCES = {
+    "sweep_score": ("src/repro_torch/csrc/sweep_score.cu", "src/repro/kernels/sweep_score/kernel.py:80"),
+    "geo_score": ("src/repro_torch/csrc/geo_score.cu", "src/repro/kernels/geo_score/kernel.py:53"),
+    "sweep_score_pruned": ("src/repro_torch/csrc/sweep_score.cu", "src/repro/kernels/sweep_score/kernel.py:249"),
+}
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def time_ms(fn, torch, runs: int = RUNS) -> float:
+    """Median device time of ``fn`` over ``runs`` runs, by CUDA events."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def exact(a, b, what: str, torch) -> float:
+    """Assert two tensors equal exactly; return their max abs difference."""
+    check(a.shape == b.shape and a.dtype == b.dtype, f"{what}: shape/dtype differ")
+    check(bool(torch.equal(a, b)), f"{what}: differs from the plain version")
+    if a.dtype.is_floating_point:
+        return float((a - b).abs().max()) if a.numel() else 0.0
+    return 0.0
+
+
+def results_equal(a, b, what: str, torch) -> None:
+    """ids, scores and every stats counter equal exactly."""
+    exact(a.ids, b.ids, f"{what} ids", torch)
+    exact(a.scores, b.scores, f"{what} scores", torch)
+    check(set(a.stats) == set(b.stats), f"{what}: stats keys differ")
+    for k in a.stats:
+        exact(a.stats[k], b.stats[k], f"{what} stats[{k}]", torch)
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them."""
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi: unavailable ({e})"
+    if smi.returncode or not smi.stdout.strip():
+        return f"nvidia-smi: unavailable (exit {smi.returncode})"
+    return smi.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from repro_torch.core import QueryBudgets
+    from repro_torch.core import spatial_index as sidx
+    from repro_torch.core.ranking import topk_recall_np
+    from repro_torch.corpus import make_corpus, make_zipf_trace, pad_trace_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.build import library
+    from repro_torch.kernels.geo_score import kernel as GK
+    from repro_torch.kernels.geo_score import ref as GR
+    from repro_torch.kernels.geo_score.ops import geo_score_toeprints, pad_query
+    from repro_torch.kernels.sweep_score import kernel as SK
+    from repro_torch.kernels.sweep_score import ops as SO
+    from repro_torch.kernels.sweep_score import ref as SR
+    from repro_torch.serving import make_executor
+
+    dev = torch.device(DEVICE)
+    t_start = time.perf_counter()
+
+    # ---- phase 1: device and build -------------------------------------
+    say(card_line())
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    t = time.perf_counter()
+    library()
+    say(f"phase 1: kernels built in {time.perf_counter() - t:.1f} s")
+
+    # ---- set-up: corpus, trace, the plain executor's index ---------------
+    t = time.perf_counter()
+    corpus = make_corpus(n_docs=N_DOCS, n_terms=N_TERMS, seed=0)
+    trace = make_zipf_trace(corpus, n_queries=N_QUERIES, pool_size=256, seed=1)
+    batches = [
+        pad_trace_batch(trace[i : i + BATCH], max_terms=8, max_rects=4)
+        for i in range(0, N_QUERIES, BATCH)
+    ]
+    say(f"set-up: corpus of {N_DOCS} docs + {N_QUERIES}-query zipf trace in "
+        f"{time.perf_counter() - t:.1f} s")
+    budgets = QueryBudgets(**BUDGETS)
+    t = time.perf_counter()
+    plain_ex = make_executor("single", corpus, budgets=budgets)
+    sp = plain_ex.engine.index.spatial
+    say(f"set-up: index built in {time.perf_counter() - t:.1f} s; {sp.n_toeprints} toe "
+        f"prints, {plain_ex.engine.index.text.n_postings} postings")
+
+    # ---- phase 2: each kernel against its plain version ------------------
+    b0 = batches[0].to(dev)
+    S = plain_ex.engine.budgets.sweep_budget
+    starts, ends = sidx.gather_query_intervals(sp, b0.rects, budgets.max_tiles)
+    ss, ee = sidx.coalesce_k_sweeps(starts, ends, budgets.k_sweeps)
+    ss, ee = sidx.split_sweeps_to_budget(ss, ee, budgets.k_sweeps, S)
+    ss[0, -1] = sidx.INVALID  # at least one INVALID-padded sweep
+    ee[0, -1] = sidx.INVALID
+    say(f"phase 2: {int((ss != sidx.INVALID).sum())} live sweeps of budget {S} in batch 0")
+    max_err = {name: 0.0 for name in SOURCES}
+
+    rects, amps, _, ok = sidx.fetch_sweeps(sp, ss, ee, S)
+    amps = torch.where(ok, amps, 0.0)
+    qr, qa = pad_query(b0.rects, b0.amps)
+    # through the wrapper the main path calls (its own checks and padding)
+    got = geo_score_toeprints(rects, amps, b0.rects, b0.amps)
+    want = GR.geo_score_toeprints_ref(rects, amps, qr, qa)
+    max_err["geo_score"] = exact(got, want, "geo_score", torch)
+    torch.cuda.synchronize()
+    say(f"phase 2: geo_score wrapper == plain on {tuple(rects.shape)}")
+
+    amps_np = sp.tp_amps.cpu().numpy()
+    q8, s8 = sidx.quantize_amps_np(amps_np)
+    stores = {
+        "f32": (sp.tp_rects, sp.tp_amps, None, amps_np),
+        "f16": (sp.tp_rects.half(), sp.tp_amps.half(), None,
+                sp.tp_amps.half().float().cpu().numpy()),
+        "int8": (sp.tp_rects.half(), torch.from_numpy(q8).to(dev),
+                 torch.from_numpy(s8).to(dev),
+                 q8.astype(np.float32) * np.repeat(s8, sidx.SCALE_BLOCK)[: len(q8)]),
+    }
+    for mode, (tr, ta, sc, dec) in stores.items():
+        got = SO.sweep_score(tr, ta, ss, ee, b0.rects, b0.amps, S, tp_amp_scale=sc)
+        want = SR.sweep_score_ref(tr, ta, ss, ee, b0.rects, b0.amps, S, tp_amp_scale=sc)
+        err = exact(got[0], want[0], f"sweep_score[{mode}] scores", torch)
+        exact(got[1], want[1], f"sweep_score[{mode}] valid", torch)
+        max_err["sweep_score"] = max(max_err["sweep_score"], err)
+        torch.cuda.synchronize()
+        rects_np = tr.float().cpu().numpy()
+        for bs in sidx.BLOCK_SIZES:
+            meta = [torch.from_numpy(x).to(dev) for x in sidx.block_metadata_np(rects_np, dec, bs)]
+            for C, floor in ((budgets.max_candidates, 0.0), (512, 1e-4)):
+                args = (tr, ta, *meta, ss, ee, b0.rects, b0.amps, S, C, bs, floor)
+                got = SO.sweep_score_pruned(*args, tp_amp_scale=sc)
+                want = SR.sweep_score_pruned_ref(*args, tp_amp_scale=sc)
+                tag = f"sweep_score_pruned[{mode}, bs={bs}, C={C}, floor={floor}]"
+                err = exact(got[0], want[0], tag + " scores", torch)
+                for j, name in enumerate(("valid", "streamed", "blocks_scored", "blocks_active")):
+                    exact(got[j + 1], want[j + 1], f"{tag} {name}", torch)
+                max_err["sweep_score_pruned"] = max(max_err["sweep_score_pruned"], err)
+                torch.cuda.synchronize()
+                say(f"phase 2: {tag} == plain; blocks scored/active "
+                    f"{int(got[3].sum())}/{int(got[4].sum())}")
+        say(f"phase 2: sweep_score[{mode}] == plain")
+    del rects, amps, got, want, stores
+
+    # small input: the card equals the CPU port and a brute-force oracle
+    small = make_corpus(n_docs=3000, n_terms=400, seed=5)
+    small_q = pad_trace_batch(make_zipf_trace(small, n_queries=BATCH, pool_size=16, seed=6))
+    small_b = QueryBudgets(max_candidates=512, max_tiles=256, k_sweeps=4, sweep_budget=512)
+    for fused, use_pallas, prune, et in (
+        (False, False, False, False), (True, False, False, False),
+        (False, True, False, False), (True, False, True, False),
+        (True, False, False, True), (False, True, False, True),
+    ):
+        bb = replace(small_b, prune=prune, early_termination=et)
+        on_card = make_executor("single", small, budgets=bb, fused=fused, use_pallas=use_pallas)
+        on_cpu = make_executor("single", small, budgets=bb, fused=fused,
+                               use_pallas=use_pallas, device="cpu")
+        a, c = on_card.run(small_q), on_cpu.run(small_q)
+        exact(a.ids.cpu(), c.ids, "small card vs cpu ids", torch)
+        for k in a.stats:
+            exact(a.stats[k].cpu(), c.stats[k], f"small card vs cpu stats[{k}]", torch)
+        # scores pass through reductions (query mass, tp_scorer sums) that
+        # the CPU and the card may order differently: held to 1e-5
+        check(bool(torch.allclose(a.scores.cpu(), c.scores, rtol=1e-5, atol=1e-6)),
+              "small card vs cpu scores")
+    # the numpy oracle sums in float64, the port in float32: near-ties at the
+    # k-th place may swap, so hold the two to recall rather than order
+    want_ids = brute_force_oracle(small, small_q, 10)
+    got_ids = on_card.engine.oracle(small_q, 10).ids.cpu().numpy()
+    rec = topk_recall_np(want_ids, got_ids)
+    check(rec >= 0.99, f"oracle on the card vs numpy brute force: recall {rec}")
+    say("phase 2: small corpus: card == CPU port (ids, stats; scores within 1e-5); "
+        f"oracle vs numpy brute force recall@10 {rec:.4f}")
+
+    # ---- phase 3: the main path at size ---------------------------------
+    # (executor kwargs, the kernel it reaches); without early termination the
+    # unpruned kernels' partial scores select nothing (the reference's
+    # semantics), so the *_et variants are the ones whose answers depend on
+    # the sweep_score and geo_score kernels
+    et = replace(budgets, early_termination=True)
+    pr = replace(budgets, prune=True)
+    variants = {
+        "plain": (dict(budgets=budgets), None),
+        "fused": (dict(budgets=budgets, fused=True), "sweep_score"),
+        "geo_score": (dict(budgets=budgets, use_pallas=True), "geo_score"),
+        "plain_et": (dict(budgets=et), None),
+        "fused_et": (dict(budgets=et, fused=True), "sweep_score"),
+        "geo_score_et": (dict(budgets=et, use_pallas=True), "geo_score"),
+        "pruned_plain": (dict(budgets=pr), None),
+        "pruned": (dict(budgets=pr, fused=True), "sweep_score_pruned"),
+    }
+    main_counts = {name: 0 for name in SOURCES}
+    executors: dict[str, object] = {}
+    outputs: dict[str, list] = {}
+    latency: dict[str, list] = {}
+    oracle0 = plain_ex.engine.oracle(batches[0])
+    for name, (kw, kernel) in variants.items():
+        t = time.perf_counter()
+        ex = plain_ex if name == "plain" else make_executor("single", corpus, **kw)
+        executors[name] = ex
+        build_s = time.perf_counter() - t
+        ex.run(batches[0])  # warm-up: allocator and first-launch costs
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        outs, times = [], []
+        for b in batches:
+            t = time.perf_counter()
+            res = ex.run(b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            outs.append(res)
+        counts = launch_counts()
+        for k, n in counts.items():
+            want_n = len(batches) if k == kernel else 0
+            check(n == want_n, f"{name}: {k} launched {n} times, expected {want_n}")
+            main_counts[k] += n
+        for res in outs:
+            ids, scores = res.ids, res.scores
+            check(tuple(ids.shape) == (BATCH, budgets.top_k), f"{name}: ids shape")
+            check(bool(((ids >= -1) & (ids < N_DOCS)).all()), f"{name}: ids out of range")
+            check(bool(torch.isfinite(scores[ids >= 0]).all()), f"{name}: non-finite score")
+        rec = topk_recall_np(oracle0.ids.cpu().numpy(), outs[0].ids.cpu().numpy())
+        stats = {k: float(sum(float(r.stats[k].double().sum()) for r in outs)) for k in outs[0].stats}
+        say(f"phase 3: {name}: index {build_s:.1f} s; {len(batches)} batches of {BATCH}; "
+            f"launches {counts}; recall@10 vs oracle (batch 0) {rec:.4f}")
+        say(f"phase 3: {name}: stats sums " + json.dumps(stats))
+        outputs[name] = outs
+        latency[name] = times
+    for a, b, note in (
+        ("fused", "plain", "; its kernel's scores select nothing without early termination"),
+        ("geo_score", "plain", "; its kernel's scores select nothing without early termination"),
+        ("fused_et", "plain_et", "; the kernel's scores pick the candidates"),
+        ("geo_score_et", "plain_et", "; the kernel's scores pick the candidates"),
+        ("pruned", "pruned_plain", "; the kernel's scores and skips pick the candidates"),
+    ):
+        for i, (x, y) in enumerate(zip(outputs[a], outputs[b])):
+            results_equal(x, y, f"{a} vs {b} batch {i}", torch)
+        say(f"phase 3: {a} == {b} in ids, scores and every stats counter{note}")
+    del outputs
+
+    # ---- phase 4: timings at the main path's shapes ---------------------
+    rows = []
+    rects, amps, _, ok = sidx.fetch_sweeps(sp, ss, ee, S)
+    amps = torch.where(ok, amps, 0.0).contiguous()
+    n = amps.numel()
+    kern = lambda: GK.geo_score_cuda(rects, amps, qr, qa)  # noqa: E731
+    plain = lambda: GR.geo_score_toeprints_ref(rects, amps, qr, qa)  # noqa: E731
+    rows.append(("geo_score", kern, plain, *bound_ms(n * (STORE_BYTES + 4.0), n * OPS_PER_POSITION)))
+    del ok
+
+    store = (sp.tp_rects, sp.tp_amps, None)
+    pad_budget = SO.padded_budget(S)
+    T = sp.n_toeprints
+    safe, aligned, block_starts, bounds = SO.sweep_window_offsets(ss, ee, T)
+    block_starts = block_starts.contiguous()
+    pos = block_starts.long()[..., None] * SK.TILE + torch.arange(pad_budget, device=dev)
+    touched = torch.zeros(T, dtype=torch.bool, device=dev)
+    touched[pos[pos < T]] = True
+    n_out = pos.numel()
+    n_live = int((pos < T).sum())
+    kern = lambda: SK.sweep_score_planar(block_starts, qr, qa, store, pad_budget)  # noqa: E731
+    plain = lambda: SR.sweep_score_planar_ref(block_starts, qr, qa, store, pad_budget)  # noqa: E731
+    rows.append(("sweep_score", kern, plain, *bound_ms(
+        float(touched.sum()) * STORE_BYTES + n_out * 4.0, n_live * OPS_PER_POSITION)))
+
+    bs = sp.block_size
+    bpt = SK.TILE // bs
+    n_tiles = pad_budget // SK.TILE
+    ub = SO.block_upper_bounds(sp.blk_mbr, sp.blk_max_amp, sp.blk_max_mass, b0.rects, b0.amps)
+    win_ub, _ = SO.window_block_bounds(ub, block_starts, bounds, n_tiles, bs)
+    win_ub = win_ub.contiguous()
+    floor = torch.zeros((BATCH,), dtype=torch.float32, device=dev)
+    pargs = (block_starts, bounds, floor, win_ub, qr, qa, store, pad_budget,
+             budgets.max_candidates, bpt)
+    _, scored = SK.sweep_score_pruned_planar(*pargs)
+    scored_pos = scored.bool().repeat_interleave(bs, dim=2) & (pos < T)  # [B, k, pad_budget]
+    touched.zero_()
+    touched[pos[scored_pos]] = True
+    n_scored = int(scored_pos.sum())
+    kern = lambda: SK.sweep_score_pruned_planar(*pargs)  # noqa: E731
+    plain = lambda: SR.sweep_score_pruned_planar_ref(*pargs)  # noqa: E731
+    rows.append(("sweep_score_pruned", kern, plain, *bound_ms(
+        float(touched.sum()) * STORE_BYTES + n_out * 4.0 + win_ub.numel() * 8.0,
+        n_scored * OPS_PER_POSITION)))
+    say(f"phase 4: pruned kernel scores {n_scored} of {n_out} window positions")
+
+    table = []
+    for name, kern, plain, b_ms, b_by in rows:
+        k_out, p_out = kern(), plain()
+        for x, y in zip(k_out if isinstance(k_out, tuple) else (k_out,),
+                        p_out if isinstance(p_out, tuple) else (p_out,)):
+            max_err[name] = max(max_err[name], exact(x, y, f"{name} at timing shapes", torch))
+        ms_kernel = time_ms(kern, torch)
+        ms_plain = time_ms(plain, torch, runs=RUNS)
+        src, replaces = SOURCES[name]
+        table.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": main_counts[name], "max_abs_err": max_err[name],
+            "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
+        n_variants = sum(k == name for _, k in variants.values())
+        say(f"phase 4: {name}: kernel {ms_kernel:.4f} ms, plain {ms_plain:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), launches per batch "
+            f"{main_counts[name] / (len(batches) * n_variants):g} in each of "
+            f"{n_variants} variant(s)")
+    for name, times in latency.items():
+        say(f"phase 4: {name}: batch latency median {1e3 * statistics.median(times):.2f} ms, "
+            f"{len(times) * BATCH / sum(times):.1f} queries/s")
+    # ---- phase 5: one profiler pass per variant, after every timing, so
+    # no profiler session runs before or during a timed run ---------------
+    peak = torch.cuda.max_memory_allocated()
+    for name, ex in executors.items():
+        for line in profile_batch(lambda: ex.run(batches[0]), torch):
+            say(f"phase 5: {name}: profile (batch 0): {line}")
+    say(f"peak device memory {peak / 2**30:.2f} GiB; "
+        f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def profile_batch(run, torch) -> list[str]:
+    """One profiler pass over ``run()`` (one batch).  For each K-SWEEP stage
+    span: its host ms, its extent on the device timeline (the profiler's
+    device-side annotation of the span) and the device-busy ms inside that
+    extent; then the device's busy time and idle share over the batch, and
+    the device ops that took the longest.  Busy time is the union of kernel,
+    copy and set intervals, annotations excluded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core.algorithms import SPANS
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke.batch"):
+            run()
+            torch.cuda.synchronize()
+    events = prof.events()
+    labels = {*SPANS, "chip_smoke.batch"}
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    work = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in device if e.name not in labels)
+    marks = {e.name: e for e in device if e.name in SPANS}
+
+    def busy_us(w0, w1):
+        busy, covered = 0.0, w0  # union of work intervals inside [w0, w1)
+        for s0, s1, _ in work:
+            s0, s1 = max(s0, covered), min(s1, w1)
+            if s1 > s0:
+                busy += s1 - s0
+                covered = s1
+        return busy
+
+    lines = []
+    for name in SPANS:
+        host = sum(e.cpu_time_total for e in events
+                   if e.name == name and e.device_type == DeviceType.CPU)
+        line = f"{name}: host {host / 1e3:.3f} ms"
+        if name in marks:
+            m = marks[name].time_range
+            line += (f", device extent {(m.end - m.start) / 1e3:.3f} ms, "
+                     f"busy {busy_us(m.start, m.end) / 1e3:.3f} ms")
+        lines.append(line)
+    batch = [e for e in events if e.name == "chip_smoke.batch"
+             and e.device_type == DeviceType.CPU]
+    if not batch or not work:
+        lines.append("device time: not measured (the profiler saw no device activity)")
+        return lines
+    w0, w1 = batch[0].time_range.start, batch[0].time_range.end
+    busy, wall = busy_us(w0, w1), max(w1 - w0, 1e-9)
+    lines.append(f"batch {wall / 1e3:.3f} ms (host clock, profiled), device busy "
+                 f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall:.4f}")
+    by_name: dict[str, float] = {}
+    for s0, s1, n in work:
+        by_name[n] = by_name.get(n, 0.0) + (s1 - s0)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    lines.append("top device ops: " + "; ".join(f"{n[:60]} {us / 1e3:.3f} ms" for n, us in top))
+    return lines
+
+
+def brute_force_oracle(corpus, batch, k):
+    """Exact top-k by scoring every document in numpy — the oracle's
+    semantics (AND text match, geo overlap > 0, text + geo/mass + 0.2·pr),
+    written independently of the port; ties go to the lower doc id."""
+    import numpy as np
+
+    terms = batch.terms.numpy()
+    q_rects, q_amps = batch.rects.numpy(), batch.amps.numpy()
+    N = len(corpus.doc_terms)
+    df = np.zeros((corpus.n_terms,), np.float64)
+    tf = []
+    for d in corpus.doc_terms:
+        u, c = np.unique(d, return_counts=True)
+        df[u] += 1
+        tf.append(dict(zip(u.tolist(), c.tolist())))
+    idf = np.log(1.0 + N / np.maximum(df, 1.0))
+    out = np.full((len(terms), k), -1, np.int64)
+    r, a = corpus.doc_rects, corpus.doc_amps
+    for i, (t, qr, qa) in enumerate(zip(terms, q_rects, q_amps)):
+        t = t[t >= 0]
+        text = np.zeros(N)
+        match = np.ones(N, bool)
+        for w in t.tolist():
+            f = np.array([tf_d.get(w, 0) for tf_d in tf], np.float64)
+            match &= f > 0
+            imp = (idf[w] * (1.0 + np.log(np.maximum(f, 1))) / np.sqrt(
+                [max(len(d), 1) for d in corpus.doc_terms])).astype(np.float32)
+            text += np.where(f > 0, imp, 0.0)
+        iw = np.clip(np.minimum(r[:, :, None, 2], qr[None, None, :, 2])
+                     - np.maximum(r[:, :, None, 0], qr[None, None, :, 0]), 0, None)
+        ih = np.clip(np.minimum(r[:, :, None, 3], qr[None, None, :, 3])
+                     - np.maximum(r[:, :, None, 1], qr[None, None, :, 1]), 0, None)
+        g = (iw * ih * a[:, :, None] * qa[None, None, :]).sum(axis=(1, 2))
+        mass = max(float((np.clip(qr[:, 2] - qr[:, 0], 0, None)
+                          * np.clip(qr[:, 3] - qr[:, 1], 0, None) * qa).sum()), 1e-12)
+        score = text + g / mass + 0.2 * corpus.pagerank
+        score = np.where(match & (g > 0), score, -np.inf)
+        order = np.argsort(-score, kind="stable")[:k]
+        out[i] = np.where(np.isfinite(score[order]), order, -1)
+    return out
+
+
+if __name__ == "__main__":
+    sys.exit(main())

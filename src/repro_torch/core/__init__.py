@@ -1,0 +1,30 @@
+"""The paper's geographic query processing, ported to PyTorch.
+
+Modules (each the counterpart of ``repro/core/<name>.py``):
+  geometry       rectangles, Morton codes, tile math
+  footprint      amplitude-weighted rect-set footprints + geo scores
+  text_index     CSR inverted index + impacts (docid layout, uncompressed)
+  spatial_index  Morton toe-print store + tile-interval grid
+  ranking        combined text/geo/pagerank ranking
+  algorithms     K-SWEEP batched pipeline + exact oracle
+  planner        QueryPlan
+  engine         GeoSearchEngine facade
+  convert        the reference's index arrays → the port's GeoIndex
+"""
+from repro_torch.core.algorithms import (
+    ALGORITHMS,
+    QueryBatch,
+    QueryBudgets,
+    TopKResult,
+    get_algorithm,
+    register_algorithm,
+)
+from repro_torch.core.engine import GeoIndex, GeoSearchEngine
+from repro_torch.core.planner import QueryPlan
+from repro_torch.core.ranking import RankWeights
+
+__all__ = [
+    "GeoIndex", "GeoSearchEngine", "QueryBatch", "QueryBudgets",
+    "TopKResult", "ALGORITHMS", "get_algorithm", "register_algorithm",
+    "QueryPlan", "RankWeights",
+]

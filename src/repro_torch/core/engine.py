@@ -1,0 +1,161 @@
+"""GeoSearchEngine: build / hold indexes, execute batched geo queries
+(port of ``repro/core/engine.py``).
+
+Execution is plan-driven: every call resolves to a
+:class:`~repro_torch.core.planner.QueryPlan` and the function cache is keyed
+by plan, so one engine can hold several pipeline variants against one
+index.  The engine lives on one device — CUDA unless ``device="cpu"`` is
+passed to :meth:`GeoSearchEngine.build`.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from functools import partial
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import algorithms as alg
+from repro_torch.core import ranking
+from repro_torch.core.planner import QueryPlan
+from repro_torch.core.spatial_index import (
+    SpatialIndex,
+    build_spatial_index_np,
+    normalize_compress,
+)
+from repro_torch.core.text_index import TextIndex, build_text_index_np
+from repro_torch.device import resolve_device
+
+
+@dataclass(frozen=True)
+class GeoIndex:
+    """The full index state, on one device."""
+
+    text: TextIndex
+    spatial: SpatialIndex
+    pagerank: torch.Tensor  # f32[N]
+
+    @property
+    def device(self) -> torch.device:
+        return self.pagerank.device
+
+
+@dataclass
+class GeoSearchEngine:
+    index: GeoIndex
+    budgets: alg.QueryBudgets
+    weights: ranking.RankWeights
+    _fn_cache: dict = field(default_factory=dict, repr=False, compare=False)
+
+    @staticmethod
+    def build(
+        doc_terms: list[np.ndarray],
+        doc_rects: np.ndarray,
+        doc_amps: np.ndarray,
+        n_terms: int,
+        pagerank: np.ndarray | None = None,
+        grid: int = 64,
+        m_intervals: int = 2,
+        n_bitmap_terms: int = 0,
+        budgets: alg.QueryBudgets | None = None,
+        weights: ranking.RankWeights | None = None,
+        compress: "bool | str" = False,
+        block_size: int = 128,
+        idf: np.ndarray | None = None,
+        layout: str = "docid",
+        device: "str | torch.device | None" = None,
+    ) -> "GeoSearchEngine":
+        """Build both indexes on ``device`` (default CUDA; raises without it)."""
+        if normalize_compress(compress) != "none" or layout != "docid":
+            raise NotImplementedError(
+                "compressed stores and layout='impact' are not ported yet: the "
+                "engine compresses text and spatial stores together, and the "
+                "packed text store arrives with the TEXT-FIRST slice"
+            )
+        dev = resolve_device(device)
+        text = build_text_index_np(doc_terms, n_terms, n_bitmap_terms, idf=idf, device=dev)
+        spatial = build_spatial_index_np(
+            doc_rects, doc_amps, grid, m_intervals, block_size=block_size, device=dev
+        )
+        if pagerank is None:
+            pagerank = np.full((len(doc_terms),), 0.1, dtype=np.float32)
+        return GeoSearchEngine.from_index(
+            GeoIndex(text, spatial, torch.from_numpy(np.asarray(pagerank, np.float32)).to(dev)),
+            budgets,
+            weights,
+        )
+
+    @staticmethod
+    def from_index(
+        index: GeoIndex,
+        budgets: alg.QueryBudgets | None = None,
+        weights: ranking.RankWeights | None = None,
+    ) -> "GeoSearchEngine":
+        """An engine over an existing index (e.g. one converted from the
+        reference with :func:`repro_torch.core.convert.geo_index_from_numpy`)."""
+        budgets = alg.with_sweep_budget_cap(
+            budgets or alg.QueryBudgets(), index.spatial.n_toeprints
+        )
+        return GeoSearchEngine(index, budgets, weights or ranking.RankWeights())
+
+    @property
+    def device(self) -> torch.device:
+        return self.index.device
+
+    def query(
+        self,
+        batch: alg.QueryBatch,
+        algorithm: str = "k_sweep",
+        plan: QueryPlan | None = None,
+        **kw,
+    ) -> alg.TopKResult:
+        """Run one batch under a plan (``plan=None``: the default plan for
+        ``algorithm`` from the engine's own budgets)."""
+        if plan is None:
+            if algorithm == "auto":
+                raise NotImplementedError(
+                    "algorithm='auto' needs the cost-based planner, which is not "
+                    "ported yet"
+                )
+            plan = QueryPlan(algorithm, self.budgets, fused=bool(kw.pop("fused", False)))
+        else:
+            kw.pop("fused", None)  # the plan owns the fused flag
+        fn = self._compiled(plan, tuple(sorted(kw.items())))
+        return fn(batch.to(self.device))
+
+    def oracle(self, batch: alg.QueryBatch, k: int | None = None) -> alg.TopKResult:
+        idx = self.index
+        return alg.oracle(
+            idx.text, idx.spatial, idx.pagerank, batch.to(self.device),
+            k or self.budgets.top_k, self.weights,
+        )
+
+    def _compiled(self, plan: QueryPlan, kw_key) -> Callable:
+        """Plan-keyed function cache (one bound pipeline per plan × kw)."""
+        key = (plan, kw_key)
+        if key not in self._fn_cache:
+            idx = self.index
+            self._fn_cache[key] = partial(
+                alg.get_algorithm(plan.algorithm),
+                idx.text,
+                idx.spatial,
+                idx.pagerank,
+                budgets=alg.with_sweep_budget_cap(plan.budgets, idx.spatial.n_toeprints),
+                weights=self.weights,
+                **{**plan.engine_kw(), **dict(kw_key)},
+            )
+        return self._fn_cache[key]
+
+    def recall_at_k(
+        self,
+        batch: alg.QueryBatch,
+        algorithm: str = "k_sweep",
+        k: int | None = None,
+        **kw,
+    ) -> float:
+        """Recall@k of an algorithm vs the exact oracle."""
+        k = k or self.budgets.top_k
+        got = self.query(batch, algorithm, **kw)
+        want = self.oracle(batch, k)
+        return ranking.topk_recall_np(want.ids.cpu().numpy(), got.ids.cpu().numpy())

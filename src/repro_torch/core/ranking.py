@@ -1,0 +1,73 @@
+"""Ranking: F(D, q) = w_g·g(fD, fq) + w_p·pr(D) + w_t·Ftext(D, q)
+(port of ``repro/core/ranking.py``)."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class RankWeights:
+    w_text: float = 1.0
+    w_geo: float = 1.0
+    w_pr: float = 0.2
+
+
+def combine_scores(
+    weights: RankWeights,
+    text_score: torch.Tensor,
+    geo_score: torch.Tensor,
+    pagerank: torch.Tensor,
+    query_mass: torch.Tensor,
+    require_geo: bool = True,
+) -> torch.Tensor:
+    """Combined relevance; −inf for documents with empty footprint overlap.
+
+    ``query_mass`` broadcasts against the scores (``[B, 1]`` for ``[B, C]``).
+    The ``require_geo`` gate is exact because every caller passes a geo
+    score computed directly from each doc's own rect rows (see the
+    reference's exactness contract).
+    """
+    norm = torch.clamp(query_mass, min=1e-12)
+    score = (
+        weights.w_text * text_score
+        + weights.w_geo * geo_score / norm
+        + weights.w_pr * pagerank
+    )
+    if require_geo:
+        score = torch.where(geo_score > 0.0, score, -torch.inf)
+    return score
+
+
+def select_top(values: torch.Tensor, k: int):
+    """``jax.lax.top_k`` along the last axis: among equal values the lower
+    *position* wins (a stable descending sort; ``torch.topk`` promises no
+    tie order).  Returns (values, positions)."""
+    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def top_k(scores: torch.Tensor, doc_ids: torch.Tensor, k: int):
+    """Top-k docs by score, ties to the lower position; non-finite picks
+    get id −1."""
+    vals, idx = select_top(scores, k)
+    ids = torch.gather(doc_ids, -1, idx)
+    ids = torch.where(torch.isfinite(vals), ids, -1)
+    return ids, vals
+
+
+def topk_recall_np(want_ids, got_ids) -> float:
+    """Fraction of valid reference ids found in the candidate top-k lists
+    (``[B, k]`` id arrays, −1 padded); 1.0 when the reference has none."""
+    want = np.asarray(want_ids)
+    got = np.asarray(got_ids)
+    want_valid = want >= 0
+    found = (
+        (want[:, :, None] == got[:, None, :])
+        & want_valid[:, :, None]
+        & (got[:, None, :] >= 0)
+    ).any(axis=-1)
+    total = int(want_valid.sum())
+    return float(found.sum()) / total if total else 1.0

@@ -1,0 +1,41 @@
+// Shared pieces of the port's hand-written Hopper kernels.
+//
+// Build rule: every source is compiled with -fmad=false.  The plain PyTorch
+// versions run each multiply and add as its own rounded op, so the kernels
+// must not contract `acc + (w*h)*qa` into an FMA; without contraction they
+// are bitwise equal to the plain versions, which keeps the pruned sweep's
+// θ trajectory and skip flags identical on both paths.
+#pragma once
+
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace geo {
+
+constexpr int Q_MAX = 8;      // query rects per pass (zero-padded)
+constexpr int LANES = 128;    // toe prints per int8 amp-scale block
+constexpr int TILE = 1024;    // toe prints per sweep tile
+
+// stored-dtype codes shared with the Python wrappers
+enum Kind : int { F32 = 0, F16 = 1, I8 = 2 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+
+// amp[t] * Σ_j area(rect ∩ q_j) · q_amp_j accumulated in slot order — the
+// Pallas kernels' arithmetic: acc + (w*h)*qa, then × amp.
+__device__ __forceinline__ float score_rect(
+    float x0, float y0, float x1, float y1, const float4* q, const float* qa) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int j = 0; j < Q_MAX; ++j) {
+    const float w = fmaxf(fminf(x1, q[j].z) - fmaxf(x0, q[j].x), 0.0f);
+    const float h = fmaxf(fminf(y1, q[j].w) - fmaxf(y0, q[j].y), 0.0f);
+    acc = acc + (w * h) * qa[j];
+  }
+  return acc;
+}
+
+}  // namespace geo

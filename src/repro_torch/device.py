@@ -1,0 +1,20 @@
+"""Device resolution shared by every entry point of the port."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
+    """``None`` means the CUDA device; any explicit device is taken as given.
+
+    There is no silent CPU fallback: without CUDA the default raises and
+    names the explicit opt-in.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device=\"cpu\" to run the port "
+                "on the CPU (its kernels then run their plain PyTorch versions)"
+            )
+        return torch.device("cuda")
+    return torch.device(device)

@@ -1,0 +1,299 @@
+"""PyTorch port: each kernel's plain version (what the wrappers run on CPU
+tensors) against the reference's Pallas kernels in interpret mode and their
+jnp oracles, over the reference's own kernel test cases.  The hand-written
+CUDA kernels are held to these plain versions on the card by
+``tests/test_torch_cuda.py``."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.footprint import geo_score as j_fp_score  # noqa: E402
+from repro.core.spatial_index import SCALE_BLOCK, block_metadata_np, quantize_amps_np  # noqa: E402
+from repro.kernels.geo_score.ops import geo_score_docs as j_geo_docs  # noqa: E402
+from repro.kernels.geo_score.ops import geo_score_toeprints as j_geo  # noqa: E402
+from repro.kernels.geo_score.ref import geo_score_toeprints_ref as j_geo_ref  # noqa: E402
+from repro.kernels.sweep_score.ops import sweep_score as j_sweep  # noqa: E402
+from repro.kernels.sweep_score.ops import sweep_score_pruned as j_pruned  # noqa: E402
+from repro.kernels.sweep_score.ref import sweep_score_pruned_ref as j_pruned_ref  # noqa: E402
+from repro.kernels.sweep_score.ref import sweep_score_ref as j_sweep_ref  # noqa: E402
+from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
+from repro_torch.kernels.geo_score import ops as pg  # noqa: E402
+from repro_torch.kernels.sweep_score import ops as ps  # noqa: E402
+
+INVALID = 2**31 - 1
+TOL = dict(rtol=1e-6, atol=1e-7)  # XLA and torch may round a sum in another order
+QR2 = np.array([[0.2, 0.2, 0.6, 0.6], [0.5, 0.5, 0.9, 0.9]], np.float32)
+
+
+def _rects(rng, n):
+    lo = rng.uniform(0, 0.9, (n, 2)).astype(np.float32)
+    hi = lo + rng.uniform(0.005, 0.2, (n, 2)).astype(np.float32)
+    return np.concatenate([lo, np.minimum(hi, 1.0)], axis=1)
+
+
+def _store(rng, T):
+    lo = rng.uniform(0, 0.9, (T, 2)).astype(np.float32)
+    wh = rng.uniform(0.01, 0.08, (T, 2)).astype(np.float32)
+    return np.concatenate([lo, lo + wh], axis=1).astype(np.float32), rng.uniform(0, 1, T).astype(np.float32)
+
+
+def _sweeps(rng, T, budget, k):
+    ss = np.sort(rng.integers(0, T, k)).astype(np.int32)
+    ee = np.minimum(ss + rng.integers(1, budget + 500, k), T).astype(np.int32)
+    if k > 1:
+        ss[k // 2] = INVALID
+        ee[k // 2] = INVALID
+    return ss, ee
+
+
+def _compressed_store(rng, T, mode):
+    lo = rng.uniform(0, 0.9, (T, 2)).astype(np.float32)
+    wh = rng.uniform(0.01, 0.08, (T, 2)).astype(np.float32)
+    rects = np.concatenate([lo, lo + wh], axis=1).astype(np.float16)
+    amps = rng.uniform(-0.2, 1.0, T).astype(np.float32)
+    if mode == "int8":
+        store, scale = quantize_amps_np(amps)
+        dec = store.astype(np.float32) * np.repeat(scale, SCALE_BLOCK)[:T]
+    else:
+        store, scale = amps.astype(np.float16), None
+        dec = store.astype(np.float32)
+    return rects, store, scale, dec
+
+
+def _t(x, dev="cpu"):
+    return None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
+# ---------------------------------------------------------------------------
+# geo_score
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("T", [7, 1025, 4096])
+@pytest.mark.parametrize("Q", [1, 8])
+def test_geo_score_plain_matches_reference(T, Q):
+    rng = np.random.default_rng(T * 31 + Q)
+    r, a = _rects(rng, T), rng.uniform(0, 1, T).astype(np.float32)
+    qr, qa = _rects(rng, Q), rng.uniform(0, 1, Q).astype(np.float32)
+    got = pg.geo_score_toeprints(_t(r[None]), _t(a[None]), _t(qr[None]), _t(qa[None]))[0]
+    jargs = [jnp.asarray(x) for x in (r, a, qr, qa)]
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_geo(*jargs)), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_geo_ref(*jargs)), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float16, jnp.bfloat16])
+def test_geo_score_narrow_inputs_match_reference(dtype):
+    """The reference casts narrow inputs to f32 before scoring; the port's
+    wrapper takes f32, so the test hands it the same cast values."""
+    rng = np.random.default_rng(9)
+    args = [jnp.asarray(_rects(rng, 512)).astype(dtype),
+            jnp.asarray(rng.uniform(0, 1, 512).astype(np.float32)).astype(dtype),
+            jnp.asarray(_rects(rng, 4)).astype(dtype), jnp.ones((4,), dtype)]
+    want = np.asarray(j_geo(*args))
+    got = pg.geo_score_toeprints(*[_t(np.asarray(x.astype(jnp.float32))[None]) for x in args])
+    np.testing.assert_allclose(got[0].numpy(), want, **TOL)
+
+
+def test_geo_score_batch_rows_and_empty_rects():
+    """Each batch row is scored against its own query; empty rects score 0."""
+    rng = np.random.default_rng(1)
+    r = np.stack([_rects(rng, 300) for _ in range(3)])
+    r[1, 3] = [1.0, 1.0, 0.0, 0.0]
+    a = rng.uniform(0, 1, (3, 300)).astype(np.float32)
+    qr = np.stack([_rects(rng, 2) for _ in range(3)])
+    qa = rng.uniform(0.5, 1, (3, 2)).astype(np.float32)
+    got = pg.geo_score_toeprints(_t(r), _t(a), _t(qr), _t(qa)).numpy()
+    for b in range(3):
+        want = np.asarray(j_geo(*[jnp.asarray(x[b]) for x in (r, a, qr, qa)]))
+        np.testing.assert_allclose(got[b], want, **TOL)
+    assert got[1, 3] == 0.0
+
+
+def test_geo_score_docs_matches_reference():
+    rng = np.random.default_rng(2)
+    C, R, Q = 33, 3, 2
+    rects = _rects(rng, C * R).reshape(C, R, 4)
+    amps = rng.uniform(0, 1, (C, R)).astype(np.float32)
+    qr, qa = _rects(rng, Q), np.ones((Q,), np.float32)
+    got = pg.geo_score_docs(_t(rects[None]), _t(amps[None]), _t(qr[None]), _t(qa[None]))[0]
+    jargs = [jnp.asarray(x) for x in (rects, amps, qr, qa)]
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_geo_docs(*jargs)), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_fp_score(*jargs)), **TOL)
+
+
+def test_wrappers_reject_bad_inputs():
+    r = torch.zeros((1, 8, 4))
+    a = torch.zeros((1, 8))
+    q = torch.zeros((1, 2, 4))
+    qa = torch.zeros((1, 2))
+    with pytest.raises(TypeError):
+        pg.geo_score_toeprints(r.double(), a, q, qa)
+    with pytest.raises(ValueError):
+        pg.geo_score_toeprints(r[:, :, :3], a, q, qa)
+    with pytest.raises(ValueError):
+        pg.geo_score_toeprints(r.transpose(1, 2).contiguous().transpose(1, 2), a, q, qa)
+    with pytest.raises(ValueError):
+        pg.geo_score_toeprints(r, a, torch.zeros((1, 9, 4)), torch.zeros((1, 9)))
+    tp = torch.zeros((100, 4))
+    with pytest.raises(TypeError):
+        ps.sweep_score(tp, torch.zeros(100), torch.zeros((1, 2), dtype=torch.int64),
+                       torch.zeros((1, 2), dtype=torch.int32), q, qa, 64)
+
+
+@pytest.mark.parametrize("coords,amps,scale", [
+    (torch.float32, torch.float16, False),
+    (torch.float32, torch.int8, True),
+    (torch.float16, torch.float32, False),
+    (torch.float16, torch.int8, False),
+    (torch.float32, torch.float32, True),
+])
+def test_sweep_wrappers_accept_only_built_store_dtypes(coords, amps, scale):
+    """Only the stores the compress modes produce (f32/f32, f16/f16, f16 with
+    int8 amps and their scale) reach the kernels; any other pairing raises."""
+    T = 300
+    store = (torch.zeros((T, 4), dtype=coords), torch.zeros(T, dtype=amps))
+    sc = torch.ones(3) if scale else None
+    ss = torch.zeros((1, 2), dtype=torch.int32)
+    q, qa = torch.zeros((1, 2, 4)), torch.zeros((1, 2))
+    meta = block_metadata_np(np.zeros((T, 4), np.float32), np.zeros(T, np.float32), 128)
+    with pytest.raises((TypeError, ValueError)):
+        ps.sweep_score(*store, ss, ss, q, qa, 64, tp_amp_scale=sc)
+    with pytest.raises((TypeError, ValueError)):
+        ps.sweep_score_pruned(*store, *map(_t, meta), ss, ss, q, qa, 64, 256, 128,
+                              tp_amp_scale=sc)
+
+
+# ---------------------------------------------------------------------------
+# sweep_score (unpruned)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("T,budget,k", [(5000, 2048, 4), (33000, 1024, 8), (2048, 2048, 3)])
+def test_sweep_score_plain_matches_reference(T, budget, k):
+    rng = np.random.default_rng(T + budget + k)
+    rects, amps = _store(rng, T)
+    ss, ee = _sweeps(rng, T, budget, k)
+    qa = np.ones((2,), np.float32)
+    got_s, got_v = ps.sweep_score(_t(rects), _t(amps), _t(ss[None]), _t(ee[None]),
+                                  _t(QR2[None]), _t(qa[None]), budget)
+    jargs = [jnp.asarray(x) for x in (rects, amps, ss, ee, QR2, qa)]
+    for fn in (j_sweep, j_sweep_ref):
+        want_s, want_v = fn(*jargs, budget)
+        np.testing.assert_array_equal(got_v[0].numpy(), np.asarray(want_v))
+        np.testing.assert_allclose(got_s[0].numpy(), np.asarray(want_s), **TOL)
+
+
+@pytest.mark.parametrize("mode", ["f16", "int8"])
+def test_sweep_score_compressed_store_matches_reference(mode):
+    rng = np.random.default_rng(41 if mode == "f16" else 43)
+    T, budget, k = 5000, 2048, 4
+    rects, store, scale, _ = _compressed_store(rng, T, mode)
+    ss, ee = _sweeps(rng, T, budget, k)
+    qa = np.ones((2,), np.float32)
+    got = ps.sweep_score(_t(rects), _t(store), _t(ss[None]), _t(ee[None]), _t(QR2[None]),
+                         _t(qa[None]), budget, tp_amp_scale=_t(scale))
+    sc = None if scale is None else jnp.asarray(scale)
+    jargs = [jnp.asarray(x) for x in (rects, store, ss, ee, QR2, qa)]
+    want = j_sweep(*jargs, budget, tp_amp_scale=sc)
+    np.testing.assert_array_equal(got[1][0].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[0][0].numpy(), np.asarray(want[0]), **TOL)
+
+
+def test_sweep_score_all_invalid_and_batch_rows():
+    rng = np.random.default_rng(9)
+    rects, amps = _store(rng, 4000)
+    ss = np.full((2, 4), INVALID, np.int32)
+    ss[1, :2] = [100, 2500]
+    ee = ss.copy()
+    ee[1, :2] = [1900, 3999]
+    qr = np.stack([np.array([[0.0, 0.0, 1.0, 1.0]], np.float32), QR2[:1]])
+    qa = np.ones((2, 1), np.float32)
+    got_s, got_v = ps.sweep_score(_t(rects), _t(amps), _t(ss), _t(ee), _t(qr), _t(qa), 1024)
+    assert not bool(got_v[0].any()) and float(got_s[0].abs().max()) == 0.0
+    want_s, want_v = j_sweep(*[jnp.asarray(x) for x in (rects, amps, ss[1], ee[1], qr[1], qa[1])], 1024)
+    np.testing.assert_array_equal(got_v[1].numpy(), np.asarray(want_v))
+    np.testing.assert_allclose(got_s[1].numpy(), np.asarray(want_s), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# sweep_score_pruned
+# ---------------------------------------------------------------------------
+
+def _assert_pruned_equal(got, want, row=0):
+    np.testing.assert_array_equal(got[1][row].numpy(), np.asarray(want[1]))  # valid
+    np.testing.assert_array_equal(got[2][row].numpy(), np.asarray(want[2]))  # streamed
+    assert int(got[3][row]) == int(want[3]) and int(got[4][row]) == int(want[4])
+    np.testing.assert_allclose(got[0][row].numpy(), np.asarray(want[0]), **TOL)
+
+
+@pytest.mark.parametrize("T,budget,k,C,bs,floor", [
+    (1024, 1024, 1, 256, 128, 0.0),
+    (5000, 2048, 4, 1024, 128, 0.05),
+    (33000, 1024, 8, 4096, 512, 0.0),
+    (2048, 2048, 3, 512, 1024, 0.01),
+])
+def test_pruned_plain_matches_reference(T, budget, k, C, bs, floor):
+    """Scores, and every per-block skip decision, agree with the Pallas
+    kernel (interpret) and with the jnp oracle."""
+    rng = np.random.default_rng(T + budget + k + bs)
+    rects, amps = _store(rng, T)
+    meta = block_metadata_np(rects, amps, bs)
+    ss, ee = _sweeps(rng, T, budget, k)
+    qa = np.ones((2,), np.float32)
+    got = ps.sweep_score_pruned(
+        _t(rects), _t(amps), *map(_t, meta), _t(ss[None]), _t(ee[None]),
+        _t(QR2[None]), _t(qa[None]), budget, C, bs, floor,
+    )
+    jargs = [jnp.asarray(x) for x in (rects, amps, *meta, ss, ee, QR2, qa)]
+    _assert_pruned_equal(got, j_pruned(*jargs, budget, C, bs, floor))
+    _assert_pruned_equal(got, j_pruned_ref(*jargs, budget, C, bs, floor))
+
+
+@pytest.mark.parametrize("mode,bs,C,floor", [("f16", 128, 1024, 0.0), ("int8", 256, 512, 0.02)])
+def test_pruned_compressed_store_matches_reference(mode, bs, C, floor):
+    rng = np.random.default_rng(1000 + bs + (1 if mode == "int8" else 0))
+    T, budget, k = 5000, 2048, 4
+    rects, store, scale, dec = _compressed_store(rng, T, mode)
+    meta = block_metadata_np(rects.astype(np.float32), dec, bs)
+    ss = np.sort(rng.integers(0, T, k)).astype(np.int32)
+    ee = np.minimum(ss + rng.integers(1, budget + 500, k), T).astype(np.int32)
+    qa = np.ones((2,), np.float32)
+    got = ps.sweep_score_pruned(
+        _t(rects), _t(store), *map(_t, meta), _t(ss[None]), _t(ee[None]),
+        _t(QR2[None]), _t(qa[None]), budget, C, bs, floor, tp_amp_scale=_t(scale),
+    )
+    sc = None if scale is None else jnp.asarray(scale)
+    jargs = [jnp.asarray(x) for x in (rects, store, *meta, ss, ee, QR2, qa)]
+    _assert_pruned_equal(got, j_pruned(*jargs, budget, C, bs, floor, tp_amp_scale=sc))
+
+
+def test_pruned_batch_rows_keep_their_own_threshold():
+    """Rows of one batch (one launch) walk independent θ buffers: each row
+    equals the reference run on that query alone."""
+    rng = np.random.default_rng(77)
+    T, budget, k, C, bs = 6000, 1024, 3, 1024, 128
+    rects, amps = _store(rng, T)
+    meta = block_metadata_np(rects, amps, bs)
+    sw = [_sweeps(rng, T, budget, k) for _ in range(3)]
+    ss, ee = np.stack([s for s, _ in sw]), np.stack([e for _, e in sw])
+    qr = np.stack([QR2, QR2[::-1], np.array([[0.0, 0.0, 1.0, 1.0], [1, 1, 0, 0]], np.float32)])
+    qa = np.array([[1.0, 1.0], [0.5, 1.0], [1.0, 0.0]], np.float32)
+    floors = np.array([0.0, 0.01, 0.0], np.float32)
+    got = ps.sweep_score_pruned(
+        _t(rects), _t(amps), *map(_t, meta), _t(ss), _t(ee), _t(qr), _t(qa),
+        budget, C, bs, _t(floors),
+    )
+    for b in range(3):
+        jargs = [jnp.asarray(x) for x in (rects, amps, *meta, ss[b], ee[b], qr[b], qa[b])]
+        _assert_pruned_equal(got, j_pruned(*jargs, budget, C, bs, float(floors[b])), row=b)
+
+
+def test_cpu_calls_do_not_count_as_launches():
+    reset_launch_counts()
+    rng = np.random.default_rng(3)
+    rects, amps = _store(rng, 2048)
+    ps.sweep_score(_t(rects), _t(amps), _t(np.array([[0]], np.int32)),
+                   _t(np.array([[900]], np.int32)), _t(QR2[None]),
+                   _t(np.ones((1, 2), np.float32)), 1024)
+    assert launch_counts() == {"sweep_score": 0, "geo_score": 0, "sweep_score_pruned": 0}
