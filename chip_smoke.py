@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's main path on one GPU and check it.
+"""Run the PyTorch/CUDA port's main paths on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -7,9 +7,12 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the build time;
 2. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes — f32, f16 and int8 stores, INVALID-padded sweeps,
-   all four block sizes; masks, flags and block counts exactly, scores
-   bitwise (the kernels are compiled without FMA contraction);
+   main paths' shapes — the sweep kernels on f32, f16 and int8 stores,
+   INVALID-padded sweeps, all four block sizes; text_probe on f32 and f16
+   impacts, with and without the monotone cut, at max_candidates 2048 and
+   1000, with and without a select floor; bitmap_and_popcount on 2, 4 and
+   8 rows of the index's bitmaps — masks, flags and block counts exactly,
+   scores bitwise (the kernels are compiled without FMA contraction);
 3. drives K-SWEEP through ``make_executor("single", ...)`` at 2^20
    documents in batches of 32 — plain, fused, geo-score kernel, each of the
    three again with early termination, pruned plain and pruned fused — and
@@ -19,11 +22,18 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    kernels' scores select nothing, so only the early-termination and
    pruned variants hold a kernel's scores to the answer); a small corpus
    gives the same answers on the card as on the CPU and as a brute-force
-   numpy oracle;
+   numpy oracle; then drives TEXT-FIRST (unpruned, and block-max pruned
+   plain and through text_probe) and GEO-FIRST on the docid, impact and
+   impact/int8 text stores — the last built by ``make_executor("single",
+   corpus, algorithm="text_first", ..., layout="impact",
+   compress="int8")`` — and checks the kernel variants against their plain
+   twins, the impact layout against the docid layout (ids and scores
+   bitwise, K-SWEEP included), and the block-bitmap conjunction prefilter
+   against the CSR intersection over the trace's term tuples;
 4. times each kernel and its plain version with CUDA events (median of
    20 runs) beside its bound, and each variant's batch latency;
-5. runs one profiler pass per variant: each K-SWEEP stage's host time and
-   device time, and the device's idle share over a batch.
+5. runs one profiler pass per variant: each stage's host time and device
+   time, and the device's idle share over a batch.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -68,7 +78,13 @@ SOURCES = {
     "sweep_score": ("src/repro_torch/csrc/sweep_score.cu", "src/repro/kernels/sweep_score/kernel.py:80"),
     "geo_score": ("src/repro_torch/csrc/geo_score.cu", "src/repro/kernels/geo_score/kernel.py:53"),
     "sweep_score_pruned": ("src/repro_torch/csrc/sweep_score.cu", "src/repro/kernels/sweep_score/kernel.py:249"),
+    "text_probe": ("src/repro_torch/csrc/text_probe.cu", "src/repro/kernels/text_probe/kernel.py:162"),
+    "bitmap_and_popcount": ("src/repro_torch/csrc/bitmap_filter.cu", "src/repro/kernels/bitmap_filter/kernel.py:47"),
 }
+# 32-bit integer operations/s: the H100 SXM has 64 INT32 lanes per SM
+# (half its FP32 lanes): 132 SMs x 64 x 1.98 GHz
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+N_BITMAP_TERMS = 64
 
 
 def check(cond: bool, what: str) -> None:
@@ -97,8 +113,8 @@ def time_ms(fn, torch, runs: int = RUNS) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -111,10 +127,13 @@ def exact(a, b, what: str, torch) -> float:
     return 0.0
 
 
-def results_equal(a, b, what: str, torch) -> None:
-    """ids, scores and every stats counter equal exactly."""
+def results_equal(a, b, what: str, torch, counters: bool = True) -> None:
+    """ids, scores and (unless ``counters`` is false) every stats counter
+    equal exactly."""
     exact(a.ids, b.ids, f"{what} ids", torch)
     exact(a.scores, b.scores, f"{what} scores", torch)
+    if not counters:
+        return
     check(set(a.stats) == set(b.stats), f"{what}: stats keys differ")
     for k in a.stats:
         exact(a.stats[k], b.stats[k], f"{what} stats[{k}]", torch)
@@ -142,11 +161,19 @@ def main() -> int:
         return 2
     import numpy as np
 
-    from repro_torch.core import QueryBudgets
+    from repro_torch.core import GeoIndex, GeoSearchEngine, QueryBudgets, RankWeights
     from repro_torch.core import spatial_index as sidx
+    from repro_torch.core.algorithms import SPANS, text_first_bounds
     from repro_torch.core.ranking import topk_recall_np
+    from repro_torch.core.text_index import build_text_index_np
     from repro_torch.corpus import make_corpus, make_zipf_trace, pad_trace_batch
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.bitmap_filter import kernel as BK
+    from repro_torch.kernels.bitmap_filter import ref as BR
+    from repro_torch.kernels.bitmap_filter.ops import (
+        bitmap_and_popcount,
+        conjunction_block_prefilter,
+    )
     from repro_torch.kernels.build import library
     from repro_torch.kernels.geo_score import kernel as GK
     from repro_torch.kernels.geo_score import ref as GR
@@ -154,7 +181,10 @@ def main() -> int:
     from repro_torch.kernels.sweep_score import kernel as SK
     from repro_torch.kernels.sweep_score import ops as SO
     from repro_torch.kernels.sweep_score import ref as SR
-    from repro_torch.serving import make_executor
+    from repro_torch.kernels.text_probe import kernel as TK
+    from repro_torch.kernels.text_probe import ops as TO
+    from repro_torch.kernels.text_probe import ref as TR
+    from repro_torch.serving import SingleDeviceExecutor, make_executor
 
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
@@ -182,6 +212,28 @@ def main() -> int:
     sp = plain_ex.engine.index.spatial
     say(f"set-up: index built in {time.perf_counter() - t:.1f} s; {sp.n_toeprints} toe "
         f"prints, {plain_ex.engine.index.text.n_postings} postings")
+    # TEXT-FIRST's stores: docid (with the bitmap rows) and impact share
+    # the K-SWEEP index's toe-print store; the impact/int8 one comes from
+    # the user's entry point, the toe-print store compressed with it
+    pr = replace(budgets, prune=True)
+    pagerank = plain_ex.engine.index.pagerank
+    t = time.perf_counter()
+    idx_docid = GeoIndex(build_text_index_np(
+        corpus.doc_terms, N_TERMS, n_bitmap_terms=N_BITMAP_TERMS, device=dev), sp, pagerank)
+    idx_impact = GeoIndex(build_text_index_np(
+        corpus.doc_terms, N_TERMS, layout="impact", device=dev), sp, pagerank)
+    say(f"set-up: docid + impact text indexes built in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    tf_ex = make_executor("single", corpus, algorithm="text_first", budgets=pr, fused=True,
+                          layout="impact", compress="int8")
+    idx_int8 = tf_ex.engine.index
+    check(tf_ex.kw == {"fused": True}, "make_executor did not route pruned TEXT-FIRST to its kernel")
+    say(f"set-up: impact/int8 index built in {time.perf_counter() - t:.1f} s")
+    for name, idx in (("docid", idx_docid), ("impact", idx_impact), ("impact/int8", idx_int8)):
+        tx = idx.text
+        say(f"set-up: {name} text store: {tx.n_postings} postings, {tx.blk_pos.shape[0]} blocks, "
+            f"max_term_blocks {tx.max_term_blocks}, max_term_segments {tx.max_term_segments}, "
+            f"{tx.posting_bytes:.4f} B/posting, impacts {tx.impacts.dtype}")
 
     # ---- phase 2: each kernel against its plain version ------------------
     b0 = batches[0].to(dev)
@@ -239,6 +291,45 @@ def main() -> int:
         say(f"phase 2: sweep_score[{mode}] == plain")
     del rects, amps, got, want, stores
 
+    # text_probe at the main path's shapes: batch 0's drivers on each text
+    # store (f32 docid and impact, f16 impact/int8), cut on and off, the
+    # buffer-minimum θ (C = 2048) and the radix select (C = 1000), select
+    # floor 0 and prune_eps 0.05 of the best optimistic score
+    weights = RankWeights()
+    for iname, idx in (("docid", idx_docid), ("impact", idx_impact), ("impact/int8", idx_int8)):
+        tx = idx.text
+        for eps in (0.0, 0.05):
+            _, start, nblk, rest, floor = text_first_bounds(
+                tx, idx.spatial, idx.pagerank, b0.terms, replace(pr, prune_eps=eps), weights)
+            for mono in (False, True):
+                for C in (budgets.max_candidates, 1000):
+                    args = (tx.impacts, tx.blk_pos, tx.blk_max_impact, tx.blk_len, start, nblk,
+                            weights.w_text, rest, floor)
+                    kw = dict(max_candidates=C, max_term_blocks=tx.max_term_blocks, monotone=mono)
+                    got = TO.text_probe_pruned(*args, **kw)
+                    want = TR.text_probe_pruned_ref(*args, **kw)
+                    tag = f"text_probe[{iname}, {tx.impacts.dtype}, monotone={mono}, C={C}, eps={eps}]"
+                    err = exact(got[0], want[0], tag + " opt", torch)
+                    for j, name in enumerate(("valid", "streamed", "blocks_scored", "blocks_active")):
+                        exact(got[j + 1], want[j + 1], f"{tag} {name}", torch)
+                    max_err["text_probe"] = max(max_err["text_probe"], err)
+                    torch.cuda.synchronize()
+                    say(f"phase 2: {tag} == plain; blocks scored/active "
+                        f"{int(got[3].sum())}/{int(got[4].sum())}")
+    del got, want
+
+    # bitmap_and_popcount on the docid index's bitmap rows
+    bm = idx_docid.text.bitmaps
+    for d in (2, 4, 8):
+        rows = bm[:d].contiguous()
+        got = bitmap_and_popcount(rows)
+        want = BR.bitmap_and_popcount_ref(rows)
+        exact(got[0].view(torch.int32), want[0].view(torch.int32), f"bitmap_and_popcount[d={d}] anded", torch)
+        exact(got[1], want[1], f"bitmap_and_popcount[d={d}] counts", torch)
+        torch.cuda.synchronize()
+        say(f"phase 2: bitmap_and_popcount[d={d}, {tuple(rows.shape)}] == plain; "
+            f"{int(got[1].sum())} docs in every row")
+
     # small input: the card equals the CPU port and a brute-force oracle
     small = make_corpus(n_docs=3000, n_terms=400, seed=5)
     small_q = pad_trace_batch(make_zipf_trace(small, n_queries=BATCH, pool_size=16, seed=6))
@@ -275,7 +366,6 @@ def main() -> int:
     # semantics), so the *_et variants are the ones whose answers depend on
     # the sweep_score and geo_score kernels
     et = replace(budgets, early_termination=True)
-    pr = replace(budgets, prune=True)
     variants = {
         "plain": (dict(budgets=budgets), None),
         "fused": (dict(budgets=budgets, fused=True), "sweep_score"),
@@ -287,20 +377,20 @@ def main() -> int:
         "pruned": (dict(budgets=pr, fused=True), "sweep_score_pruned"),
     }
     main_counts = {name: 0 for name in SOURCES}
-    executors: dict[str, object] = {}
+    kernel_batches = {name: 0 for name in SOURCES}
+    executors: dict[str, tuple] = {}
     outputs: dict[str, list] = {}
     latency: dict[str, list] = {}
     oracle0 = plain_ex.engine.oracle(batches[0])
-    for name, (kw, kernel) in variants.items():
-        t = time.perf_counter()
-        ex = plain_ex if name == "plain" else make_executor("single", corpus, **kw)
-        executors[name] = ex
-        build_s = time.perf_counter() - t
-        ex.run(batches[0])  # warm-up: allocator and first-launch costs
+
+    def drive(name, ex, kernel, runs, build_s=0.0):
+        """Warm up, zero the launch counters, run ``runs`` through ``ex``,
+        read the counters: ``kernel`` (or none) launched once per batch."""
+        ex.run(runs[0])  # warm-up: allocator and first-launch costs
         torch.cuda.synchronize()
         reset_launch_counts()
         outs, times = [], []
-        for b in batches:
+        for b in runs:
             t = time.perf_counter()
             res = ex.run(b)
             torch.cuda.synchronize()
@@ -308,9 +398,11 @@ def main() -> int:
             outs.append(res)
         counts = launch_counts()
         for k, n in counts.items():
-            want_n = len(batches) if k == kernel else 0
+            want_n = len(runs) if k == kernel else 0
             check(n == want_n, f"{name}: {k} launched {n} times, expected {want_n}")
             main_counts[k] += n
+        if kernel:
+            kernel_batches[kernel] += len(runs)
         for res in outs:
             ids, scores = res.ids, res.scores
             check(tuple(ids.shape) == (BATCH, budgets.top_k), f"{name}: ids shape")
@@ -318,11 +410,17 @@ def main() -> int:
             check(bool(torch.isfinite(scores[ids >= 0]).all()), f"{name}: non-finite score")
         rec = topk_recall_np(oracle0.ids.cpu().numpy(), outs[0].ids.cpu().numpy())
         stats = {k: float(sum(float(r.stats[k].double().sum()) for r in outs)) for k in outs[0].stats}
-        say(f"phase 3: {name}: index {build_s:.1f} s; {len(batches)} batches of {BATCH}; "
+        say(f"phase 3: {name}: index {build_s:.1f} s; {len(runs)} batches of {BATCH}; "
             f"launches {counts}; recall@10 vs oracle (batch 0) {rec:.4f}")
         say(f"phase 3: {name}: stats sums " + json.dumps(stats))
+        executors[name] = (ex, ex.algorithm)
         outputs[name] = outs
         latency[name] = times
+
+    for name, (kw, kernel) in variants.items():
+        t = time.perf_counter()
+        ex = plain_ex if name == "plain" else make_executor("single", corpus, **kw)
+        drive(name, ex, kernel, batches, time.perf_counter() - t)
     for a, b, note in (
         ("fused", "plain", "; its kernel's scores select nothing without early termination"),
         ("geo_score", "plain", "; its kernel's scores select nothing without early termination"),
@@ -333,7 +431,95 @@ def main() -> int:
         for i, (x, y) in enumerate(zip(outputs[a], outputs[b])):
             results_equal(x, y, f"{a} vs {b} batch {i}", torch)
         say(f"phase 3: {a} == {b} in ids, scores and every stats counter{note}")
-    del outputs
+    fused0 = outputs["fused"][0]
+    outputs.clear()
+
+    # TEXT-FIRST and GEO-FIRST on the three text stores; the impact/int8
+    # pruned-kernel variant is the executor make_executor built above
+    def engine(idx, b):
+        return GeoSearchEngine.from_index(idx, b)
+
+    tf_variants = {
+        "tf_plain": (SingleDeviceExecutor(engine(idx_docid, budgets), "text_first"), None),
+        "tf_pruned_plain": (SingleDeviceExecutor(engine(idx_docid, pr), "text_first"), None),
+        "tf_pruned": (SingleDeviceExecutor(engine(idx_docid, pr), "text_first", fused=True),
+                      "text_probe"),
+        "tf_pruned_plain_impact": (SingleDeviceExecutor(engine(idx_impact, pr), "text_first"), None),
+        "tf_pruned_impact": (
+            SingleDeviceExecutor(engine(idx_impact, pr), "text_first", fused=True), "text_probe"),
+        "tf_pruned_plain_int8": (SingleDeviceExecutor(engine(idx_int8, pr), "text_first"), None),
+        "tf_pruned_int8": (tf_ex, "text_probe"),
+        "geo_first": (SingleDeviceExecutor(engine(idx_docid, budgets), "geo_first"), None),
+        "geo_first_impact": (SingleDeviceExecutor(engine(idx_impact, budgets), "geo_first"), None),
+    }
+    for name, (ex, kernel) in tf_variants.items():
+        drive(name, ex, kernel, batches)
+    # one K-SWEEP batch on the impact layout (the probes go through its
+    # segments) and one pruned batch on the int8 stores, kernel and plain
+    drive("fused_impact", SingleDeviceExecutor(engine(idx_impact, budgets), "k_sweep", fused=True),
+          "sweep_score", batches[:1])
+    drive("pruned_plain_int8", SingleDeviceExecutor(engine(idx_int8, pr), "k_sweep"), None,
+          batches[:1])
+    drive("pruned_int8", SingleDeviceExecutor(engine(idx_int8, pr), "k_sweep", fused=True),
+          "sweep_score_pruned", batches[:1])
+    for a, b, note in (
+        ("tf_pruned", "tf_pruned_plain", ""),
+        ("tf_pruned_impact", "tf_pruned_plain_impact", ""),
+        ("tf_pruned_int8", "tf_pruned_plain_int8", ""),
+        ("pruned_int8", "pruned_plain_int8", " (one batch)"),
+    ):
+        for i, (x, y) in enumerate(zip(outputs[a], outputs[b])):
+            results_equal(x, y, f"{a} vs {b} batch {i}", torch)
+        say(f"phase 3: {a} == {b} in ids, scores and every stats counter{note}")
+    # the impact layout reorders postings only: the docid layout's ids and
+    # scores, bitwise (the byte counters differ by the segment prefixes)
+    for a, b in (("tf_pruned_impact", "tf_pruned"), ("geo_first_impact", "geo_first")):
+        for i, (x, y) in enumerate(zip(outputs[a], outputs[b])):
+            results_equal(x, y, f"{a} vs {b} batch {i}", torch, counters=False)
+        say(f"phase 3: {a} == {b} in ids and scores")
+    results_equal(outputs["fused_impact"][0], fused0, "fused_impact vs fused batch 0", torch,
+                  counters=False)
+    say("phase 3: fused_impact == fused (batch 0) in ids and scores")
+    outputs.clear()
+
+    # the block-bitmap conjunction prefilter over the trace's term tuples
+    # whose terms all have bitmap rows (topped up with seeded tuples of
+    # bitmap terms): its count equals the CSR intersection's size
+    tx = idx_docid.text
+    row_of = {int(w): r for r, w in enumerate(tx.bitmap_term_ids.cpu().tolist())}
+    tuples = []
+    for q in trace:
+        real = [int(w) for w in np.unique(q.terms) if w >= 0]
+        if len(real) >= 2 and all(w in row_of for w in real):
+            tuples.append(real)
+    n_trace = len(tuples)
+    rng = np.random.default_rng(2)
+    bm_terms = sorted(row_of)
+    while len(tuples) < BATCH:
+        tuples.append(sorted(rng.choice(bm_terms, int(rng.integers(2, 5)), replace=False).tolist()))
+    postings = tx.postings.cpu().numpy()
+    offsets = tx.offsets.cpu().numpy()
+    # gathered through an int32 view: torch indexes no uint32 tensor on CUDA
+    gathered = [bm.view(torch.int32)[[row_of[w] for w in tup]].view(torch.uint32)
+                for tup in tuples]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got_counts = [conjunction_block_prefilter(rows) for rows in gathered]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["bitmap_and_popcount"] == len(tuples) and sum(counts.values()) == len(tuples),
+          f"prefilter: launches {counts}, expected {len(tuples)} of bitmap_and_popcount")
+    main_counts["bitmap_and_popcount"] += counts["bitmap_and_popcount"]
+    kernel_batches["bitmap_and_popcount"] += len(tuples)
+    for tup, got_n in zip(tuples, got_counts):
+        # a term's doc ids are distinct: the docs in every list are the
+        # ids counted len(tup) times
+        seen = np.bincount(np.concatenate([postings[offsets[w] : offsets[w + 1]] for w in tup]),
+                           minlength=N_DOCS)
+        n_inter = int((seen == len(tup)).sum())
+        check(int(got_n) == n_inter, f"prefilter {tup}: {int(got_n)} vs CSR intersection {n_inter}")
+    say(f"phase 3: conjunction prefilter over {len(tuples)} term tuples ({n_trace} from the trace): "
+        f"launches {counts}; every count equals the CSR intersection's size")
 
     # ---- phase 4: timings at the main path's shapes ---------------------
     rows = []
@@ -381,11 +567,52 @@ def main() -> int:
         n_scored * OPS_PER_POSITION)))
     say(f"phase 4: pruned kernel scores {n_scored} of {n_out} window positions")
 
+    # text_probe at the main path's inputs: batch 0 on the impact/int8
+    # store (f16 impacts, monotone cut).  Bound: the scored blocks' impact
+    # rows and block positions, the ub/lens inputs and the full outputs;
+    # 2 f32 operations per scored posting plus the θ read over the
+    # cb·1024-slot buffer at every tile a query walks
+    tx = idx_int8.text
+    _, start, nblk, rest, floor = text_first_bounds(
+        tx, idx_int8.spatial, idx_int8.pagerank, b0.terms, pr, weights)
+    n_win = TO.window_size(tx.max_term_blocks)
+    w32 = torch.tensor(weights.w_text, dtype=torch.float32, device=dev)
+    ub_w, lens_w, active = TO.window_term_bounds(
+        tx.blk_max_impact, tx.blk_len, start, nblk, w32, rest, n_win)
+    targs = (tx.impacts, tx.blk_pos, start, nblk, ub_w.contiguous(), lens_w.contiguous(),
+             weights.w_text, rest, floor, budgets.max_candidates, True)
+    _, tscored = TK.text_probe_planar(*targs)
+    sc_blk = tscored.reshape(BATCH, n_win).bool()
+    n_tpos = int(torch.where(sc_blk, lens_w, 0).sum())
+    # tiles walked: up to the driver's last block, or (monotone) one past
+    # the first tile with a failing bound, whose θ read ends the walk
+    fail = (active & ~sc_blk).reshape(BATCH, -1, TK.BLOCK_ROWS).any(dim=2)
+    first_fail = torch.where(fail.any(dim=1), fail.int().argmax(dim=1), n_win)
+    walked = torch.minimum(-(-nblk.long() // TK.BLOCK_ROWS), first_fail + 2)
+    cb = TK.buffer_tiles(budgets.max_candidates)
+    t_bytes = (n_tpos * tx.impacts.element_size() + int(sc_blk.sum()) * 4
+               + BATCH * n_win * 8 + BATCH * n_win * (TK.LANES * 4 + 4))
+    t_ops = 2 * n_tpos + int(walked.sum()) * cb * TK.TILE
+    rows.append(("text_probe", lambda: TK.text_probe_planar(*targs),
+                 lambda: TR.text_probe_planar_ref(*targs), *bound_ms(t_bytes, t_ops)))
+    say(f"phase 4: text_probe scores {n_tpos} postings in {int(sc_blk.sum())} of "
+        f"{int(active.sum())} driver blocks; {int(walked.sum())} tiles walked")
+
+    # bitmap_and_popcount over 8 bitmap rows: d·W·4 bytes read, W·8
+    # written; d−1 ANDs and a popcount per word at the INT32 rate
+    rows8 = bm[:8].contiguous()
+    W = rows8.shape[1]
+    rows.append(("bitmap_and_popcount", lambda: BK.bitmap_and_popcount_cuda(rows8),
+                 lambda: BR.bitmap_and_popcount_ref(rows8),
+                 *bound_ms(8 * W * 4 + W * 8, 8 * W, INT32_OPS_PER_S)))
+
     table = []
     for name, kern, plain, b_ms, b_by in rows:
         k_out, p_out = kern(), plain()
         for x, y in zip(k_out if isinstance(k_out, tuple) else (k_out,),
                         p_out if isinstance(p_out, tuple) else (p_out,)):
+            if x.dtype == torch.uint32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
             max_err[name] = max(max_err[name], exact(x, y, f"{name} at timing shapes", torch))
         ms_kernel = time_ms(kern, torch)
         ms_plain = time_ms(plain, torch, runs=RUNS)
@@ -396,19 +623,17 @@ def main() -> int:
             "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
         })
-        n_variants = sum(k == name for _, k in variants.values())
         say(f"phase 4: {name}: kernel {ms_kernel:.4f} ms, plain {ms_plain:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), launches per batch "
-            f"{main_counts[name] / (len(batches) * n_variants):g} in each of "
-            f"{n_variants} variant(s)")
+            f"bound {b_ms:.4f} ms ({b_by}), {main_counts[name]} launches in "
+            f"{kernel_batches[name]} batches (or prefilter calls) that reach it")
     for name, times in latency.items():
         say(f"phase 4: {name}: batch latency median {1e3 * statistics.median(times):.2f} ms, "
             f"{len(times) * BATCH / sum(times):.1f} queries/s")
     # ---- phase 5: one profiler pass per variant, after every timing, so
     # no profiler session runs before or during a timed run ---------------
     peak = torch.cuda.max_memory_allocated()
-    for name, ex in executors.items():
-        for line in profile_batch(lambda: ex.run(batches[0]), torch):
+    for name, (ex, algorithm) in executors.items():
+        for line in profile_batch(lambda: ex.run(batches[0]), torch, SPANS[algorithm]):
             say(f"phase 5: {name}: profile (batch 0): {line}")
     say(f"peak device memory {peak / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")
@@ -419,17 +644,16 @@ def main() -> int:
     return 0
 
 
-def profile_batch(run, torch) -> list[str]:
-    """One profiler pass over ``run()`` (one batch).  For each K-SWEEP stage
-    span: its host ms, its extent on the device timeline (the profiler's
-    device-side annotation of the span) and the device-busy ms inside that
-    extent; then the device's busy time and idle share over the batch, and
-    the device ops that took the longest.  Busy time is the union of kernel,
-    copy and set intervals, annotations excluded."""
+def profile_batch(run, torch, spans) -> list[str]:
+    """One profiler pass over ``run()`` (one batch).  For each stage span
+    in ``spans``: its host ms, its extent on the device timeline (the
+    profiler's device-side annotation of the span) and the device-busy ms
+    inside that extent; then the device's busy time and idle share over the
+    batch, and the device ops that took the longest.  Busy time is the
+    union of kernel, copy and set intervals, annotations excluded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.core.algorithms import SPANS
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -437,11 +661,11 @@ def profile_batch(run, torch) -> list[str]:
             run()
             torch.cuda.synchronize()
     events = prof.events()
-    labels = {*SPANS, "chip_smoke.batch"}
+    labels = {*spans, "chip_smoke.batch"}
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     work = sorted((e.time_range.start, e.time_range.end, e.name)
                   for e in device if e.name not in labels)
-    marks = {e.name: e for e in device if e.name in SPANS}
+    marks = {e.name: e for e in device if e.name in spans}
 
     def busy_us(w0, w1):
         busy, covered = 0.0, w0  # union of work intervals inside [w0, w1)
@@ -453,7 +677,7 @@ def profile_batch(run, torch) -> list[str]:
         return busy
 
     lines = []
-    for name in SPANS:
+    for name in spans:
         host = sum(e.cpu_time_total for e in events
                    if e.name == name and e.device_type == DeviceType.CPU)
         line = f"{name}: host {host / 1e3:.3f} ms"

@@ -3,10 +3,10 @@
 Modules (each the counterpart of ``repro/core/<name>.py``):
   geometry       rectangles, Morton codes, tile math
   footprint      amplitude-weighted rect-set footprints + geo scores
-  text_index     CSR inverted index + impacts (docid layout, uncompressed)
+  text_index     CSR inverted index + impacts; PForDelta store, impact layout
   spatial_index  Morton toe-print store + tile-interval grid
   ranking        combined text/geo/pagerank ranking
-  algorithms     K-SWEEP batched pipeline + exact oracle
+  algorithms     TEXT-FIRST, GEO-FIRST, K-SWEEP (batched) + exact oracle
   planner        QueryPlan
   engine         GeoSearchEngine facade
   convert        the reference's index arrays → the port's GeoIndex

@@ -1,5 +1,6 @@
-"""K-SWEEP, the paper's main query algorithm, batched (port of
-``repro/core/algorithms.py``).
+"""The paper's three query algorithms, batched (port of
+``repro/core/algorithms.py``): TEXT-FIRST (plain and block-max pruned),
+GEO-FIRST and K-SWEEP, plus the exact oracle.
 
 Every registered algorithm shares the signature::
 
@@ -9,7 +10,7 @@ Every registered algorithm shares the signature::
 The reference ``vmap``s one query at a time; here every stage carries the
 batch axis explicitly.  ``stats`` keeps the reference's counters and dtypes
 (the modeled bytes are ``count * float32(bytes)``), so they compare exactly.
-TEXT-FIRST and GEO-FIRST arrive with later slices of the port.
+Each stage is a ``record_function`` span, named in :data:`SPANS`.
 """
 from __future__ import annotations
 
@@ -22,18 +23,35 @@ from repro_torch.core import footprint as fp
 from repro_torch.core import geometry
 from repro_torch.core import ranking, spatial_index as sidx, text_index as tidx
 from repro_torch.core.spatial_index import INVALID
+from repro_torch.kernels.text_probe.ops import window_size
 
 ALGORITHMS: dict[str, object] = {}
-# K-SWEEP's profiler spans, one per stage, in order (read by a profiler pass:
-# chip_smoke.py prints each one's host and device time)
-SPANS = (
-    "k_sweep.1-2_sweeps",
-    "k_sweep.3-6a_fetch_score",
-    "k_sweep.4_sort_dedupe",
-    "k_sweep.5_text_filter",
-    "k_sweep.6_rescore_topk",
-    "k_sweep.stats",
-)
+# each algorithm's profiler spans, one per stage, in order (read by a
+# profiler pass: chip_smoke.py prints each one's host and device time)
+SPANS = {
+    "k_sweep": (
+        "k_sweep.1-2_sweeps",
+        "k_sweep.3-6a_fetch_score",
+        "k_sweep.4_sort_dedupe",
+        "k_sweep.5_text_filter",
+        "k_sweep.6_rescore_topk",
+        "k_sweep.stats",
+    ),
+    "text_first": (
+        "text_first.1_driver_walk",
+        "text_first.2_select",
+        "text_first.3_text_filter",
+        "text_first.4_geo_score_topk",
+        "text_first.stats",
+    ),
+    "geo_first": (
+        "geo_first.1_tile_candidates",
+        "geo_first.2_sort_dedupe",
+        "geo_first.3_text_filter",
+        "geo_first.4_geo_score_topk",
+        "geo_first.stats",
+    ),
+}
 
 
 def register_algorithm(name: str):
@@ -53,7 +71,7 @@ def get_algorithm(name: str):
     except KeyError:
         raise ValueError(
             f"unknown algorithm {name!r}; registered: {sorted(ALGORITHMS)} "
-            "(text_first, geo_first and 'auto' are not ported yet)"
+            "('auto' is not ported yet)"
         ) from None
 
 
@@ -143,6 +161,302 @@ def _default_tp_scorer(rects, amps, q_rects, q_amps):
     )
 
 
+def _fetch_runs(cand, valid, n_c):
+    """Runs of the candidates' footprint fetches: sorted doc ids coalesce
+    into one run unless 64 apart (the reference's disk access model)."""
+    cs = torch.sort(torch.where(valid, cand, INVALID), dim=1).values
+    new_run = ((cs[:, 1:] - cs[:, :-1]) > 64) & (cs[:, 1:] != INVALID)
+    return new_run.sum(dim=1, dtype=torch.int32) + (n_c > 0).to(torch.int32)
+
+
+def _rank_docs(spatial, pagerank, cand, valid, tscore, q_rects, q_amps, weights, k):
+    """Exact geo score of each candidate's own footprint, the combined
+    score, and the top-k."""
+    g = _geo_score_docs(spatial, cand, valid, q_rects, q_amps)
+    qm = fp.query_mass(q_rects, q_amps)
+    score = ranking.combine_scores(
+        weights, tscore, g, pagerank[torch.where(valid, cand, 0).long()], qm[:, None]
+    )
+    score = torch.where(valid, score, -torch.inf)
+    ids, vals = ranking.top_k(score, cand, k)
+    return ids.to(torch.int32), vals
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python number rounded to a float32 scalar, as ``jnp.float32(x)``."""
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a·b + c`` rounded once to float32.  XLA contracts the reference's
+    ``a * b + c`` into a fused multiply-add, so its modeled byte counters and
+    score bounds are rounded once; the product of two float32 values is
+    exact in float64, and at these magnitudes (counts times bytes, sums of
+    bounded scores) so is the sum, which makes this one rounding."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+# ---------------------------------------------------------------------------
+# TEXT-FIRST (paper §IV.A)
+# ---------------------------------------------------------------------------
+
+@register_algorithm("text_first")
+def text_first(
+    text: tidx.TextIndex,
+    spatial: sidx.SpatialIndex,
+    pagerank: torch.Tensor,
+    query: QueryBatch,
+    budgets: QueryBudgets,
+    weights: ranking.RankWeights = ranking.RankWeights(),
+    fused: bool = False,  # pruned walk through the text_probe kernel
+) -> TopKResult:
+    """TEXT-FIRST: drive the intersection with the shortest posting list,
+    probe the other terms, fetch footprints for the survivors.
+
+    ``budgets.prune`` switches the driver walk to the block-max pruned
+    probe → score → select pipeline (:func:`_text_first_pruned`); see the
+    reference's docstring for the accounting of both paths.
+    """
+    if budgets.prune:
+        return _text_first_pruned(text, spatial, pagerank, query, budgets, weights, fused)
+    spans = SPANS["text_first"]
+    terms, q_rects, q_amps = query.terms, query.rects, query.amps
+    B = terms.shape[0]
+    R = spatial.doc_rects.shape[1]
+    mc = budgets.max_candidates
+    with record_function(spans[0]):
+        cand, valid, score0, driver = tidx.driver_postings(text, terms, mc)
+    with record_function(spans[2]):
+        valid, tscore, _ = tidx.text_probe_loop(
+            text, terms, cand, skip=driver, match=valid, score=score0
+        )
+        cand = torch.where(valid, cand, INVALID)
+        tscore = torch.where(valid, tscore, 0.0)
+    with record_function(spans[3]):
+        ids, vals = _rank_docs(
+            spatial, pagerank, cand, valid, tscore, q_rects, q_amps, weights, budgets.top_k
+        )
+    with record_function(spans[4]):
+        f32, i32 = torch.float32, torch.int32
+        n_c = valid.sum(dim=1, dtype=i32)
+        n_terms_real = (terms >= 0).sum(dim=1, dtype=i32)
+        probes_per = torch.clamp(n_terms_real - 1, min=0)
+        fetch_runs = _fetch_runs(cand, valid, n_c)
+        pb = _f32(text.posting_bytes, terms)
+        rdb = _f32(R * spatial.doc_bytes, terms)
+        window = _f32(mc * text.posting_bytes, terms)
+        zeros = torch.zeros((B,), dtype=i32, device=terms.device)
+        stats = {
+            "candidates": n_c,
+            "bytes_spatial": n_c.to(f32) * rdb,
+            "bytes_postings": _fma32(n_c.to(f32), pb, window),
+            "fetch_runs": fetch_runs,
+            "seeks": fetch_runs + n_terms_real,
+            "n_probes": n_c * probes_per,
+            # unpruned: the whole max_candidates window streams
+            "text_blocks_total": zeros + -(-mc // tidx.POSTING_BLOCK),
+            "text_blocks_skipped": zeros,
+            "probes_saved": zeros,
+            "bytes_seq": window.expand(B).clone(),
+            "bytes_random": _fma32(n_c.to(f32), rdb, (n_c * probes_per * 32).to(f32)),
+        }
+    return TopKResult(ids, vals, stats)
+
+
+def text_first_bounds(text, spatial, pagerank, terms, budgets, weights):
+    """The pruned TEXT-FIRST walk's per-query inputs: ``(driver i64[B],
+    b0 i32[B], nb i32[B], rest_ub f32[B], floor f32[B])`` — the driver
+    column, its block run, the bound on everything a posting's final score
+    can gain beyond its own impact (the other terms' max impacts, geo and
+    pagerank), and the select floor ``prune_eps ×`` the best optimistic
+    score."""
+    B, d = terms.shape
+    dev = terms.device
+    f32, i32 = torch.float32, torch.int32
+    NB = text.blk_pos.shape[0]
+    n_win = window_size(text.max_term_blocks)
+    # query-independent remainder: combine_scores adds w_geo·g/max(qm, ε)
+    # ≤ w_geo·Σ_r amp_r, plus w_pr·pagerank (sums in index order, as the
+    # reference's reductions run)
+    R = spatial.doc_amps.shape[1]
+    amps = spatial.doc_amps.float()
+    amp_sum = torch.zeros(amps.shape[:1], dtype=f32, device=dev)
+    for r in range(R):
+        amp_sum = amp_sum + amps[:, r]
+    zero = torch.zeros((), dtype=f32, device=dev)
+    amp_sum_max = torch.maximum(amp_sum.max(), zero) if amps.shape[0] else zero
+    pr_max = torch.maximum(pagerank.float().max(), zero) if pagerank.numel() else zero
+    const_ub = _fma32(_f32(weights.w_pr, terms), pr_max, _f32(weights.w_geo, terms) * amp_sum_max)
+    w_text = _f32(weights.w_text, terms)
+    driver, t0, any_real = tidx.driver_terms(text, terms)
+    safe = torch.clamp(terms, min=0).long()
+    tb0 = text.blk_term_off[safe]
+    tnb = text.blk_term_off[safe + 1] - tb0
+    wi = torch.arange(n_win, dtype=i32, device=dev)
+    bidx = torch.clamp(tb0[..., None] + wi, 0, NB - 1).long()
+    # per-term max impact from the block metadata: what the non-driver
+    # terms can add to any candidate's text score
+    tmax = torch.where(wi < tnb[..., None], text.blk_max_impact[bidx], 0.0).amax(dim=-1)
+    others = (terms >= 0) & (torch.arange(d, device=dev)[None, :] != driver[:, None])
+    rest = torch.zeros((B,), dtype=f32, device=dev)
+    for i in range(d):
+        rest = rest + torch.where(others[:, i], tmax[:, i], 0.0)
+    rest_ub = _fma32(w_text, rest, const_ub)
+    b0 = text.blk_term_off[t0].to(i32)
+    nb = torch.where(any_real, text.blk_term_off[t0 + 1] - b0, 0).to(i32)
+    tmax_d = torch.gather(tmax, 1, driver[:, None])[:, 0]
+    floor = torch.clamp(
+        _f32(budgets.prune_eps, terms) * _fma32(w_text, tmax_d, rest_ub), min=0.0
+    )
+    return driver, b0, nb, rest_ub, floor
+
+
+def _text_first_pruned(text, spatial, pagerank, query, budgets, weights, fused):
+    """Block-max pruned TEXT-FIRST: walk the whole driver list in 128-posting
+    blocks, skip blocks whose optimistic bound cannot beat the running
+    top-C threshold (the text_probe kernel when ``fused``, else its plain
+    version), select the top ``max_candidates`` streamed postings by
+    optimistic score, probe the other terms for them only."""
+    from repro_torch.kernels.text_probe import ops as probe_ops
+    from repro_torch.kernels.text_probe.ref import text_probe_pruned_ref
+
+    probe = probe_ops.text_probe_pruned if fused else text_probe_pruned_ref
+    spans = SPANS["text_first"]
+    terms, q_rects, q_amps = query.terms, query.rects, query.amps
+    R = spatial.doc_rects.shape[1]
+    NB = text.blk_pos.shape[0]
+    P = text.n_postings
+    mc = budgets.max_candidates
+    Cs = min(mc, window_size(text.max_term_blocks) * tidx.POSTING_BLOCK)
+    f32, i32 = torch.float32, torch.int32
+    with record_function(spans[0]):
+        driver, b0, nb, rest_ub, floor = text_first_bounds(
+            text, spatial, pagerank, terms, budgets, weights
+        )
+        opt, valid, streamed, blocks_scored, blocks_active = probe(
+            text.impacts, text.blk_pos, text.blk_max_impact, text.blk_len, b0, nb,
+            weights.w_text, rest_ub, floor, max_candidates=mc,
+            max_term_blocks=text.max_term_blocks,
+            # impact layout: blk_max_impact is a per-term suffix-max envelope,
+            # so the walk may stop at the driver's first failing bound
+            monotone=text.layout == "impact",
+        )
+    with record_function(spans[1]):
+        # select: the top-C streamed survivors by optimistic score, then
+        # their doc ids (only the selected candidates' blocks are decoded)
+        kept = valid & streamed
+        val, sel = ranking.select_top(torch.where(kept, opt, -1.0), Cs)
+        ok_c = torch.gather(kept, 1, sel) & (val > floor[:, None])
+        lane = sel % tidx.POSTING_BLOCK
+        gb = torch.clamp(b0[:, None] + torch.div(sel, tidx.POSTING_BLOCK, rounding_mode="floor"),
+                         0, NB - 1)
+        apos = torch.clamp(text.blk_pos[gb] + lane, 0, max(P - 1, 0)).long()
+        if text.is_compressed:
+            dec = tidx.decode_posting_blocks(text, gb)  # [B, Cs, 128]
+            cand = torch.gather(dec, 2, lane[..., None])[..., 0]
+        else:
+            cand = text.postings[apos]
+        cand = torch.where(ok_c, cand, INVALID)
+        imp_d = torch.where(ok_c, text.impacts[apos].float(), 0.0)
+    with record_function(spans[2]):
+        valid_c, tscore, _ = tidx.text_probe_loop(
+            text, terms, cand, skip=driver, match=ok_c, score=imp_d
+        )
+        cand = torch.where(valid_c, cand, INVALID)
+        tscore = torch.where(valid_c, tscore, 0.0)
+    with record_function(spans[3]):
+        ids, vals = _rank_docs(
+            spatial, pagerank, cand, valid_c, tscore, q_rects, q_amps, weights, budgets.top_k
+        )
+    with record_function(spans[4]):
+        n_sel = ok_c.sum(dim=1, dtype=i32)  # candidates probed
+        n_c = valid_c.sum(dim=1, dtype=i32)  # intersection survivors
+        streamed_valid = (valid & streamed).sum(dim=1, dtype=i32)
+        n_terms_real = (terms >= 0).sum(dim=1, dtype=i32)
+        probes_per = torch.clamp(n_terms_real - 1, min=0)
+        fetch_runs = _fetch_runs(cand, valid_c, n_c)
+        pb = _f32(text.posting_bytes, terms)
+        rdb = _f32(R * spatial.doc_bytes, terms)
+        stats = {
+            "candidates": n_c,
+            "bytes_spatial": n_c.to(f32) * rdb,
+            # only streamed driver blocks count, plus the selected
+            # candidates' random reads
+            "bytes_postings": _fma32(streamed_valid.to(f32), pb, n_sel.to(f32) * pb),
+            "fetch_runs": fetch_runs,
+            "seeks": fetch_runs + n_terms_real,
+            "n_probes": n_c * probes_per,
+            "text_blocks_total": blocks_active,
+            "text_blocks_skipped": blocks_active - blocks_scored,
+            "probes_saved": torch.clamp(streamed_valid - n_sel, min=0) * probes_per,
+            "bytes_seq": streamed_valid.to(f32) * pb,
+            "bytes_random": _fma32(
+                n_sel.to(f32), pb, _fma32(n_c.to(f32), rdb, (n_c * probes_per * 32).to(f32))
+            ),
+        }
+    return TopKResult(ids, vals, stats)
+
+
+# ---------------------------------------------------------------------------
+# GEO-FIRST (paper §IV.B)
+# ---------------------------------------------------------------------------
+
+@register_algorithm("geo_first")
+def geo_first(
+    text: tidx.TextIndex,
+    spatial: sidx.SpatialIndex,
+    pagerank: torch.Tensor,
+    query: QueryBatch,
+    budgets: QueryBudgets,
+    weights: ranking.RankWeights = ranking.RankWeights(),
+) -> TopKResult:
+    """GEO-FIRST: toe prints from the query's tiles (the R*-tree lookup),
+    translated to doc ids and deduped, filtered by text probes, then the
+    survivors' footprints fetched and scored."""
+    spans = SPANS["geo_first"]
+    terms, q_rects, q_amps = query.terms, query.rects, query.amps
+    R = spatial.doc_rects.shape[1]
+    with record_function(spans[0]):
+        tp_ids, ok = sidx.tile_candidate_toeprints(
+            spatial, q_rects, budgets.max_tiles, budgets.max_candidates
+        )
+        # translate toe prints → doc ids (random access into the id column)
+        docs = torch.where(ok, spatial.tp_doc_ids[tp_ids.long()].to(torch.int32), INVALID)
+    with record_function(spans[1]):
+        docs_s, dvalid = _sorted_dedupe(docs, ok)
+        docs_u = torch.where(dvalid, docs_s, 0)
+    with record_function(spans[2]):
+        match, tscore = tidx.text_score_of_docs(text, terms, docs_u)
+        keep = dvalid & match
+    with record_function(spans[3]):
+        ids, vals = _rank_docs(
+            spatial, pagerank, docs_u, keep, tscore, q_rects, q_amps, weights, budgets.top_k
+        )
+    with record_function(spans[4]):
+        f32, i32 = torch.float32, torch.int32
+        n_cand = ok.sum(dim=1, dtype=i32)
+        n_uniq = dvalid.sum(dim=1, dtype=i32)
+        n_keep = keep.sum(dim=1, dtype=i32)
+        n_terms_real = (terms >= 0).sum(dim=1, dtype=i32)
+        idb = _f32(spatial.tp_doc_ids.element_size(), terms)
+        rdb = _f32(R * spatial.doc_bytes, terms)
+        log_p = torch.ceil(torch.log2(_f32(float(max(text.n_postings, 2)), terms)))
+        stats = {
+            "candidates": n_cand,
+            "bytes_spatial": _fma32(n_cand.to(f32), idb, n_keep.to(f32) * rdb),
+            # XLA folds the two constant factors first
+            "bytes_postings": n_uniq.to(f32) * (log_p * _f32(text.posting_bytes, terms)),
+            # every candidate toe print, and every surviving footprint, is
+            # fetched individually (R*-tree random access)
+            "seeks": n_cand + n_keep,
+            "n_probes": n_uniq * n_terms_real,
+            "bytes_seq": torch.zeros(n_cand.shape, dtype=f32, device=terms.device),
+            "bytes_random": _fma32(n_cand.to(f32), idb, n_keep.to(f32) * rdb)
+            + (n_uniq * n_terms_real * 32).to(f32),
+        }
+    return TopKResult(ids, vals, stats)
+
+
 # ---------------------------------------------------------------------------
 # K-SWEEP (paper §IV.C — the main algorithm)
 # ---------------------------------------------------------------------------
@@ -173,10 +487,11 @@ def k_sweep(
 
     if tp_scorer is None:
         tp_scorer = _default_tp_scorer
+    spans = SPANS["k_sweep"]
     terms, q_rects, q_amps = query.terms, query.rects, query.amps
     B = terms.shape[0]
     S = budgets.sweep_budget
-    with record_function(SPANS[0]):
+    with record_function(spans[0]):
         # (1) intervals of all intersecting tiles
         starts, ends = sidx.gather_query_intervals(spatial, q_rects, budgets.max_tiles)
         # (2) coalesce into ≤ k sweeps, re-chunked to the fetch budget
@@ -189,7 +504,7 @@ def k_sweep(
     Cmax = min(budgets.max_candidates, total)
     bs = spatial.block_size
     scale = spatial.tp_amp_scale if spatial.tp_amp_scale.shape[0] else None
-    with record_function(SPANS[1]):
+    with record_function(spans[1]):
         if budgets.prune:
             # (3+6a+5a) PRUNED: block-max bound test against an adaptive θ
             # seeded with the select stage's own score floor
@@ -242,11 +557,11 @@ def k_sweep(
             streamed_tp = n_sweeps * S
             blocks_total = n_sweeps * ((S + bs - 1) // bs)
             blocks_skipped = torch.zeros((B,), dtype=torch.int32, device=terms.device)
-    with record_function(SPANS[2]):
+    with record_function(spans[2]):
         # (4) translate to doc ids, sort, dedupe per doc
         docs_s, dvalid = _sorted_dedupe(docs_c, ok_c)
         docs_u = torch.where(dvalid, docs_s, 0)
-    with record_function(SPANS[3]):
+    with record_function(spans[3]):
         # (5) filter through the inverted index (the counted variant reports
         # the probes a short-circuiting evaluator issues)
         if budgets.prune:
@@ -257,16 +572,12 @@ def k_sweep(
             match, tscore = tidx.text_score_of_docs(text, terms, docs_u)
             text_probes = None
         keep = dvalid & match
-    with record_function(SPANS[4]):
+    with record_function(spans[4]):
         # (6) final geo score from each survivor's own footprint slots
-        g_tot = _geo_score_docs(spatial, docs_u, keep, q_rects, q_amps)
-        qm = fp.query_mass(q_rects, q_amps)
-        score = ranking.combine_scores(
-            weights, tscore, g_tot, pagerank[torch.where(keep, docs_u, 0).long()], qm[:, None]
+        ids, vals = _rank_docs(
+            spatial, pagerank, docs_u, keep, tscore, q_rects, q_amps, weights, budgets.top_k
         )
-        score = torch.where(keep, score, -torch.inf)
-        ids, vals = ranking.top_k(score, docs_u, budgets.top_k)
-    with record_function(SPANS[5]):
+    with record_function(spans[5]):
         fetched = ok.sum(dim=1, dtype=torch.int32)
         n_selected = ok_c.sum(dim=1, dtype=torch.int32)
         n_uniq = dvalid.sum(dim=1, dtype=torch.int32)
@@ -290,13 +601,14 @@ def k_sweep(
             "blocks_total": blocks_total,
             "blocks_skipped": blocks_skipped,
             "probes_saved": probes_saved,
-            "bytes_postings": n_uniq.to(f32) * log_p * pb,
+            # XLA folds the two constant factors first
+            "bytes_postings": n_uniq.to(f32) * (log_p * pb),
             "seeks": n_sweeps + n_terms_real,
             "n_probes": text_probes if text_probes is not None else n_uniq * n_terms_real,
             "bytes_seq": streamed_tp.to(f32) * tpb,
             "bytes_random": n_uniq * n_terms_real * 32,
         }
-    return TopKResult(ids.to(torch.int32), vals, stats)
+    return TopKResult(ids, vals, stats)
 
 
 # ---------------------------------------------------------------------------

@@ -66,17 +66,23 @@ class GeoSearchEngine:
         layout: str = "docid",
         device: "str | torch.device | None" = None,
     ) -> "GeoSearchEngine":
-        """Build both indexes on ``device`` (default CUDA; raises without it)."""
-        if normalize_compress(compress) != "none" or layout != "docid":
-            raise NotImplementedError(
-                "compressed stores and layout='impact' are not ported yet: the "
-                "engine compresses text and spatial stores together, and the "
-                "packed text store arrives with the TEXT-FIRST slice"
-            )
+        """Build both indexes on ``device`` (default CUDA; raises without it).
+
+        ``compress`` (``"none"``/``"f16"``/``"int8"``, bool accepted) stores
+        both indexes compressed together, as the reference does: the text
+        index PForDelta-packed with f16 impacts, the toe-print store at the
+        mode's dtypes.  ``layout`` is the posting order (``"docid"`` or
+        ``"impact"``, see :mod:`repro_torch.core.text_index`).
+        """
+        mode = normalize_compress(compress)
         dev = resolve_device(device)
-        text = build_text_index_np(doc_terms, n_terms, n_bitmap_terms, idf=idf, device=dev)
+        text = build_text_index_np(
+            doc_terms, n_terms, n_bitmap_terms, idf=idf, compress=mode != "none",
+            impact_dtype=np.float16 if mode != "none" else None, layout=layout, device=dev,
+        )
         spatial = build_spatial_index_np(
-            doc_rects, doc_amps, grid, m_intervals, block_size=block_size, device=dev
+            doc_rects, doc_amps, grid, m_intervals, compress=mode, block_size=block_size,
+            device=dev,
         )
         if pagerank is None:
             pagerank = np.full((len(doc_terms),), 0.1, dtype=np.float32)

@@ -481,3 +481,31 @@ def fetch_sweep_ids(
     idx = torch.clamp(shift[..., None] + j, 0, sweep_budget - 1)
     d = index.tp_doc_ids[(start[..., None] + idx).long()]
     return d.to(torch.int32).reshape(B, k * sweep_budget)
+
+
+def tile_candidate_toeprints(
+    index: SpatialIndex,
+    query_rects: torch.Tensor,  # f32[B, Qr, 4]
+    max_tiles: int,
+    max_candidates: int,
+    max_runs: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """GEO-FIRST candidates: each query's tile intervals merged into ≤
+    ``max_runs`` disjoint runs, then enumerated one toe-print id at a time
+    up to ``max_candidates``.  Returns (tp_ids i32[B, C], valid bool[B, C])."""
+    starts, ends = gather_query_intervals(index, query_rects, max_tiles)
+    s, e = coalesce_k_sweeps(starts, ends, max_runs)  # disjoint runs
+    lens = torch.where(s != INVALID, e - s, 0)
+    B = s.shape[0]
+    dev = s.device
+    offs = torch.cat(
+        [torch.zeros((B, 1), dtype=torch.int32, device=dev),
+         torch.cumsum(lens, dim=1, dtype=torch.int32)],
+        dim=1,
+    )
+    j = torch.arange(max_candidates, dtype=torch.int32, device=dev).expand(B, -1).contiguous()
+    run = torch.clamp(torch.searchsorted(offs, j, right=True) - 1, 0, max_runs - 1)
+    ok = j < offs[:, -1:]
+    rs = torch.gather(s, 1, run)
+    ids = torch.where(rs == INVALID, 0, rs) + (j - torch.gather(offs, 1, run))
+    return torch.where(ok, ids, 0).to(torch.int32), ok

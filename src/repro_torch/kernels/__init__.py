@@ -9,13 +9,17 @@ from __future__ import annotations
 
 
 def _wrappers() -> dict:
+    from repro_torch.kernels.bitmap_filter.ops import bitmap_and_popcount
     from repro_torch.kernels.geo_score.ops import geo_score_toeprints
     from repro_torch.kernels.sweep_score.ops import sweep_score, sweep_score_pruned
+    from repro_torch.kernels.text_probe.ops import text_probe_pruned
 
     return {
         "sweep_score": sweep_score,
         "geo_score": geo_score_toeprints,
         "sweep_score_pruned": sweep_score_pruned,
+        "text_probe": text_probe_pruned,
+        "bitmap_and_popcount": bitmap_and_popcount,
     }
 
 

@@ -33,11 +33,14 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points: name -> argtypes; each returns cudaGetLastError() as int
 SIGNATURES = {
     "geo_score_launch": [_P, _P, _P, _P, _P, _L, _L, _P],
     "sweep_score_launch": [_P] * 7 + [_I] * 3 + [_L, _I, _I, _P],
     "sweep_score_pruned_launch": [_P] * 11 + [_I] * 5 + [_L, _I, _I, _P],
+    "text_probe_launch": [_P, _I] + [_P] * 7 + [_F, _P, _P] + [_I] * 5 + [_P],
+    "bitmap_and_popcount_launch": [_P, _P, _P, _I, _L, _P],
 }
 
 _build_lock = threading.Lock()

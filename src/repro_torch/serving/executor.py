@@ -2,9 +2,9 @@
 
 The executor is the serving layer's view of the engine: it takes a padded
 :class:`~repro_torch.core.algorithms.QueryBatch` and returns a
-:class:`~repro_torch.core.algorithms.TopKResult`.  This slice ports the
-single-device executor; the sharded and mesh executors, telemetry and the
-``auto`` planner come with later slices.
+:class:`~repro_torch.core.algorithms.TopKResult`.  The single-device
+executor serves ``k_sweep``, ``text_first`` and ``geo_first``; the sharded
+and mesh executors, telemetry and the ``auto`` planner are not ported yet.
 """
 from __future__ import annotations
 

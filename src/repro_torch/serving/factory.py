@@ -2,6 +2,9 @@
 
     ex = make_executor("single", corpus, fused=True)          # on CUDA
     ex = make_executor("single", corpus, device="cpu")        # plain versions
+    ex = make_executor("single", corpus, algorithm="text_first", fused=True,
+                       budgets=replace(b, prune=True), layout="impact",
+                       compress="int8")
 
 The corpus argument is duck-typed: anything with ``doc_terms``,
 ``doc_rects``, ``doc_amps``, ``pagerank`` and ``n_terms`` attributes
@@ -12,7 +15,6 @@ from __future__ import annotations
 from repro_torch.core import algorithms as alg
 from repro_torch.core import ranking
 from repro_torch.core.engine import GeoSearchEngine
-from repro_torch.core.spatial_index import normalize_compress
 from repro_torch.serving.executor import SingleDeviceExecutor
 
 EXECUTOR_KINDS = ("single", "sharded", "mesh")
@@ -36,9 +38,13 @@ def make_executor(
     """Build an executor of ``kind`` over ``corpus`` on ``device`` (default
     CUDA; raises without it).
 
+    ``algorithm`` is ``"k_sweep"``, ``"text_first"`` or ``"geo_first"``.
     ``fused`` runs K-SWEEP through the fused sweep kernel (the pruned one
-    under ``budgets.prune``); ``use_pallas`` scores toe prints on the
-    unfused path with the geo_score kernel (the reference's name for it).
+    under ``budgets.prune``) and pruned TEXT-FIRST through the text_probe
+    kernel; ``use_pallas`` scores toe prints on K-SWEEP's unfused path with
+    the geo_score kernel (the reference's name for it).  ``compress``
+    (``"none"``/``"f16"``/``"int8"``) and ``layout`` (``"docid"``/
+    ``"impact"``) select the index storage.
     """
     if kind not in EXECUTOR_KINDS:
         raise ValueError(f"kind must be one of {EXECUTOR_KINDS}, got {kind!r}")
@@ -47,22 +53,19 @@ def make_executor(
             f"kind={kind!r} is not ported yet: the sharded and mesh executors "
             "arrive with the distributed slice"
         )
-    if normalize_compress(compress) != "none" or layout != "docid":
-        raise NotImplementedError(
-            "compress and layout='impact' are not ported yet (they arrive with "
-            "the TEXT-FIRST slice)"
-        )
     budgets = budgets or alg.QueryBudgets()
     kw = {}
     if use_pallas and algorithm == "k_sweep":
         from repro_torch.kernels.geo_score.ops import geo_score_toeprints
 
         kw["tp_scorer"] = geo_score_toeprints
-    if fused and algorithm == "k_sweep":
+    # the reference's rule: the kernels serve K-SWEEP, and TEXT-FIRST when pruned
+    if fused and (algorithm == "k_sweep" or (algorithm == "text_first" and budgets.prune)):
         kw["fused"] = True
     eng = GeoSearchEngine.build(
         corpus.doc_terms, corpus.doc_rects, corpus.doc_amps, corpus.n_terms,
         pagerank=corpus.pagerank, grid=grid, m_intervals=m_intervals,
-        budgets=budgets, weights=weights, device=device,
+        budgets=budgets, weights=weights, compress=compress, layout=layout,
+        device=device,
     )
     return SingleDeviceExecutor(eng, algorithm, **kw)

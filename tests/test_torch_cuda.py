@@ -12,11 +12,16 @@ from repro_torch.core.spatial_index import (  # noqa: E402
     block_metadata_np,
     quantize_amps_np,
 )
+from repro_torch.core.text_index import build_text_index_np  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
+from repro_torch.kernels.bitmap_filter import ops as pbm  # noqa: E402
+from repro_torch.kernels.bitmap_filter.ref import bitmap_and_popcount_ref  # noqa: E402
 from repro_torch.kernels.geo_score import ops as pg  # noqa: E402
 from repro_torch.kernels.geo_score.ref import geo_score_toeprints_ref  # noqa: E402
 from repro_torch.kernels.sweep_score import ops as ps  # noqa: E402
 from repro_torch.kernels.sweep_score import ref as psr  # noqa: E402
+from repro_torch.kernels.text_probe import ops as ptp  # noqa: E402
+from repro_torch.kernels.text_probe.ref import text_probe_pruned_ref  # noqa: E402
 
 INVALID = 2**31 - 1
 QR2 = np.array([[0.2, 0.2, 0.6, 0.6], [0.5, 0.5, 0.9, 0.9]], np.float32)
@@ -93,9 +98,96 @@ def test_sweep_kernels_bitwise_on_card(cuda, mode, bs):
     reset_launch_counts()
     got = ps.sweep_score(*base, *q, budget, tp_amp_scale=sc)
     got_p = ps.sweep_score_pruned(*base, *meta, *q, budget, 1024, bs, 0.001, tp_amp_scale=sc)
-    assert launch_counts() == {"sweep_score": 1, "geo_score": 0, "sweep_score_pruned": 1}
+    counts = launch_counts()
+    assert counts.pop("sweep_score") == 1 and counts.pop("sweep_score_pruned") == 1
+    assert not any(counts.values())
     want = psr.sweep_score_ref(*base, *q, budget, tp_amp_scale=sc)
     want_p = psr.sweep_score_pruned_ref(*base, *meta, *q, budget, 1024, bs, 0.001, tp_amp_scale=sc)
     torch.cuda.synchronize()
     for x, y in zip((*got, *got_p), (*want, *want_p)):
         assert torch.equal(x, y)
+
+
+def _text_store(rng, n_docs, n_terms, dtype, layout):
+    """A skewed corpus (term 0 in every doc), its text index and the
+    per-term block CSR, on the CPU."""
+    docs = [np.concatenate([[0], rng.integers(1, n_terms, int(rng.integers(1, 40)))]).astype(np.int32)
+            for _ in range(n_docs)]
+    return build_text_index_np(docs, n_terms, n_bitmap_terms=8, impact_dtype=dtype,
+                               layout=layout, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, np.float16])
+@pytest.mark.parametrize("layout", ["docid", "impact"])
+@pytest.mark.parametrize("C,floor", [(2048, 0.0), (1000, 0.0), (1000, 0.4), (256, 0.1)])
+def test_text_probe_kernel_bitwise_on_card(cuda, dtype, layout, C, floor):
+    """opt, flags and block counts equal the plain version bitwise — the
+    buffer-minimum θ (C a multiple of 1024) and the radix select (any
+    other C), with and without the monotone cut."""
+    rng = np.random.default_rng(C + (7 if dtype else 0) + (3 if layout == "impact" else 0))
+    text = _text_store(rng, 6000, 300, dtype, layout)
+    bto = text.blk_term_off.numpy()
+    terms = np.array([0, 1, 2, 5, 299, 17], np.int64)
+    b0 = bto[terms].astype(np.int32)
+    nb = (bto[terms + 1] - bto[terms]).astype(np.int32)
+    nb[-1] = 0  # a query with no real term
+    rest = rng.uniform(0.0, 2.0, len(terms)).astype(np.float32)
+    tmax = float(text.blk_max_impact.max())
+    floors = (floor * (tmax + rest)).astype(np.float32)
+    cols = [x.to(cuda) for x in (text.impacts, text.blk_pos, text.blk_max_impact, text.blk_len)]
+    q = [_t(x, cuda) for x in (b0, nb)]
+    kw = dict(max_candidates=C, max_term_blocks=text.max_term_blocks, monotone=layout == "impact")
+    reset_launch_counts()
+    got = ptp.text_probe_pruned(*cols, *q, 1.0, _t(rest, cuda), _t(floors, cuda), **kw)
+    assert launch_counts()["text_probe"] == 1
+    want = text_probe_pruned_ref(*cols, *q, 1.0, _t(rest, cuda), _t(floors, cuda), **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert int(got[3].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_bitmap_kernel_bitwise_on_card(cuda, d):
+    rng = np.random.default_rng(d)
+    W = 32768 + 77
+    rows = rng.integers(0, 2**32, (d, W), dtype=np.uint64).astype(np.uint32)
+    rows[:, :100] = 0xFFFFFFFF
+    bm = _t(rows, cuda)
+    reset_launch_counts()
+    anded, counts = pbm.bitmap_and_popcount(bm)
+    assert launch_counts()["bitmap_and_popcount"] == 1
+    want = bitmap_and_popcount_ref(bm)
+    torch.cuda.synchronize()
+    assert anded.dtype == torch.uint32 and counts.dtype == torch.int32
+    assert torch.equal(anded.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(counts, want[1])
+    np.testing.assert_array_equal(anded.cpu().numpy(), np.bitwise_and.reduce(rows, axis=0))
+    assert int(pbm.conjunction_block_prefilter(bm)) == int(want[1].sum())
+
+
+@pytest.mark.cuda
+def test_new_wrappers_reject_bad_inputs_on_card(cuda):
+    """Only f32/f16 impacts reach the text_probe kernel; tensors split
+    across the CPU and the card are refused by both new wrappers."""
+    rng = np.random.default_rng(0)
+    text = _text_store(rng, 500, 50, None, "docid")
+    cols = [x.to(cuda) for x in (text.impacts, text.blk_pos, text.blk_max_impact, text.blk_len)]
+    q = [_t(np.zeros(2, np.int32), cuda), _t(np.ones(2, np.int32), cuda)]
+    rest = _t(np.zeros(2, np.float32), cuda)
+    kw = dict(max_candidates=1024, max_term_blocks=text.max_term_blocks)
+    with pytest.raises(TypeError):
+        ptp.text_probe_pruned(cols[0].double(), *cols[1:], *q, 1.0, rest, **kw)
+    with pytest.raises(TypeError):
+        ptp.text_probe_pruned(cols[0].to(torch.bfloat16), *cols[1:], *q, 1.0, rest, **kw)
+    with pytest.raises(ValueError):
+        ptp.text_probe_pruned(cols[0].cpu(), *cols[1:], *q, 1.0, rest, **kw)
+    with pytest.raises(ValueError):
+        ptp.text_probe_pruned(*cols, q[0].cpu(), q[1], 1.0, rest, **kw)
+    bm = _t(np.ones((2, 64), np.uint32), cuda)
+    with pytest.raises(TypeError):
+        pbm.bitmap_and_popcount(bm.view(torch.int32))
+    with pytest.raises(ValueError):
+        pbm.bitmap_and_popcount(bm[:, ::2])

@@ -164,10 +164,6 @@ def test_plans_and_unported_options(setup):
         with pytest.raises(NotImplementedError):
             make_executor(kind, corpus, device="cpu")
     with pytest.raises(NotImplementedError):
-        make_executor("single", corpus, compress="int8", device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_executor("single", corpus, layout="impact", device="cpu")
-    with pytest.raises(NotImplementedError):
         port.query(q, "auto")
     with pytest.raises(ValueError):
-        port.query(q, "text_first")
+        port.query(q, "no_such_algorithm")
