@@ -276,7 +276,7 @@ def main() -> int:
         rects_np = tr.float().cpu().numpy()
         for bs in sidx.BLOCK_SIZES:
             meta = [torch.from_numpy(x).to(dev) for x in sidx.block_metadata_np(rects_np, dec, bs)]
-            for C, floor in ((budgets.max_candidates, 0.0), (512, 1e-4)):
+            for C, floor in ((budgets.max_candidates, 0.0), (512, 1e-4), (3000, 0.0)):
                 args = (tr, ta, *meta, ss, ee, b0.rects, b0.amps, S, C, bs, floor)
                 got = SO.sweep_score_pruned(*args, tp_amp_scale=sc)
                 want = SR.sweep_score_pruned_ref(*args, tp_amp_scale=sc)
@@ -566,6 +566,25 @@ def main() -> int:
         float(touched.sum()) * STORE_BYTES + n_out * 4.0 + win_ub.numel() * 8.0,
         n_scored * OPS_PER_POSITION)))
     say(f"phase 4: pruned kernel scores {n_scored} of {n_out} window positions")
+    # its two launches alone (the walk rereads the scores the score pass
+    # left, and zeroes the same blocks on every run), and the speculative
+    # blocks: bound above the floor, so scored in pass 1, but not above θ,
+    # so zeroed in pass 2
+    live = win_ub > floor[:, None, None]
+    n_spec = int((live & (scored == 0)).sum())
+    # the walk's steps: tiles in which some block beats θ (one barrier each)
+    n_fold = int(scored.reshape(BATCH, -1, bpt).bool().any(dim=2).sum())
+    outs = (torch.empty((*block_starts.shape, pad_budget), dtype=torch.float32, device=dev),
+            torch.empty_like(scored))
+    pass_ms = [time_ms(lambda: SK.sweep_score_pruned_planar(*pargs, passes=1, outputs=outs), torch)]
+    pass_ms.append(time_ms(lambda: SK.sweep_score_pruned_planar(*pargs, passes=2, outputs=outs),
+                           torch))
+    exact(outs[1], scored, "sweep_score_pruned flags, passes timed alone", torch)
+    say(f"phase 4: sweep_score_pruned: pass 1 (gated score) {pass_ms[0]:.4f} ms, pass 2 "
+        f"(θ walk, ring of {SK.RING} tiles) {pass_ms[1]:.4f} ms; blocks: {win_ub.numel()} in "
+        f"all, {win_ub.numel() - int(live.sum())} gated by the floor (no loads), "
+        f"{int(scored.sum())} scored, {n_spec} speculative (scored in pass 1, zeroed in pass 2); "
+        f"{n_fold} of {BATCH * block_starts.shape[1] * n_tiles} tiles fold")
 
     # text_probe at the main path's inputs: batch 0 on the impact/int8
     # store (f16 impacts, monotone cut).  Bound: the scored blocks' impact

@@ -13,19 +13,32 @@
 // and score 0, as the reference's empty-rect padding does.  One thread per
 // position.
 //
-// sweep_score_pruned_kernel replaces sweep_score_pruned_planar.  Its θ
-// buffer carries state from tile to tile in order, so one CTA walks one
-// query's (sweep, tile) lattice sequentially, as the TPU grid did:
-//   * the cb·1024-float partial top-C buffer sits in shared memory; thread
-//     `tid` owns column tid of every slot (the tile position it scores), so
-//     folding a tile into its slot needs no synchronisation;
-//   * θ = block-wide min of the buffer, taken before each tile's decisions;
-//   * a metadata block whose bound does not beat θ issues no loads at all,
-//     and its outputs are zero.
-// The per-tile min adds two barriers.
+// The pruned sweep replaces sweep_score_pruned_planar.  What bounds it is
+// the θ buffer: each tile's skip decisions read θ = min of a cyclic
+// cb·1024-float partial top-C buffer that every earlier tile of the query
+// may have raised, so a query's (sweep, tile) lattice is walked in order,
+// and the walk is a chain of dependent steps, not bytes or operations.
+// Walking it in one CTA that also loads and scores each tile left 100 of 132
+// SMs idle at a batch of 32 and put a global load, a score and two barriers
+// on the chain of every tile.  Here one wrapper call makes two launches,
+// with no signalling between CTAs:
+//   1. the gated score pass: sweep_score_kernel<GATED> on the unpruned
+//      grid, over every SM.  A metadata block whose bound does not beat the
+//      select floor issues no loads and writes 0: θ is seeded with the floor
+//      and only ever raised, so the walk skips it whatever θ does.  Every
+//      other block writes score_at(), the walk's own arithmetic.
+//   2. the θ walk (sweep_walk_kernel): one CTA per query over scores that
+//      already exist; its design is written above the kernel.  Only tiles
+//      in which a block beats θ cost a step: one barrier, two when θ moves.
+// The only extra work is the blocks with floor < bound ≤ θ: scored in pass 1
+// and zeroed in pass 2.  A step of the walk is a chain of dependent
+// shared-memory round trips and barriers, each far dearer on the card than
+// the step's arithmetic, so the walk keeps its per-step state in registers.
 #include "common.cuh"
 
 namespace geo {
+
+constexpr int RING = 16;  // tiles of pass-1 scores in the θ walk's ring
 
 __device__ __forceinline__ float4 load_rect(const float* rects, int64_t p) {
   return __ldg(reinterpret_cast<const float4*>(rects) + p);
@@ -51,7 +64,9 @@ __device__ __forceinline__ float score_at(
   return score_rect(r.x, r.y, r.z, r.w, q, qa) * a;
 }
 
-template <typename CT, typename AT>
+// GATED (the pruned sweep's pass 1): a metadata block whose bound ub does
+// not beat the floor is never scored by the walk, so it issues no loads
+template <typename CT, typename AT, bool GATED>
 __global__ void __launch_bounds__(256) sweep_score_kernel(
     const int* __restrict__ block_starts,  // [B, k] window origins, TILE units
     const float4* __restrict__ q_rects,    // [B, Q_MAX]
@@ -60,83 +75,326 @@ __global__ void __launch_bounds__(256) sweep_score_kernel(
     const AT* __restrict__ amp,            // [T]
     const float* __restrict__ scale,       // [ceil(T / LANES)] or null
     float* __restrict__ out,               // [B, k, pad_budget]
-    int k, int pad_budget, int64_t T) {
+    int k, int pad_budget, int64_t T,
+    const float* __restrict__ ub,          // GATED: [B, k, pad_budget / block_size]
+    const float* __restrict__ floor_,      // GATED: [B]
+    int block_size) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= pad_budget) return;
   const int i = blockIdx.y, b = blockIdx.z;
-  const int64_t p = static_cast<int64_t>(block_starts[b * k + i]) * TILE + e;
-  out[(static_cast<int64_t>(b) * k + i) * pad_budget + e] =
-      score_at(rects, amp, scale, p, T, q_rects + b * Q_MAX, q_amps + b * Q_MAX);
+  const int64_t row = static_cast<int64_t>(b) * k + i;
+  float* dst = out + row * pad_budget + e;
+  if (GATED && !(ub[row * (pad_budget / block_size) + e / block_size] > floor_[b])) {
+    *dst = 0.0f;
+    return;
+  }
+  const int64_t p = static_cast<int64_t>(block_starts[row]) * TILE + e;
+  *dst = score_at(rects, amp, scale, p, T, q_rects + b * Q_MAX, q_amps + b * Q_MAX);
 }
 
-__device__ __forceinline__ float warp_min(float v) {
+// ---- the θ walk: a ring of pass-1 scores in shared memory ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// buffer values are ≥ 0, so their f32 bit patterns order as unsigned
+// integers once −0 is folded onto +0 (a negative amplitude with zero
+// overlap scores −0)
+__device__ __forceinline__ uint32_t order_bits(float v) {
+  return v == 0.0f ? 0u : __float_as_uint(v);
+}
+
+__device__ __forceinline__ float4 fmax4(float4 a, float4 b) {
+  return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z), fmaxf(a.w, b.w));
+}
+
+__device__ __forceinline__ float4 fmin4(float4 a, float4 b) {
+  return make_float4(fminf(a.x, b.x), fminf(a.y, b.y), fminf(a.z, b.z), fminf(a.w, b.w));
+}
+
+// The walk's CTA: WALK_WARPS warps walk the lattice, each thread owning
+// COLS neighbouring columns of every tile (its slice of the θ buffer and of
+// each ring slot, read and written as one float4); one more warp keeps the
+// ring full, GROUP tiles per bulk copy.  Between two tiles that fold, θ is
+// constant, so the walkers find the next one with a ballot over the
+// per-tile largest bounds, 32 tiles at a time; what a fold needs of its
+// tile (candidate columns, buffer slot) is computed for every tile up
+// front; the skip flags and the zeroing of skipped blocks wait for an
+// epilogue in which every walker works on its own blocks.  (One column per
+// thread, a copy per tile and a step per tile left the walk bound by
+// instruction issue and by the producer's serial issue of copies.)
+constexpr int WALK_WARPS = 8;
+constexpr int WALK_THREADS = WALK_WARPS * 32;
+constexpr int COLS = TILE / WALK_THREADS;
+constexpr int GROUP = 4;                 // tiles per bulk copy
+constexpr int N_GROUPS = RING / GROUP;   // copies in flight
+
+// A walker's COLS columns of every θ-buffer slot: in registers when the
+// buffer has at most 4 slots (CB, the main path's 2 among them), else in
+// shared memory (CB = 0, slot q at s[q · TILE / COLS]).
+template <int CB>
+struct Columns {
+  float4 r[CB > 0 ? CB : 1];
+  float4* s;
+  int cb;
+  __device__ __forceinline__ Columns(float4* s_, int cb_, float fl) : s(s_), cb(cb_) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+    for (int q = 0; q < (CB > 0 ? CB : 1); ++q) r[q] = make_float4(fl, fl, fl, fl);
+  }
+  // slot `slot`'s values, and the minimum over the other slots
+  __device__ __forceinline__ void read(int slot, float4& cur, float4& others) const {
+    others = make_float4(INFINITY, INFINITY, INFINITY, INFINITY);
+    if constexpr (CB > 0) {
+#pragma unroll
+      for (int q = 0; q < CB; ++q) {
+        if (q == slot) cur = r[q];
+        else others = fmin4(others, r[q]);
+      }
+    } else {
+      for (int q = 0; q < cb; ++q) {
+        const float4 v = s[q * (TILE / COLS)];
+        if (q == slot) cur = v;
+        else others = fmin4(others, v);
+      }
+    }
+  }
+  __device__ __forceinline__ void write(int slot, float4 v) {
+    if constexpr (CB > 0) {
+#pragma unroll
+      for (int q = 0; q < CB; ++q)
+        if (q == slot) r[q] = v;
+    } else {
+      s[slot * (TILE / COLS)] = v;
+    }
+  }
+};
 
-template <typename CT, typename AT>
-__global__ void __launch_bounds__(TILE) sweep_score_pruned_kernel(
+template <int CB>
+__global__ void __launch_bounds__(WALK_THREADS + 32, 1) sweep_walk_kernel(
     const int* __restrict__ block_starts,  // [B, k] window origins, TILE units
     const int* __restrict__ bounds,        // [B, k, 2] exact [start, end)
     const float* __restrict__ floor_,      // [B] select floor (≥ 0)
     const float* __restrict__ ub,          // [B, k, n_tiles * bpt] block bounds
-    const float4* __restrict__ q_rects,    // [B, Q_MAX]
-    const float* __restrict__ q_amps,      // [B, Q_MAX]
-    const CT* __restrict__ rects,          // [T, 4]
-    const AT* __restrict__ amp,            // [T]
-    const float* __restrict__ scale,       // [ceil(T / LANES)] or null
-    float* __restrict__ out,               // [B, k, n_tiles * TILE]
+    float* __restrict__ out,               // [B, k, n_tiles * TILE] pass-1 scores
     int* __restrict__ scored,              // [B, k, n_tiles * bpt]
-    int k, int n_tiles, int cb, int bpt, int64_t T) {
-  extern __shared__ float buf[];  // [cb, TILE], column tid owned by thread tid
-  __shared__ float warp_mins[TILE / 32];
-  __shared__ float theta_s;
-  __shared__ float4 sq[Q_MAX];
-  __shared__ float sa[Q_MAX];
+    int k, int n_tiles, int cb, int bpt) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n_all = k * n_tiles, n_ub = n_all * bpt;
+  float* ring = reinterpret_cast<float*>(smem);  // [RING, TILE]
+  float* buf = ring + RING * TILE;               // [cb, TILE] θ buffer
+  float* sub = buf + cb * TILE;                  // [n_all, bpt] block bounds
+  float* tmax = sub + n_ub;                      // [n_all] largest bound per tile
+  // [n_all] per tile: its [start, end) candidate columns (11 bits each) and
+  // its buffer slot t % cb (10 bits)
+  uint32_t* tinfo = reinterpret_cast<uint32_t*>(tmax + n_all);
+  int64_t* rel = reinterpret_cast<int64_t*>(     // [k, 2] [start, end) in the window
+      sub + (n_ub + 2 * n_all + 1) / 2 * 2);
+  unsigned char* flag = reinterpret_cast<unsigned char*>(rel + 2 * k);  // [n_ub]
+  __shared__ uint64_t bar[N_GROUPS];
+  __shared__ volatile int armed[N_GROUPS];  // group each barrier was last armed with
+  __shared__ volatile int progress;         // tiles the walkers are done reading
+  __shared__ uint32_t warp_mins[2][WALK_WARPS];
   const int tid = threadIdx.x, b = blockIdx.x;
   const int lane = tid % 32, warp = tid / 32;
-  if (tid < Q_MAX) {
-    sq[tid] = q_rects[b * Q_MAX + tid];
-    sa[tid] = q_amps[b * Q_MAX + tid];
-  }
-  // seed every slot with the selection floor: θ never drops below it
   const float fl = floor_[b];
-  for (int s = 0; s < cb; ++s) buf[s * TILE + tid] = fl;
-  const int block_size = TILE / bpt;
-  const int my_blk = tid / block_size;
-  const int n_ub = n_tiles * bpt;
-  for (int i = 0; i < k; ++i) {
-    const int64_t row = static_cast<int64_t>(b) * k + i;
-    const int64_t base = static_cast<int64_t>(block_starts[row]) * TILE;
-    const int lo = bounds[row * 2], hi = bounds[row * 2 + 1];
-    for (int j = 0; j < n_tiles; ++j) {
-      // θ = min over the whole buffer, before this tile's decisions
-      float m = buf[tid];
-      for (int s = 1; s < cb; ++s) m = fminf(m, buf[s * TILE + tid]);
-      m = warp_min(m);
-      if (lane == 0) warp_mins[warp] = m;
-      __syncthreads();
-      if (warp == 0) {
-        const float v = warp_min(warp_mins[lane]);
-        if (lane == 0) theta_s = v;
+  const float* ub_b = ub + static_cast<int64_t>(b) * n_ub;
+  float* out_b = out + static_cast<int64_t>(b) * n_all * TILE;
+  // stage the query's bounds and window offsets; seed the buffer with the
+  // floor: θ never drops below it
+  for (int x = tid; x < n_ub; x += blockDim.x) {
+    sub[x] = ub_b[x];
+    flag[x] = 0;
+  }
+  if (tid < k) {
+    const int64_t base = static_cast<int64_t>(block_starts[b * k + tid]) * TILE;
+    rel[2 * tid] = bounds[(b * k + tid) * 2] - base;
+    rel[2 * tid + 1] = bounds[(b * k + tid) * 2 + 1] - base;
+  }
+  for (int x = tid; x < cb * TILE; x += blockDim.x) buf[x] = fl;
+  if (tid < N_GROUPS) armed[tid] = -1;
+  if (tid == 0) {
+    progress = 0;
+    for (int g = 0; g < N_GROUPS; ++g)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bar[g])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // a tile folds iff its largest bound beats θ (fmaxf drops a NaN bound,
+  // which beats nothing)
+  for (int t = tid; t < n_all; t += blockDim.x) {
+    float m = sub[t * bpt];
+    for (int q = 1; q < bpt; ++q) m = fmaxf(m, sub[t * bpt + q]);
+    tmax[t] = m;
+    const int i = t / n_tiles;
+    const int64_t base = static_cast<int64_t>(t - i * n_tiles) * TILE;
+    auto clip = [](int64_t x) { return static_cast<uint32_t>(x < 0 ? 0 : x > TILE ? TILE : x); };
+    tinfo[t] = clip(rel[2 * i] - base) | clip(rel[2 * i + 1] - base) << 11 |
+               static_cast<uint32_t>(t % cb) << 22;
+  }
+  __syncthreads();
+  const int bs = TILE / bpt;
+
+  if (warp == WALK_WARPS) {
+    // producer: copy group g's live blocks (bound above the floor: the
+    // only ones the walk can score; the span from the first to the last)
+    // into its GROUP ring slots, once the walkers are done with the group
+    // those slots held and its copy has landed — so a walker that sees
+    // armed[g % N_GROUPS] == g waits on group g's own phase
+    if (lane == 0) {
+      const int n_groups = (n_all + GROUP - 1) / GROUP;
+      for (int g = 0, gb = 0; g < n_groups; ++g, gb = gb + 1 == N_GROUPS ? 0 : gb + 1) {
+        if (g >= N_GROUPS) {
+          while (progress < (g - N_GROUPS + 1) * GROUP) __nanosleep(64);
+          mbar_wait(&bar[gb], ((g - N_GROUPS) / N_GROUPS) & 1);
+        }
+        const int x0 = g * GROUP * bpt, x1 = min(g * GROUP + GROUP, n_all) * bpt;
+        int first = -1, last = -1;
+        for (int x = x0; x < x1; ++x)
+          if (sub[x] > fl) {
+            if (first < 0) first = x;
+            last = x;
+          }
+        const uint32_t bytes = first < 0 ? 0 : (last - first + 1) * bs * 4;
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                     ::"r"(smem_addr(&bar[gb])), "r"(bytes) : "memory");
+        if (bytes)  // block x of the query sits at x·bs in out and in the ring
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+              "[%0], [%1], %2, [%3];"
+              ::"r"(smem_addr(ring + (gb * GROUP * bpt + first - x0) * bs)),
+                "l"(out_b + static_cast<int64_t>(first) * bs), "r"(bytes),
+                "r"(smem_addr(&bar[gb])) : "memory");
+        armed[gb] = g;
       }
-      __syncthreads();
-      const float theta = theta_s;
-      const bool sb = ub[row * n_ub + j * bpt + my_blk] > theta;
-      if (tid % block_size == 0) scored[row * n_ub + j * bpt + my_blk] = sb ? 1 : 0;
-      const int64_t p = base + static_cast<int64_t>(j) * TILE + tid;
-      float sc = 0.0f;
-      if (sb) {  // a skipped block issues no loads
-        sc = score_at(rects, amp, scale, p, T, sq, sa);
-        // only genuine [start, end) candidates feed the θ buffer
-        const float masked = (p >= lo && p < hi) ? sc : 0.0f;
-        float* slot = buf + ((i * n_tiles + j) % cb) * TILE + tid;
-        *slot = fmaxf(*slot, masked);
+      // no bulk copy may outlive the CTA's shared memory
+      for (int g = max(0, n_groups - N_GROUPS); g < n_groups; ++g)
+        mbar_wait(&bar[g % N_GROUPS], (g / N_GROUPS) & 1);
+    }
+    return;
+  }
+
+  // walkers: the tiles that fold, in order.  Each warp holds 32 tiles at
+  // a time in registers — lane l the largest bound of tile wb + l, the
+  // bound of the warp's own block in it (a warp's columns lie in one block)
+  // and its info word — with the next 32 loaded ahead; a ballot against θ
+  // gives the tiles that fold and the ones in which the warp's block is
+  // scored, and θ only changes after a fold.
+  const int c0 = tid * COLS;
+  const int my_blk = c0 / bs;
+  const bool leader = c0 % bs == 0;
+  Columns<CB> cols(reinterpret_cast<float4*>(buf + c0), cb, fl);
+  auto tile_max = [&](int x) { return x < n_all ? tmax[x] : -INFINITY; };
+  auto blk_ub = [&](int x) { return x < n_all ? sub[x * bpt + my_blk] : -INFINITY; };
+  auto info_at = [&](int x) { return x < n_all ? tinfo[x] : 0u; };
+  float theta = fl;
+  int wb = 0;
+  float tw = tile_max(lane), uw = blk_ub(lane);
+  uint32_t iw = info_at(lane);
+  float tw_next = tile_max(32 + lane), uw_next = blk_ub(32 + lane);
+  uint32_t iw_next = info_at(32 + lane);
+  uint32_t fold_mask = __ballot_sync(0xffffffffu, tw > theta);
+  uint32_t blk_mask = __ballot_sync(0xffffffffu, uw > theta);
+  int par = 0, ready = -1;  // ready: the last ring group seen to have landed
+  for (int t = -1;;) {
+    const int sh = t + 1 - wb;
+    uint32_t cand = sh >= 32 ? 0u : fold_mask >> sh << sh;
+    while (!cand && wb + 32 < n_all) {
+      wb += 32;
+      tw = tw_next;
+      uw = uw_next;
+      iw = iw_next;
+      tw_next = tile_max(wb + 32 + lane);
+      uw_next = blk_ub(wb + 32 + lane);
+      iw_next = info_at(wb + 32 + lane);
+      fold_mask = __ballot_sync(0xffffffffu, tw > theta);
+      blk_mask = __ballot_sync(0xffffffffu, uw > theta);
+      cand = fold_mask;
+    }
+    if (!cand) break;
+    t = wb + __ffs(cand) - 1;
+    if (tid == 0) progress = t;  // ring slots of earlier tiles are free
+    const uint32_t info = __shfl_sync(0xffffffffu, iw, t - wb);
+    const int slot = info >> 22;
+    float4 cur, m;
+    cols.read(slot, cur, m);
+    if ((blk_mask >> (t - wb)) & 1) {
+      if (leader) flag[t * bpt + my_blk] = 1;
+      const int g = t / GROUP;
+      if (g != ready) {
+        const int gb = g % N_GROUPS;
+        while (armed[gb] != g) {
+        }
+        mbar_wait(&bar[gb], (g / N_GROUPS) & 1);
+        ready = g;
       }
-      out[(row * n_tiles + j) * TILE + tid] = sc;
+      const float4 v = *reinterpret_cast<const float4*>(ring + (t % RING) * TILE + c0);
+      // only genuine [start, end) candidates feed the θ buffer
+      const int lo = info & 0x7ff, hi = (info >> 11) & 0x7ff;
+      cur = fmax4(cur, make_float4(
+          c0 >= lo && c0 < hi ? v.x : 0.0f, c0 + 1 >= lo && c0 + 1 < hi ? v.y : 0.0f,
+          c0 + 2 >= lo && c0 + 2 < hi ? v.z : 0.0f, c0 + 3 >= lo && c0 + 3 < hi ? v.w : 0.0f));
+      cols.write(slot, cur);
+    }
+    // θ for the next decisions.  Buffer entries only rise, so θ stays put
+    // while any entry still equals it: one barrier that ORs that across the
+    // walkers.  Only when none does is θ the new minimum, taken with a
+    // second barrier.
+    m = fmin4(m, cur);
+    const float mine = fminf(fminf(m.x, m.y), fminf(m.z, m.w));
+    uint32_t held;
+    asm volatile(
+        "{\n.reg .pred p, q;\nsetp.eq.f32 p, %1, %2;\n"
+        "bar.red.or.pred q, 1, %3, p;\nselp.u32 %0, 1, 0, q;\n}\n"
+        : "=r"(held) : "f"(mine), "f"(theta), "n"(WALK_THREADS) : "memory");
+    if (!held) {
+      const uint32_t mb = min(min(order_bits(m.x), order_bits(m.y)),
+                              min(order_bits(m.z), order_bits(m.w)));
+      const uint32_t wm = __reduce_min_sync(0xffffffffu, mb);
+      if (lane == 0) warp_mins[par][warp] = wm;
+      asm volatile("bar.sync 2, %0;" ::"n"(WALK_THREADS) : "memory");
+      theta = __uint_as_float(__reduce_min_sync(
+          0xffffffffu, lane < WALK_WARPS ? warp_mins[par][lane] : 0xffffffffu));
+      par ^= 1;
+      fold_mask = __ballot_sync(0xffffffffu, tw > theta);
+      blk_mask = __ballot_sync(0xffffffffu, uw > theta);
     }
   }
+  if (tid == 0) progress = n_all;
+  asm volatile("bar.sync 2, %0;" ::"n"(WALK_THREADS) : "memory");
+  // epilogue: every block's flag; a block the floor let through but θ
+  // skipped was scored by pass 1 and is zeroed
+  int* scored_b = scored + static_cast<int64_t>(b) * n_ub;
+  for (int x = tid; x < n_ub; x += WALK_THREADS) {
+    const int f = flag[x];
+    scored_b[x] = f;
+    if (!f && sub[x] > fl) {
+      float4* o = reinterpret_cast<float4*>(out_b + static_cast<int64_t>(x) * bs);
+      for (int c = 0; c < bs / 4; ++c) o[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+}
+
+// dynamic shared memory of the walk: the ring, the θ buffer, the bounds,
+// per-tile maxima and per-tile info (padded to 8 bytes), the [start, end)
+// offsets and the flags; kernel.py mirrors it
+size_t walk_smem_bytes(int k, int n_tiles, int cb, int bpt) {
+  const int n_all = k * n_tiles;
+  return static_cast<size_t>(RING + cb) * TILE * sizeof(float) +
+         static_cast<size_t>((n_all * (bpt + 2) + 1) / 2 * 2) * sizeof(float) +
+         static_cast<size_t>(k) * 2 * sizeof(int64_t) + static_cast<size_t>(n_all) * bpt;
 }
 
 // p: block_starts, [bounds, floor, ub,] q_rects, q_amps, rects, amp, scale,
@@ -146,34 +404,62 @@ struct Plain {
   static int run(const void* const* p, int B, int k, int pad_budget, int64_t T,
                  cudaStream_t st) {
     const dim3 grid((pad_budget + 255) / 256, k, B);
-    sweep_score_kernel<CT, AT><<<grid, 256, 0, st>>>(
+    sweep_score_kernel<CT, AT, false><<<grid, 256, 0, st>>>(
         static_cast<const int*>(p[0]), static_cast<const float4*>(p[1]),
         static_cast<const float*>(p[2]), static_cast<const CT*>(p[3]),
         static_cast<const AT*>(p[4]), static_cast<const float*>(p[5]),
-        static_cast<float*>(const_cast<void*>(p[6])), k, pad_budget, T);
+        static_cast<float*>(const_cast<void*>(p[6])), k, pad_budget, T,
+        nullptr, nullptr, TILE);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
+template <int CB>
+int walk(const void* const* p, int B, int k, int n_tiles, int cb, int bpt, cudaStream_t st) {
+  const size_t smem = walk_smem_bytes(k, n_tiles, cb, bpt);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sweep_walk_kernel<CB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  sweep_walk_kernel<CB><<<B, WALK_THREADS + 32, smem, st>>>(
+      static_cast<const int*>(p[0]), static_cast<const int*>(p[1]),
+      static_cast<const float*>(p[2]), static_cast<const float*>(p[3]),
+      static_cast<float*>(const_cast<void*>(p[9])),
+      static_cast<int*>(const_cast<void*>(p[10])), k, n_tiles, cb, bpt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// passes: bit 0 the gated score pass, bit 1 the θ walk (3 on every call but
+// the timing of one pass alone)
 template <typename CT, typename AT>
 struct Pruned {
   static int run(const void* const* p, int B, int k, int n_tiles, int cb, int bpt,
-                 int64_t T, cudaStream_t st) {
-    const size_t smem = static_cast<size_t>(cb) * TILE * sizeof(float);
-    auto kern = sweep_score_pruned_kernel<CT, AT>;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+                 int64_t T, int passes, cudaStream_t st) {
+    const int pad_budget = n_tiles * TILE;
+    float* out = static_cast<float*>(const_cast<void*>(p[9]));
+    if (passes & 1) {
+      const dim3 grid((pad_budget + 255) / 256, k, B);
+      sweep_score_kernel<CT, AT, true><<<grid, 256, 0, st>>>(
+          static_cast<const int*>(p[0]), static_cast<const float4*>(p[4]),
+          static_cast<const float*>(p[5]), static_cast<const CT*>(p[6]),
+          static_cast<const AT*>(p[7]), static_cast<const float*>(p[8]), out,
+          k, pad_budget, T, static_cast<const float*>(p[3]),
+          static_cast<const float*>(p[2]), TILE / bpt);
+      const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    kern<<<B, TILE, smem, st>>>(
-        static_cast<const int*>(p[0]), static_cast<const int*>(p[1]),
-        static_cast<const float*>(p[2]), static_cast<const float*>(p[3]),
-        static_cast<const float4*>(p[4]), static_cast<const float*>(p[5]),
-        static_cast<const CT*>(p[6]), static_cast<const AT*>(p[7]),
-        static_cast<const float*>(p[8]), static_cast<float*>(const_cast<void*>(p[9])),
-        static_cast<int*>(const_cast<void*>(p[10])), k, n_tiles, cb, bpt, T);
-    return static_cast<int>(cudaGetLastError());
+    if (passes & 2) {
+      switch (cb) {
+        case 1: return walk<1>(p, B, k, n_tiles, cb, bpt, st);
+        case 2: return walk<2>(p, B, k, n_tiles, cb, bpt, st);
+        case 3: return walk<3>(p, B, k, n_tiles, cb, bpt, st);
+        case 4: return walk<4>(p, B, k, n_tiles, cb, bpt, st);
+        default: return walk<0>(p, B, k, n_tiles, cb, bpt, st);
+      }
+    }
+    return 0;
   }
 };
 
@@ -206,11 +492,11 @@ extern "C" int sweep_score_pruned_launch(
     const void* q_rects, const void* q_amps,
     const void* rects, const void* amp, const void* scale, void* out, void* scored,
     int B, int k, int n_tiles, int cb, int bpt, long long T, int coord_kind,
-    int amp_kind, void* stream) {
+    int amp_kind, int passes, void* stream) {
   if (B <= 0 || k <= 0 || n_tiles <= 0) return 0;
   const void* p[] = {block_starts, bounds, floor_, ub, q_rects, q_amps,
                      rects, amp, scale, out, scored};
   return geo::dispatch<geo::Pruned>(coord_kind, amp_kind, static_cast<const void* const*>(p),
                                     B, k, n_tiles, cb, bpt, static_cast<int64_t>(T),
-                                    static_cast<cudaStream_t>(stream));
+                                    passes, static_cast<cudaStream_t>(stream));
 }

@@ -38,7 +38,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "geo_score_launch": [_P, _P, _P, _P, _P, _L, _L, _P],
     "sweep_score_launch": [_P] * 7 + [_I] * 3 + [_L, _I, _I, _P],
-    "sweep_score_pruned_launch": [_P] * 11 + [_I] * 5 + [_L, _I, _I, _P],
+    "sweep_score_pruned_launch": [_P] * 11 + [_I] * 5 + [_L, _I, _I, _I, _P],
     "text_probe_launch": [_P, _I] + [_P] * 7 + [_F, _P, _P] + [_I] * 5 + [_P],
     "bitmap_and_popcount_launch": [_P, _P, _P, _I, _L, _P],
 }

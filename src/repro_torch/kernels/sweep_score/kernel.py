@@ -20,6 +20,9 @@ LANES = 128
 TILE = 1024  # toe prints per sweep tile
 Q_MAX = 8
 DTYPE_KIND = {torch.float32: 0, torch.float16: 1, torch.int8: 2}
+RING = 16  # tiles of scores in flight in the pruned sweep's θ walk
+SMEM_LIMIT = 232_448  # shared memory one CTA may use on an H100 (227 KB)
+WALK_STATIC_SMEM = 128  # the walk's static shared memory (mbarriers, counters, minima)
 
 
 def _store_args(store):
@@ -48,6 +51,26 @@ def sweep_score_planar(
     return out
 
 
+def walk_smem_bytes(max_candidates: int, k: int, n_tiles: int, bpt: int) -> int:
+    """Dynamic shared memory of the pruned sweep's θ walk (the layout of
+    ``walk_smem_bytes`` in ``csrc/sweep_score.cu``): the score ring, the
+    cb·1024-float θ buffer, the query's block bounds, per-tile maxima and
+    per-tile info words padded to 8 bytes, its [start, end) offsets and a
+    flag byte per block.  Raises ``ValueError`` when one CTA cannot hold
+    them, rather than failing at launch."""
+    cb = max(1, -(-max_candidates // TILE))
+    n_ub = k * n_tiles * bpt
+    nbytes = (RING + cb) * TILE * 4 + (n_ub + 2 * k * n_tiles + 1) // 2 * 2 * 4 + k * 2 * 8 + n_ub
+    if nbytes + WALK_STATIC_SMEM > SMEM_LIMIT:
+        raise ValueError(
+            f"max_candidates C={max_candidates}: the pruned sweep's walk needs "
+            f"{nbytes + WALK_STATIC_SMEM} bytes of shared memory per query (a θ buffer of "
+            f"{cb} tiles, {RING} ring tiles, {n_ub} block bounds), more than the "
+            f"{SMEM_LIMIT} one CTA may use"
+        )
+    return nbytes
+
+
 def sweep_score_pruned_planar(
     block_starts: torch.Tensor,  # i32[B, k] window origins in TILE units
     bounds: torch.Tensor,  # i32[B, k, 2] exact [start, end) offsets
@@ -59,20 +82,29 @@ def sweep_score_pruned_planar(
     pad_budget: int,
     max_candidates: int,  # C of the partial top-C threshold buffer
     bpt: int,  # metadata blocks per TILE (1, 2, 4 or 8)
+    *,
+    passes: int = 3,
+    outputs: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(scores f32[B, k, pad_budget], scored i32[B, k, n_tiles*bpt]); one
-    CTA per query walks its tiles in order."""
+    """(scores f32[B, k, pad_budget], scored i32[B, k, n_tiles*bpt]), in two
+    launches: the score pass gated by the floor over every SM, then one CTA
+    per query walks its tiles in order over those scores.  ``passes`` (bit 0
+    the score pass, bit 1 the walk) and ``outputs`` (the tensors to write)
+    let a caller time one pass alone."""
     B, k = block_starts.shape
     n_tiles = pad_budget // TILE
     cb = max(1, -(-max_candidates // TILE))
+    walk_smem_bytes(max_candidates, k, n_tiles, bpt)
     dev = q_rects.device
-    out = torch.empty((B, k, pad_budget), dtype=torch.float32, device=dev)
-    scored = torch.empty((B, k, n_tiles * bpt), dtype=torch.int32, device=dev)
+    if outputs is None:
+        outputs = (torch.empty((B, k, pad_budget), dtype=torch.float32, device=dev),
+                   torch.empty((B, k, n_tiles * bpt), dtype=torch.int32, device=dev))
+    out, scored = outputs
     ptrs, T, ck, ak = _store_args(store)
     err = library().sweep_score_pruned_launch(
         block_starts.data_ptr(), bounds.data_ptr(), floor.data_ptr(),
         block_ub.data_ptr(), q_rects.data_ptr(), q_amps.data_ptr(), *ptrs,
-        out.data_ptr(), scored.data_ptr(), B, k, n_tiles, cb, bpt, T, ck, ak,
+        out.data_ptr(), scored.data_ptr(), B, k, n_tiles, cb, bpt, T, ck, ak, passes,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch("sweep_score_pruned_launch", err)

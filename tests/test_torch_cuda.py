@@ -108,6 +108,46 @@ def test_sweep_kernels_bitwise_on_card(cuda, mode, bs):
         assert torch.equal(x, y)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,mode", [(1024, "f32"), (2048, "f16"), (3000, "int8"), (5000, "f32")])
+@pytest.mark.parametrize("floor,bs", [(0.0, 128), (0.001, 256), (0.05, 512)])
+def test_pruned_sweep_two_passes_bitwise_on_card(cuda, C, mode, floor, bs):
+    """The gated score pass and the θ walk against the sequential plain
+    walk: 200 queries (more CTAs than SMs), budget 1024 (two tiles per
+    window), θ buffers of 1-3 tiles held in registers and of 5 in shared
+    memory, with slot reuse, some queries over the whole domain and faint
+    store stretches, so θ rises past the floor and some blocks are scored
+    in pass 1 only to be skipped by the walk."""
+    rng = np.random.default_rng(C + bs)
+    T, budget, B, k = 50000, 1024, 200, 4
+    rects, store, scale, dec = _store(rng, T, mode)
+    faint = np.repeat(np.where(rng.random(-(-T // 1024)) < 0.5, 0.01, 1.0), 1024)[:T]
+    if mode == "int8":
+        store, scale = quantize_amps_np(dec * faint)
+        dec = store.astype(np.float32) * np.repeat(scale, SCALE_BLOCK)[:T]
+    else:
+        store = (store.astype(np.float32) * faint).astype(store.dtype)
+        dec = store.astype(np.float32)
+    meta = [_t(x, cuda) for x in block_metadata_np(rects.astype(np.float32), dec, bs)]
+    sw = [_sweeps(rng, T, budget, k) for _ in range(B)]
+    qr = np.stack([np.concatenate([_rects(rng, 2), QR2]) for _ in range(B)])
+    qr[::3, 0] = (0.0, 0.0, 1.0, 1.0)
+    qa = rng.uniform(2.0, 20.0, (B, 4)).astype(np.float32)
+    q = [_t(x, cuda) for x in (np.stack([s for s, _ in sw]), np.stack([e for _, e in sw]), qr, qa)]
+    base = [_t(x, cuda) for x in (rects, store)]
+    sc = _t(scale, cuda)
+    args = (*base, *meta, *q, budget, C, bs, floor)
+    reset_launch_counts()
+    got = ps.sweep_score_pruned(*args, tp_amp_scale=sc)
+    counts = launch_counts()
+    assert counts.pop("sweep_score_pruned") == 1 and not any(counts.values())
+    want = psr.sweep_score_pruned_ref(*args, tp_amp_scale=sc)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    for x, y in zip(got[1:], want[1:]):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
 def _text_store(rng, n_docs, n_terms, dtype, layout):
     """A skewed corpus (term 0 in every doc), its text index and the
     per-term block CSR, on the CPU."""

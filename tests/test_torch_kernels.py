@@ -21,7 +21,9 @@ from repro.kernels.sweep_score.ref import sweep_score_pruned_ref as j_pruned_ref
 from repro.kernels.sweep_score.ref import sweep_score_ref as j_sweep_ref  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.geo_score import ops as pg  # noqa: E402
+from repro_torch.kernels.sweep_score import kernel as psk  # noqa: E402
 from repro_torch.kernels.sweep_score import ops as ps  # noqa: E402
+from repro_torch.kernels.sweep_score import ref as psr  # noqa: E402
 
 INVALID = 2**31 - 1
 TOL = dict(rtol=1e-6, atol=1e-7)  # XLA and torch may round a sum in another order
@@ -287,6 +289,115 @@ def test_pruned_batch_rows_keep_their_own_threshold():
     for b in range(3):
         jargs = [jnp.asarray(x) for x in (rects, amps, *meta, ss[b], ee[b], qr[b], qa[b])]
         _assert_pruned_equal(got, j_pruned(*jargs, budget, C, bs, float(floors[b])), row=b)
+
+
+def _pruned_planar_inputs(rng, T, budget, k, B, bs, floor):
+    """The planar pruned sweep's inputs, built as the wrapper builds them,
+    over a store with negative amplitudes (their zero-overlap scores are
+    −0.0) and faint stretches (their blocks' bounds fall below θ)."""
+    rects = _store(rng, T)[0]
+    n_chunks = -(-T // 1024)  # faint chunks in the store's second half
+    chunk = np.where((rng.random(n_chunks) < 0.7) & (np.arange(n_chunks) >= n_chunks // 2),
+                     10.0 ** rng.uniform(-3.0, -1.5, n_chunks), 1.0)
+    faint = np.repeat(chunk, 1024)[:T]
+    amps = (rng.uniform(-0.05, 1.0, T) * faint).astype(np.float32)
+    meta = [_t(x) for x in block_metadata_np(rects, amps, bs)]
+    sw = [_sweeps(rng, T, budget, k) for _ in range(B)]
+    stride = T // k  # query 0 sweeps the store in order: strong first, then faint
+    sw[0] = (np.arange(k, dtype=np.int32) * stride, np.arange(1, k + 1, dtype=np.int32) * stride)
+    ss, ee = _t(np.stack([s for s, _ in sw])), _t(np.stack([e for _, e in sw]))
+    qr = np.stack([np.concatenate([_rects(rng, 2) * 0.5 + 0.2, QR2]) for _ in range(B)])
+    qr[0, 0] = (0.0, 0.0, 1.0, 1.0)  # every toe print overlaps: θ rises above the floor
+    qa = rng.uniform(2.0, 20.0, (B, 4)).astype(np.float32)
+    qr_p, qa_p = pg.pad_query(_t(qr), _t(qa))
+    pad_budget = ps.padded_budget(budget)
+    n_tiles = pad_budget // psk.TILE
+    _, _, block_starts, bounds = ps.sweep_window_offsets(ss, ee, T)
+    ub = ps.block_upper_bounds(*meta, _t(qr), _t(qa))
+    win_ub, _ = ps.window_block_bounds(ub, block_starts, bounds, n_tiles, bs)
+    floors = torch.full((B,), floor, dtype=torch.float32)
+    store = (_t(rects), _t(amps), None)
+    return (block_starts, bounds, floors, win_ub.contiguous(), qr_p, qa_p, store, pad_budget)
+
+
+def _two_pass_model(block_starts, bounds, floor, ub, qr, qa, store, pad_budget, C, bpt):
+    """The CUDA design, step for step: pass 1 scores every block whose bound
+    beats the floor; the walk decides each tile against θ, folds and takes
+    the minimum (over −0-folded bit patterns) only in tiles where a block
+    beats θ, and zeroes the blocks the floor let through but θ skipped."""
+    B, k = block_starts.shape
+    n_tiles, bs = pad_budget // psk.TILE, psk.TILE // bpt
+    cb = max(1, -(-C // psk.TILE))
+    n_all = k * n_tiles
+    live = ub > floor[:, None, None]
+    out = torch.where(live.repeat_interleave(bs, dim=2),
+                      psr.sweep_score_planar_ref(block_starts, qr, qa, store, pad_budget), 0.0)
+    out = out.reshape(B, n_all, bpt, bs)
+    e = torch.arange(pad_budget).reshape(n_tiles, psk.TILE)
+    rel = bounds.long() - block_starts.long()[..., None] * psk.TILE
+    flat_ub, flat_live = ub.reshape(B, n_all, bpt), live.reshape(B, n_all, bpt)
+    scored = torch.zeros((B, n_all, bpt), dtype=torch.int32)
+    for b in range(B):
+        buf = torch.full((cb, psk.TILE), float(floor[b]))
+        theta = floor[b]
+        for t in range(n_all):
+            i, j = divmod(t, n_tiles)
+            sb = flat_ub[b, t] > theta
+            scored[b, t] = sb.int()
+            if sb.any():
+                sc = out[b, t].reshape(-1)
+                ok = sb.repeat_interleave(bs) & (e[j] >= rel[b, i, 0]) & (e[j] < rel[b, i, 1])
+                buf[t % cb] = torch.maximum(buf[t % cb], torch.where(ok, sc, 0.0))
+                bits = torch.where(buf == 0.0, 0.0, buf).view(torch.int32)
+                theta = bits.min().reshape(1).view(torch.float32)[0]
+            out[b, t][~sb & flat_live[b, t]] = 0.0
+    return out.reshape(B, k, pad_budget), scored.reshape(B, k, n_tiles * bpt)
+
+
+@pytest.mark.parametrize("seed,C,floor,bs", [
+    (0, 512, 0.0, 128),
+    (1, 1000, 0.001, 256),
+    (2, 2048, 0.0, 512),
+    (3, 3000, 0.002, 1024),
+    (4, 3000, 0.0, 128),
+    (5, 1024, 0.05, 256),
+])
+def test_pruned_plain_facts_of_the_two_pass_design(seed, C, floor, bs):
+    """What the card's two launches rest on, held on the plain version: a
+    block whose bound does not beat the floor is never scored and outputs
+    0; a scored block outputs the unpruned scorer's values bitwise; and the
+    gated pass + θ walk (tiles that fold nothing skip the minimum) give the
+    sequential walk's scores and flags bitwise, over slot reuse (C 3000)."""
+    rng = np.random.default_rng(seed)
+    bpt = psk.TILE // bs
+    args = _pruned_planar_inputs(rng, 20000, 4096, 6, 3, bs, floor)
+    block_starts, _, floors, ub, qr, qa, store, pad_budget = args
+    out, scored = psr.sweep_score_pruned_planar_ref(*args, C, bpt)
+    gated = ~(ub > floors[:, None, None])
+    assert gated.any() and scored.bool().any()
+    assert not (scored.bool() & gated).any()
+    per_pos = scored.bool().repeat_interleave(bs, dim=2)
+    unpruned = psr.sweep_score_planar_ref(block_starts, qr, qa, store, pad_budget)
+    assert torch.equal(out[~per_pos], torch.zeros_like(out[~per_pos]))
+    assert torch.equal(out[per_pos], unpruned[per_pos])
+    want_out, want_scored = _two_pass_model(*args, C, bpt)
+    assert torch.equal(scored, want_scored)
+    assert torch.equal(out.view(torch.int32), want_out.view(torch.int32))
+
+
+def test_pruned_walk_shared_memory_check():
+    """The launcher sizes the walk's shared memory without a card and
+    refuses a C whose θ buffer cannot fit one CTA."""
+    k, n_tiles, bpt = 8, 129, 8  # the main path's windows at block size 128
+    fits = psk.walk_smem_bytes(2048, k, n_tiles, bpt)
+    assert fits == (psk.RING + 2) * psk.TILE * 4 + k * n_tiles * (bpt + 2) * 4 + k * 16 + k * n_tiles * bpt
+    assert psk.walk_smem_bytes(3000, k, n_tiles, bpt) == fits + psk.TILE * 4
+    with pytest.raises(ValueError, match="C=200000"):
+        psk.walk_smem_bytes(200_000, k, n_tiles, bpt)
+    largest = (psk.SMEM_LIMIT - psk.WALK_STATIC_SMEM - fits) // (psk.TILE * 4) + 2
+    psk.walk_smem_bytes(largest * psk.TILE, k, n_tiles, bpt)
+    with pytest.raises(ValueError):
+        psk.walk_smem_bytes((largest + 1) * psk.TILE, k, n_tiles, bpt)
 
 
 def test_cpu_calls_do_not_count_as_launches():
