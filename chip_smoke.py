@@ -31,7 +31,11 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    bitwise, K-SWEEP included), and the block-bitmap conjunction prefilter
    against the CSR intersection over the trace's term tuples;
 4. times each kernel and its plain version with CUDA events (median of
-   20 runs) beside its bound, and each variant's batch latency;
+   20 runs) beside its bound — operations counted from each query's live
+   slots — and each variant's batch latency; times the unpruned scorer
+   again with every window at one origin (all windows on a few store
+   tiles), beside a torch fill of its output's size and the store bytes
+   its windows request and the unique bytes;
 5. runs one profiler pass per variant: each stage's host time and device
    time, and the device's idle share over a batch.
 
@@ -67,10 +71,14 @@ BUDGETS = dict(
 # instruction, issued at half that rate (132 SMs x 128 lanes x 1.98 GHz).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12 / 2
-# per (toe print, query slot): 2 min, 2 max, 2 sub, 2 clamp, 2 mul, 1 add;
-# per toe print: the final multiply by the amp (an int8 store adds one
-# more, its scale; the main path's store is f32)
-OPS_PER_POSITION = 8 * 11 + 1
+# per (toe print, live query slot): 2 min, 2 max, 2 sub, 2 clamp, 2 mul,
+# 1 add; per toe print: the final multiply by the amp (an int8 store adds
+# one more, its scale; the main path's store is f32).  A slot the scorer
+# skips (amp 0, finite extent: ref.live_slots) adds exactly nothing, so
+# the bounds count 11 per live slot; the count over all 8 slots is printed
+# beside it for comparison with earlier runs
+OPS_PER_SLOT = 11
+OPS_PER_POSITION_ALL_SLOTS = 8 * OPS_PER_SLOT + 1
 STORE_BYTES = 20.0  # f32 rect (16 B) and amp (4 B) per toe print
 RUNS = 20
 DEVICE = "cuda"
@@ -211,7 +219,7 @@ def main() -> int:
     plain_ex = make_executor("single", corpus, budgets=budgets)
     sp = plain_ex.engine.index.spatial
     say(f"set-up: index built in {time.perf_counter() - t:.1f} s; {sp.n_toeprints} toe "
-        f"prints, {plain_ex.engine.index.text.n_postings} postings")
+        f"prints, {plain_ex.engine.index.text.n_postings} postings (numpy {np.__version__})")
     # TEXT-FIRST's stores: docid (with the bitmap rows) and impact share
     # the K-SWEEP index's toe-print store; the impact/int8 one comes from
     # the user's entry point, the toe-print store compressed with it
@@ -523,12 +531,31 @@ def main() -> int:
 
     # ---- phase 4: timings at the main path's shapes ---------------------
     rows = []
+    # operations per position of each query: 11 per live slot, plus the
+    # multiply by the amp
+    ops_per_pos = OPS_PER_SLOT * SR.live_slots(qr, qa).sum(dim=1).double() + 1.0  # [B]
+
+    def op_bound(name, n_bytes, pos_per_query):
+        """Bound from each query's live slots; the 89-per-position count
+        printed beside it."""
+        n_ops = float((ops_per_pos * pos_per_query.double()).sum())
+        n_pos = float(pos_per_query.sum())
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        old_ms, old_by = bound_ms(n_bytes, n_pos * OPS_PER_POSITION_ALL_SLOTS)
+        say(f"phase 4: {name} bound: {n_bytes:.0f} bytes, {n_ops:.0f} operations "
+            f"({n_ops / max(n_pos, 1.0):.4f} per position from the live slots, "
+            f"{float(ops_per_pos.mean() - 1) / OPS_PER_SLOT:.4f} live slots per query) -> "
+            f"{b_ms:.4f} ms ({b_by}); at {OPS_PER_POSITION_ALL_SLOTS} per position "
+            f"{n_pos * OPS_PER_POSITION_ALL_SLOTS:.0f} operations -> {old_ms:.4f} ms ({old_by})")
+        return b_ms, b_by
+
     rects, amps, _, ok = sidx.fetch_sweeps(sp, ss, ee, S)
     amps = torch.where(ok, amps, 0.0).contiguous()
     n = amps.numel()
     kern = lambda: GK.geo_score_cuda(rects, amps, qr, qa)  # noqa: E731
     plain = lambda: GR.geo_score_toeprints_ref(rects, amps, qr, qa)  # noqa: E731
-    rows.append(("geo_score", kern, plain, *bound_ms(n * (STORE_BYTES + 4.0), n * OPS_PER_POSITION)))
+    per_q = torch.full((BATCH,), amps.shape[1], dtype=torch.float64, device=dev)
+    rows.append(("geo_score", kern, plain, *op_bound("geo_score", n * (STORE_BYTES + 4.0), per_q)))
     del ok
 
     store = (sp.tp_rects, sp.tp_amps, None)
@@ -541,10 +568,30 @@ def main() -> int:
     touched[pos[pos < T]] = True
     n_out = pos.numel()
     n_live = int((pos < T).sum())
+    n_unique = int(touched.sum())
     kern = lambda: SK.sweep_score_planar(block_starts, qr, qa, store, pad_budget)  # noqa: E731
     plain = lambda: SR.sweep_score_planar_ref(block_starts, qr, qa, store, pad_budget)  # noqa: E731
-    rows.append(("sweep_score", kern, plain, *bound_ms(
-        float(touched.sum()) * STORE_BYTES + n_out * 4.0, n_live * OPS_PER_POSITION)))
+    rows.append(("sweep_score", kern, plain, *op_bound(
+        "sweep_score", n_unique * STORE_BYTES + n_out * 4.0, (pos < T).sum(dim=(1, 2)))))
+    # diagnosis: the same scorer with every window at origin 0.  The
+    # store-tile-major scorer reads each tile once either way, so the gap
+    # to the real windows is what crowding every window onto the first
+    # pad_budget / TILE tiles costs (load imbalance); for a scorer that
+    # reads the store once per window (a thread per window position) it
+    # is what fetching the store costs (the slice stays in L2).  Beside it,
+    # writing the output alone: torch filling a tensor of the output's
+    # size, the floor of the scorer's writes on this card
+    one = torch.zeros_like(block_starts)
+    fill = torch.empty((*block_starts.shape, pad_budget), dtype=torch.float32, device=dev)
+    diag = (time_ms(kern, torch),
+            time_ms(lambda: SK.sweep_score_planar(one, qr, qa, store, pad_budget), torch),
+            time_ms(lambda: fill.fill_(1.0), torch))
+    del fill
+    say(f"phase 4: sweep_score diagnosis: the batch's windows {diag[0]:.4f} ms, every window at "
+        f"origin 0 (all on {pad_budget // SK.TILE} store tiles) {diag[1]:.4f} ms, filling the "
+        f"{n_out * 4} output bytes alone {diag[2]:.4f} ms; store bytes requested "
+        f"{n_live * STORE_BYTES:.0f}, "
+        f"unique {n_unique * STORE_BYTES:.0f} ({n_live / max(n_unique, 1):.2f} reads per row)")
 
     bs = sp.block_size
     bpt = SK.TILE // bs
@@ -562,9 +609,10 @@ def main() -> int:
     n_scored = int(scored_pos.sum())
     kern = lambda: SK.sweep_score_pruned_planar(*pargs)  # noqa: E731
     plain = lambda: SR.sweep_score_pruned_planar_ref(*pargs)  # noqa: E731
-    rows.append(("sweep_score_pruned", kern, plain, *bound_ms(
+    rows.append(("sweep_score_pruned", kern, plain, *op_bound(
+        "sweep_score_pruned",
         float(touched.sum()) * STORE_BYTES + n_out * 4.0 + win_ub.numel() * 8.0,
-        n_scored * OPS_PER_POSITION)))
+        scored_pos.sum(dim=(1, 2)))))
     say(f"phase 4: pruned kernel scores {n_scored} of {n_out} window positions")
     # its two launches alone (the walk rereads the scores the score pass
     # left, and zeroes the same blocks on every run), and the speculative
@@ -582,7 +630,7 @@ def main() -> int:
     exact(outs[1], scored, "sweep_score_pruned flags, passes timed alone", torch)
     say(f"phase 4: sweep_score_pruned: pass 1 (gated score) {pass_ms[0]:.4f} ms, pass 2 "
         f"(θ walk, ring of {SK.RING} tiles) {pass_ms[1]:.4f} ms; blocks: {win_ub.numel()} in "
-        f"all, {win_ub.numel() - int(live.sum())} gated by the floor (no loads), "
+        f"all, {win_ub.numel() - int(live.sum())} gated by the floor (not scored), "
         f"{int(scored.sum())} scored, {n_spec} speculative (scored in pass 1, zeroed in pass 2); "
         f"{n_fold} of {BATCH * block_starts.shape[1] * n_tiles} tiles fold")
 

@@ -1,17 +1,34 @@
 // Fused K-SWEEP fetch + geo scoring on Hopper, plain and block-max pruned.
 //
 // sweep_score_kernel replaces repro/kernels/sweep_score/kernel.py::
-// sweep_score_planar.  Sweep i of query b reads the toe-print store from the
-// TILE-aligned window origin block_starts[b, i] (a device i32 tensor: each
-// block reads its own offset where the TPU scalar-prefetched it) and scores
-// every position in registers, decoding the stored dtype: astype f32, then
+// sweep_score_planar: the score of every position of every window, where
+// sweep i of query b reads the toe-print store from the TILE-aligned window
+// origin block_starts[b, i] (a device i32 tensor, read by the kernel where
+// the TPU scalar-prefetched it), decoding the stored dtype: astype f32, then
 // × the int8 store's per-128-row amp scale.  The store is read where the
-// index keeps it — packed [T, 4] rects (one 16-byte f32 or 8-byte f16 load
-// per position, neighbours on neighbouring addresses) and a [T] amp column —
-// so no per-batch planar copy exists; the TPU's planar [rows, 128] layout
-// served its vector lanes.  Positions past the store's end issue no loads
-// and score 0, as the reference's empty-rect padding does.  One thread per
-// position.
+// index keeps it — packed [T, 4] rects and a [T] amp column — so no
+// per-batch planar copy exists; the TPU's planar [rows, 128] layout served
+// its vector lanes.  Positions past the store's end score 0.
+//
+// What bounds the scorer on the card is bytes: 4 per window position
+// written, and the store rows the windows cover.  A batch's windows overlap
+// (32 queries sweep one Morton-ordered store): at the main path's shapes
+// they request each row ~13.5 times, and the f32 store (52 MB) is larger
+// than L2, so a thread per window position re-read ~676 MB from HBM for
+// ~50 MB of distinct rows.  So the scorer is store-tile-major: a CTA owns
+// one store tile (TILE rows — the windows' own alignment, so a window
+// covers a whole tile or none of it), loads and decodes its rows once into
+// registers, finds the windows that cover the tile from the B·k origins
+// (a ballot per 256 windows), and scores the tile for each of them, 4 KB
+// of contiguous output per window.  Positions past the store's last tile
+// belong to no store tile, and one CTA per window writes their zeros.
+// Each query sums only its live slots (live_slot in common.cuh: the slots
+// that pad a query to Q_MAX add exactly nothing), in slot order, so the
+// scores stay bitwise those of the all-slot sum; a CTA works out each
+// query's live slots once, in its prologue.  The main path's queries have 1-2 live slots of 8, and
+// a thread-per-position scorer spent its time on the other 6-7 more than
+// on re-reading the store (PERF.md's sweep_score diagnosis); with both
+// fixed, the output writes are what is left.
 //
 // The pruned sweep replaces sweep_score_pruned_planar.  What bounds it is
 // the θ buffer: each tile's skip decisions read θ = min of a cyclic
@@ -22,11 +39,11 @@
 // SMs idle at a batch of 32 and put a global load, a score and two barriers
 // on the chain of every tile.  Here one wrapper call makes two launches,
 // with no signalling between CTAs:
-//   1. the gated score pass: sweep_score_kernel<GATED> on the unpruned
-//      grid, over every SM.  A metadata block whose bound does not beat the
-//      select floor issues no loads and writes 0: θ is seeded with the floor
-//      and only ever raised, so the walk skips it whatever θ does.  Every
-//      other block writes score_at(), the walk's own arithmetic.
+//   1. the gated score pass: sweep_score_kernel<GATED>, the unpruned
+//      scorer.  A metadata block whose bound does not beat the select floor
+//      is not scored and writes 0: θ is seeded with the floor and only ever
+//      raised, so the walk skips it whatever θ does.  Every other block
+//      writes the unpruned scores.
 //   2. the θ walk (sweep_walk_kernel): one CTA per query over scores that
 //      already exist; its design is written above the kernel.  Only tiles
 //      in which a block beats θ cost a step: one barrier, two when θ moves.
@@ -51,45 +68,152 @@ __device__ __forceinline__ float4 load_rect(const __half* rects, int64_t p) {
   return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
 }
 
-// score of store position p; past the end (p >= T) no loads, score 0
-template <typename CT, typename AT>
-__device__ __forceinline__ float score_at(
-    const CT* __restrict__ rects, const AT* __restrict__ amp,
-    const float* __restrict__ scale, int64_t p, int64_t T,
-    const float4* q, const float* qa) {
-  if (p >= T) return 0.0f;
-  float a = to_f32(amp[p]);
-  if (scale != nullptr) a = a * scale[p / LANES];
-  const float4 r = load_rect(rects, p);
-  return score_rect(r.x, r.y, r.z, r.w, q, qa) * a;
-}
+constexpr int SCORE_THREADS = 256;
+constexpr int SCORE_WARPS = SCORE_THREADS / 32;
+constexpr int ROWS = TILE / SCORE_THREADS;  // consecutive store rows per thread
+static_assert(ROWS == 4, "a thread's rows are written as one float4");
 
+// One CTA per store tile, then one per window for the window's positions
+// past the store's last tile; dynamic shared memory holds a byte per query.
 // GATED (the pruned sweep's pass 1): a metadata block whose bound ub does
-// not beat the floor is never scored by the walk, so it issues no loads
+// not beat the floor is never scored by the walk, so it is written as 0
+// unscored.
 template <typename CT, typename AT, bool GATED>
-__global__ void __launch_bounds__(256) sweep_score_kernel(
-    const int* __restrict__ block_starts,  // [B, k] window origins, TILE units
+__global__ void __launch_bounds__(SCORE_THREADS) sweep_score_kernel(
+    const int* __restrict__ block_starts,  // [B·k] window origins, TILE units (≥ 0)
     const float4* __restrict__ q_rects,    // [B, Q_MAX]
     const float* __restrict__ q_amps,      // [B, Q_MAX]
     const CT* __restrict__ rects,          // [T, 4] packed (x0, y0, x1, y1)
     const AT* __restrict__ amp,            // [T]
     const float* __restrict__ scale,       // [ceil(T / LANES)] or null
-    float* __restrict__ out,               // [B, k, pad_budget]
-    int k, int pad_budget, int64_t T,
-    const float* __restrict__ ub,          // GATED: [B, k, pad_budget / block_size]
+    float* __restrict__ out,               // [B·k, n_tiles·TILE]
+    int n_windows, int k, int n_tiles, int64_t T, int n_store_tiles,
+    const float* __restrict__ ub,          // GATED: [B·k, n_tiles·bpt]
     const float* __restrict__ floor_,      // GATED: [B]
-    int block_size) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= pad_budget) return;
-  const int i = blockIdx.y, b = blockIdx.z;
-  const int64_t row = static_cast<int64_t>(b) * k + i;
-  float* dst = out + row * pad_budget + e;
-  if (GATED && !(ub[row * (pad_budget / block_size) + e / block_size] > floor_[b])) {
-    *dst = 0.0f;
+    int bpt) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int t = blockIdx.x;
+  const int64_t wlen = static_cast<int64_t>(n_tiles) * TILE;
+  if (t >= n_store_tiles) {  // window w's tiles past the store: zeros
+    const int w = t - n_store_tiles;
+    const int64_t past = n_store_tiles - static_cast<int64_t>(block_starts[w]);
+    const int64_t j0 = past < 0 ? 0 : past > n_tiles ? n_tiles : past;
+    float4* dst = reinterpret_cast<float4*>(out + w * wlen);
+    for (int64_t x = j0 * (TILE / 4) + tid; x < wlen / 4; x += SCORE_THREADS)
+      dst[x] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     return;
   }
-  const int64_t p = static_cast<int64_t>(block_starts[row]) * TILE + e;
-  *dst = score_at(rects, amp, scale, p, T, q_rects + b * Q_MAX, q_amps + b * Q_MAX);
+  // each query's live slots (bit j: slot j), one thread per (query, slot)
+  extern __shared__ unsigned char live_bits[];  // [n_windows / k]
+  static_assert(32 % Q_MAX == 0, "a warp holds whole queries");
+  const int n_slots = n_windows / k * Q_MAX;
+  for (int s0 = 0; s0 < n_slots; s0 += SCORE_THREADS) {
+    const int x = s0 + tid;
+    const bool lv = x < n_slots && live_slot(q_rects[x], q_amps[x]);
+    const uint32_t m = __ballot_sync(0xffffffffu, lv);
+    if (x < n_slots && x % Q_MAX == 0)
+      live_bits[x / Q_MAX] = static_cast<unsigned char>(m >> (lane / Q_MAX * Q_MAX));
+  }
+  __syncthreads();
+  // the tile's rows, decoded once: this thread's ROWS neighbours
+  float x0[ROWS], y0[ROWS], x1[ROWS], y1[ROWS], a[ROWS];
+  bool in[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int64_t p = static_cast<int64_t>(t) * TILE + tid * ROWS + r;
+    in[r] = p < T;
+    float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float av = 0.0f;
+    if (in[r]) {
+      av = to_f32(amp[p]);
+      if (scale != nullptr) av = av * scale[p / LANES];
+      c = load_rect(rects, p);
+    }
+    x0[r] = c.x, y0[r] = c.y, x1[r] = c.z, y1[r] = c.w, a[r] = av;
+  }
+  // the covering windows of each 256-window chunk, compacted: output
+  // offset, query, live slots (bits 0-7) and, GATED, the tile's blocks
+  // that beat the floor (bits 8-15)
+  __shared__ int64_t e_dst[SCORE_THREADS];
+  __shared__ int e_b[SCORE_THREADS];
+  __shared__ uint32_t e_bits[SCORE_THREADS];
+  __shared__ int warp_n[SCORE_WARPS];
+  const int my_blk = GATED ? tid * ROWS / (TILE / bpt) : 0;  // a warp's rows lie in one block
+  for (int c0 = 0; c0 < n_windows; c0 += SCORE_THREADS) {
+    const int w = c0 + tid;
+    int64_t o = 0;
+    bool cov = false;
+    if (w < n_windows) {
+      o = block_starts[w];
+      cov = o <= t && t < o + n_tiles;
+    }
+    const uint32_t m = __ballot_sync(0xffffffffu, cov);
+    if (lane == 0) warp_n[warp] = __popc(m);
+    __syncthreads();
+    int n = 0, before = 0;
+#pragma unroll
+    for (int q = 0; q < SCORE_WARPS; ++q) {
+      const int c = warp_n[q];
+      before += q < warp ? c : 0;
+      n += c;
+    }
+    if (cov) {
+      const int e = before + __popc(m & ((1u << lane) - 1u));
+      const int b = w / k;
+      uint32_t bits = live_bits[b];
+      if (GATED) {
+        const float* u = ub + w * static_cast<int64_t>(n_tiles) * bpt + (t - o) * bpt;
+        const float fl = floor_[b];
+        for (int q = 0; q < bpt; ++q)
+          if (u[q] > fl) bits |= 1u << (8 + q);
+      }
+      e_dst[e] = w * wlen + (t - o) * TILE;
+      e_b[e] = b;
+      e_bits[e] = bits;
+    }
+    __syncthreads();
+    for (int e = 0; e < n; ++e) {
+      const uint32_t bits = e_bits[e];
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (!GATED || ((bits >> (8 + my_blk)) & 1u)) {
+        const float4* q = q_rects + e_b[e] * Q_MAX;
+        const float* qa = q_amps + e_b[e] * Q_MAX;
+        float acc[ROWS];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
+        for (uint32_t lm = bits & 0xffu; lm; lm &= lm - 1u) {
+          const int j = __ffs(lm) - 1;
+          const float4 qj = q[j];
+          const float qaj = qa[j];
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) acc[r] = add_slot(acc[r], x0[r], y0[r], x1[r], y1[r], qj, qaj);
+        }
+        v = make_float4(in[0] ? acc[0] * a[0] : 0.0f, in[1] ? acc[1] * a[1] : 0.0f,
+                        in[2] ? acc[2] * a[2] : 0.0f, in[3] ? acc[3] * a[3] : 0.0f);
+      }
+      reinterpret_cast<float4*>(out + e_dst[e])[tid] = v;
+    }
+    __syncthreads();  // the chunk's entries are read before the next overwrites them
+  }
+}
+
+// The scorer's launch: one CTA per store tile, then one per window for its
+// positions past the store.
+template <typename CT, typename AT, bool GATED>
+int score(const void* const* p, float* out, int B, int k, int n_tiles, int64_t T,
+          const float* ub, const float* floor_, int bpt, cudaStream_t st) {
+  const int64_t n_store_tiles = (T + TILE - 1) / TILE;
+  const int n_windows = B * k;
+  const int64_t grid = n_store_tiles + n_windows;
+  // the live-slot bytes beside the ~4 KB of static shared memory
+  if (grid > 0x7fffffff || B > 32 * 1024)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  sweep_score_kernel<CT, AT, GATED><<<static_cast<unsigned>(grid), SCORE_THREADS, B, st>>>(
+      static_cast<const int*>(p[0]), static_cast<const float4*>(p[1]),
+      static_cast<const float*>(p[2]), static_cast<const CT*>(p[3]),
+      static_cast<const AT*>(p[4]), static_cast<const float*>(p[5]), out, n_windows, k,
+      n_tiles, T, static_cast<int>(n_store_tiles), ub, floor_, bpt);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- the θ walk: a ring of pass-1 scores in shared memory ----
@@ -397,20 +521,13 @@ size_t walk_smem_bytes(int k, int n_tiles, int cb, int bpt) {
          static_cast<size_t>(k) * 2 * sizeof(int64_t) + static_cast<size_t>(n_all) * bpt;
 }
 
-// p: block_starts, [bounds, floor, ub,] q_rects, q_amps, rects, amp, scale,
-// out[, scored] — in the C entry points' order
+// Plain: p = block_starts, q_rects, q_amps, rects, amp, scale, out
 template <typename CT, typename AT>
 struct Plain {
   static int run(const void* const* p, int B, int k, int pad_budget, int64_t T,
                  cudaStream_t st) {
-    const dim3 grid((pad_budget + 255) / 256, k, B);
-    sweep_score_kernel<CT, AT, false><<<grid, 256, 0, st>>>(
-        static_cast<const int*>(p[0]), static_cast<const float4*>(p[1]),
-        static_cast<const float*>(p[2]), static_cast<const CT*>(p[3]),
-        static_cast<const AT*>(p[4]), static_cast<const float*>(p[5]),
-        static_cast<float*>(const_cast<void*>(p[6])), k, pad_budget, T,
-        nullptr, nullptr, TILE);
-    return static_cast<int>(cudaGetLastError());
+    return score<CT, AT, false>(p, static_cast<float*>(const_cast<void*>(p[6])), B, k,
+                                pad_budget / TILE, T, nullptr, nullptr, 1, st);
   }
 };
 
@@ -431,24 +548,20 @@ int walk(const void* const* p, int B, int k, int n_tiles, int cb, int bpt, cudaS
   return static_cast<int>(cudaGetLastError());
 }
 
-// passes: bit 0 the gated score pass, bit 1 the θ walk (3 on every call but
-// the timing of one pass alone)
+// Pruned: p = block_starts, bounds, floor, ub, q_rects, q_amps, rects, amp,
+// scale, out, scored.  passes: bit 0 the gated score pass, bit 1 the θ walk
+// (3 on every call but the timing of one pass alone)
 template <typename CT, typename AT>
 struct Pruned {
   static int run(const void* const* p, int B, int k, int n_tiles, int cb, int bpt,
                  int64_t T, int passes, cudaStream_t st) {
-    const int pad_budget = n_tiles * TILE;
     float* out = static_cast<float*>(const_cast<void*>(p[9]));
     if (passes & 1) {
-      const dim3 grid((pad_budget + 255) / 256, k, B);
-      sweep_score_kernel<CT, AT, true><<<grid, 256, 0, st>>>(
-          static_cast<const int*>(p[0]), static_cast<const float4*>(p[4]),
-          static_cast<const float*>(p[5]), static_cast<const CT*>(p[6]),
-          static_cast<const AT*>(p[7]), static_cast<const float*>(p[8]), out,
-          k, pad_budget, T, static_cast<const float*>(p[3]),
-          static_cast<const float*>(p[2]), TILE / bpt);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
+      const void* q[] = {p[0], p[4], p[5], p[6], p[7], p[8]};
+      const int err = score<CT, AT, true>(q, out, B, k, n_tiles, T,
+                                          static_cast<const float*>(p[3]),
+                                          static_cast<const float*>(p[2]), bpt, st);
+      if (err) return err;
     }
     if (passes & 2) {
       switch (cb) {

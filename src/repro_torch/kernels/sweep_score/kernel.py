@@ -38,7 +38,8 @@ def sweep_score_planar(
     store: tuple,  # rects [T, 4], amps [T], scale f32[ceil(T/LANES)] or None
     pad_budget: int,  # positions per sweep window, a multiple of TILE
 ) -> torch.Tensor:
-    """Scores of every window position, f32[B, k, pad_budget]."""
+    """Scores of every window position, f32[B, k, pad_budget], one CTA per
+    store tile for all the windows that cover it."""
     B, k = block_starts.shape
     out = torch.empty((B, k, pad_budget), dtype=torch.float32, device=q_rects.device)
     ptrs, T, ck, ak = _store_args(store)

@@ -243,8 +243,8 @@ def sweep_score_pruned(
 
     Returns ``(scores f32[B, k, budget], valid bool, streamed bool,
     blocks_scored i32[B], blocks_active i32[B])``: ``streamed`` marks
-    positions whose metadata block was scored (a skipped block issues no
-    loads), candidates are ``valid & streamed``, and ``blocks_active``
+    positions whose metadata block was scored (a skipped block scores 0),
+    candidates are ``valid & streamed``, and ``blocks_active``
     counts the blocks an unpruned sweep would stream.
     """
     on_card = _check_store(

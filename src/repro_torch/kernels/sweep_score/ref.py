@@ -7,6 +7,10 @@ astype-f32 then × scale, ``acc + (w*h)*qa`` over the ``Q_MAX`` slots, × amp
 partial top-C buffer and θ = min(buffer) rule, so on the card every score
 and every skip flag agrees with the kernel bitwise.
 
+``live_slots`` is the rule by which the card's scorer skips query slots
+that add exactly nothing; ``sweep_score_planar_live_ref``, a test aid,
+scores with that rule and is held bitwise to the all-slot version.
+
 ``sweep_score_ref`` / ``sweep_score_pruned_ref`` run the wrappers' whole
 pipeline (window offsets, block bounds, re-window) through these
 plain cores: the latter is the scorer behind ``k_sweep(prune=True,
@@ -19,6 +23,30 @@ import torch
 from repro_torch.kernels.sweep_score.kernel import LANES, Q_MAX, TILE
 
 
+def _window_store(block_starts, store, pad_budget):
+    """The store as every window position reads it, decoded to f32: (live
+    [B, k, pad] — the position lies in the store —, amp, x0, y0, x1, y1);
+    positions past the end read the last row, and ``live`` masks them."""
+    rects, amps, scale = store
+    T = rects.shape[0]
+    p = block_starts.long()[..., None] * TILE + torch.arange(
+        pad_budget, device=block_starts.device
+    )
+    live = p < T
+    pc = torch.clamp(p, max=T - 1)
+    a = amps[pc].float()
+    if scale is not None:
+        a = a * scale[torch.div(pc, LANES, rounding_mode="floor")]
+    return (live, a, *(rects[:, c][pc].float() for c in range(4)))
+
+
+def _slot_term(acc, x0, y0, x1, y1, q, qa):
+    """acc + (w*h)*qa for one query slot ``q`` = [.., 4] (broadcast)."""
+    w = torch.clamp(torch.minimum(x1, q[..., 2]) - torch.maximum(x0, q[..., 0]), min=0.0)
+    h = torch.clamp(torch.minimum(y1, q[..., 3]) - torch.maximum(y0, q[..., 1]), min=0.0)
+    return acc + (w * h) * qa
+
+
 def sweep_score_planar_ref(
     block_starts: torch.Tensor,  # i32[B, k] window origins in TILE units
     q_rects: torch.Tensor,  # f32[B, Q_MAX, 4]
@@ -28,25 +56,45 @@ def sweep_score_planar_ref(
 ) -> torch.Tensor:
     """Scores of every window position, f32[B, k, pad_budget]; positions
     past the store's end score 0."""
-    rects, amps, scale = store
-    T = rects.shape[0]
-    p = block_starts.long()[..., None] * TILE + torch.arange(
-        pad_budget, device=block_starts.device
-    )
-    if T == 0:
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    live = p < T
-    pc = torch.clamp(p, max=T - 1)
-    a = amps[pc].float()
-    if scale is not None:
-        a = a * scale[torch.div(pc, LANES, rounding_mode="floor")]
-    x0, y0, x1, y1 = (rects[:, c][pc].float() for c in range(4))
+    if store[0].shape[0] == 0:
+        return torch.zeros((*block_starts.shape, pad_budget), dtype=torch.float32,
+                           device=block_starts.device)
+    live, a, x0, y0, x1, y1 = _window_store(block_starts, store, pad_budget)
     acc = torch.zeros_like(x0)
     for j in range(Q_MAX):
-        q = q_rects[:, j, :, None, None]  # [B, 4, 1, 1]
-        w = torch.clamp(torch.minimum(x1, q[:, 2]) - torch.maximum(x0, q[:, 0]), min=0.0)
-        h = torch.clamp(torch.minimum(y1, q[:, 3]) - torch.maximum(y0, q[:, 1]), min=0.0)
-        acc = acc + (w * h) * q_amps[:, j, None, None]
+        q = q_rects[:, None, None, j]  # [B, 1, 1, 4]
+        acc = _slot_term(acc, x0, y0, x1, y1, q, q_amps[:, j, None, None])
+    return torch.where(live, acc * a, 0.0)
+
+
+def live_slots(q_rects: torch.Tensor, q_amps: torch.Tensor) -> torch.Tensor:
+    """bool[B, Q]: the query slots that can change a score.  A slot of amp
+    0 (or −0) whose extent area fl(fl(x1 − x0) · fl(y1 − y0)) is finite
+    adds exactly ±0 to the running sum (proof in ``csrc/sweep_score.cu``),
+    so the card's scorer skips it; every other slot is live."""
+    area = (q_rects[..., 2] - q_rects[..., 0]) * (q_rects[..., 3] - q_rects[..., 1])
+    return (q_amps != 0) | ~torch.isfinite(area)
+
+
+def sweep_score_planar_live_ref(
+    block_starts: torch.Tensor,
+    q_rects: torch.Tensor,
+    q_amps: torch.Tensor,
+    store: tuple,
+    pad_budget: int,
+) -> torch.Tensor:
+    """Test aid: :func:`sweep_score_planar_ref` with the card's loop — each
+    query sums its live slots only (:func:`live_slots`), in slot order.
+    Bitwise equal to the all-slot version."""
+    if store[0].shape[0] == 0:
+        return torch.zeros((*block_starts.shape, pad_budget), dtype=torch.float32,
+                           device=block_starts.device)
+    live, a, x0, y0, x1, y1 = _window_store(block_starts, store, pad_budget)
+    keep = live_slots(q_rects, q_amps)
+    acc = torch.zeros_like(x0)
+    for b in range(acc.shape[0]):
+        for j in torch.nonzero(keep[b]).flatten().tolist():
+            acc[b] = _slot_term(acc[b], x0[b], y0[b], x1[b], y1[b], q_rects[b, j], q_amps[b, j])
     return torch.where(live, acc * a, 0.0)
 
 

@@ -18,6 +18,7 @@ from repro_torch.kernels.bitmap_filter import ops as pbm  # noqa: E402
 from repro_torch.kernels.bitmap_filter.ref import bitmap_and_popcount_ref  # noqa: E402
 from repro_torch.kernels.geo_score import ops as pg  # noqa: E402
 from repro_torch.kernels.geo_score.ref import geo_score_toeprints_ref  # noqa: E402
+from repro_torch.kernels.sweep_score import kernel as psk  # noqa: E402
 from repro_torch.kernels.sweep_score import ops as ps  # noqa: E402
 from repro_torch.kernels.sweep_score import ref as psr  # noqa: E402
 from repro_torch.kernels.text_probe import ops as ptp  # noqa: E402
@@ -146,6 +147,142 @@ def test_pruned_sweep_two_passes_bitwise_on_card(cuda, C, mode, floor, bs):
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
     for x, y in zip(got[1:], want[1:]):
         assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+HUGE = 3.0e38  # a query extent of 2·HUGE overflows f32
+
+
+def _bits(x):
+    """Floats as their bit patterns (NaN equals itself), others as they are."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _slot_patterns(rng, overflow):
+    """Queries with every live-slot count from 0 to 8 at random slot
+    positions (dead slots: zero rects, or real rects of amp 0 or −0), one
+    with negative amps and a live slot of infinite area, and with
+    ``overflow`` one whose zero-amp slot has an extent area that overflows
+    (NaN where it meets a huge store rect)."""
+    qr, qa = [], []
+    for n_live in range(9):
+        r, a = np.zeros((8, 4), np.float32), np.zeros(8, np.float32)
+        pos = rng.choice(8, n_live, replace=False)
+        r[pos] = _rects(rng, n_live)
+        a[pos] = rng.uniform(0.5, 2.0, n_live)
+        dead = np.setdiff1d(np.arange(8), pos)
+        r[dead[::2]] = _rects(rng, len(dead[::2]))
+        a[dead[1::2]] = -0.0
+        qr.append(r)
+        qa.append(a)
+    r = _rects(rng, 8)
+    r[0] = (-HUGE, 0.0, HUGE, 1.0)  # live, area inf: ±inf where it meets a wide rect
+    qr.append(r)
+    qa.append(rng.uniform(-2.0, 1.0, 8).astype(np.float32))
+    if overflow:
+        r = _rects(rng, 8)
+        r[5] = (-HUGE, -HUGE, HUGE, HUGE)
+        a = rng.uniform(0.5, 2.0, 8).astype(np.float32)
+        a[5] = 0.0
+        qr.append(r)
+        qa.append(a)
+    return np.stack(qr), np.stack(qa)
+
+
+def _scorer_case(rng, mode, T, adversarial):
+    """Store (±inf and huge rects when ``adversarial``), queries of every
+    live-slot pattern, and window origins (TILE units): heavy overlap on a
+    few tiles, several INVALID windows at origin 0, windows running past
+    the store's end and one wholly past it."""
+    rects, store, scale, dec = _store(rng, T, mode)
+    if adversarial:
+        bad = rng.choice(T, 40, replace=False)
+        rects[bad[:20]] = (-np.inf, -np.inf, np.inf, np.inf)
+        with np.errstate(over="ignore"):  # f16 rounds HUGE to inf
+            rects[bad[20:]] = (-HUGE, -HUGE, HUGE, HUGE)
+    qr, qa = _slot_patterns(rng, adversarial)
+    B, k = qr.shape[0], 6
+    n_store = -(-T // 1024)
+    starts = rng.integers(0, 3, (B, k))
+    starts[:, 1] = 0
+    starts[::3, 2] = 0
+    starts[:, 3] = rng.integers(0, n_store, B)
+    starts[::2, 4] = n_store - 1
+    starts[1, 5] = n_store + 3
+    return rects, store, scale, dec, qr, qa, starts.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "f16", "int8"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tile_major_scorer_bitwise_on_card(cuda, mode, seed):
+    """The store-tile-major scorer against the all-slot plain version, as
+    bit patterns (NaN and ±inf included): every live-slot pattern 0-8 and
+    the overflow slot, over heavily overlapping windows, INVALID windows at
+    origin 0, windows past the store's end and a partial last tile."""
+    rng = np.random.default_rng(7 + seed)
+    T, budget = 30000 + 300, 4096
+    rects, store, scale, _, qr, qa, starts = _scorer_case(rng, mode, T, True)
+    qr_t, qa_t = _t(qr, cuda), _t(qa, cuda)
+    tstore = (_t(rects, cuda), _t(store, cuda), _t(scale, cuda))
+    block_starts = _t(starts, cuda)
+    pad_budget = ps.padded_budget(budget)
+    got = psk.sweep_score_planar(block_starts, qr_t, qa_t, tstore, pad_budget)
+    want = psr.sweep_score_planar_ref(block_starts, qr_t, qa_t, tstore, pad_budget)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool(torch.isnan(want).any()) and bool(torch.isinf(want).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "f16", "int8"])
+@pytest.mark.parametrize("bs", [128, 1024])
+def test_tile_major_gated_pass_bitwise_on_card(cuda, mode, bs):
+    """The pruned sweep's pass 1 (the same scorer, gated by the floor per
+    metadata block) alone, as bit patterns, on the adversarial store; then
+    the whole pruned sweep, both launches, on a finite store over the same
+    window and slot patterns."""
+    rng = np.random.default_rng(bs + len(mode))
+    T, budget = 30000 + 300, 4096
+    bpt = 1024 // bs
+    rects, store, scale, _, qr, qa, starts = _scorer_case(rng, mode, T, True)
+    qr_t, qa_t = _t(qr, cuda), _t(qa, cuda)
+    tstore = (_t(rects, cuda), _t(store, cuda), _t(scale, cuda))
+    block_starts = _t(starts, cuda)
+    B, k = starts.shape
+    pad_budget = ps.padded_budget(budget)
+    ub = _t(rng.uniform(0, 1, (B, k, pad_budget // 1024 * bpt)).astype(np.float32), cuda)
+    floor = _t(rng.uniform(0.2, 0.6, B).astype(np.float32), cuda)
+    bounds = _t(np.zeros((B, k, 2), np.int32), cuda)
+    outs = (torch.empty((B, k, pad_budget), dtype=torch.float32, device=cuda),
+            torch.zeros((B, k, ub.shape[2]), dtype=torch.int32, device=cuda))
+    psk.sweep_score_pruned_planar(block_starts, bounds, floor, ub, qr_t, qa_t, tstore,
+                                  pad_budget, 1024, bpt, passes=1, outputs=outs)
+    gate = (ub > floor[:, None, None]).repeat_interleave(bs, dim=2)
+    want = torch.where(gate, psr.sweep_score_planar_ref(block_starts, qr_t, qa_t, tstore,
+                                                         pad_budget), 0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0].view(torch.int32), want.view(torch.int32))
+
+    rects, store, scale, dec, qr, qa, starts = _scorer_case(rng, mode, T, False)
+    meta = [_t(x, cuda) for x in block_metadata_np(rects.astype(np.float32), dec, bs)]
+    ss = (starts.astype(np.int64) * 1024 + rng.integers(0, 1024, starts.shape)).astype(np.int32)
+    ee = np.minimum(ss.astype(np.int64) + rng.integers(1, budget, ss.shape), T).astype(np.int32)
+    ss[:, 1], ee[:, 1] = INVALID, INVALID
+    ee = np.maximum(ee, np.where(ss == INVALID, ee, ss))
+    args = (_t(rects, cuda), _t(store, cuda), *meta, _t(ss, cuda), _t(ee, cuda), _t(qr, cuda),
+            _t(qa, cuda), budget, 2048, bs, 0.0)
+    reset_launch_counts()
+    got = ps.sweep_score_pruned(*args, tp_amp_scale=_t(scale, cuda))
+    got_u = ps.sweep_score(*args[:2], *args[5:9], budget, tp_amp_scale=_t(scale, cuda))
+    counts = launch_counts()
+    assert counts.pop("sweep_score_pruned") == 1 and counts.pop("sweep_score") == 1
+    assert not any(counts.values())
+    want = psr.sweep_score_pruned_ref(*args, tp_amp_scale=_t(scale, cuda))
+    want_u = psr.sweep_score_ref(*args[:2], *args[5:9], budget, tp_amp_scale=_t(scale, cuda))
+    torch.cuda.synchronize()
+    for x, y in zip((*got, *got_u), (*want, *want_u)):
+        assert x.dtype == y.dtype and torch.equal(_bits(x), _bits(y))
+    assert int(got[3].sum()) > 0
 
 
 def _text_store(rng, n_docs, n_terms, dtype, layout):

@@ -400,6 +400,99 @@ def test_pruned_walk_shared_memory_check():
         psk.walk_smem_bytes((largest + 1) * psk.TILE, k, n_tiles, bpt)
 
 
+# ---------------------------------------------------------------------------
+# the card's scorer: live query slots
+# ---------------------------------------------------------------------------
+
+HUGE = 3.0e38  # a query extent of 2·HUGE overflows f32
+
+
+def _adversarial_queries(rng):
+    """Query slots the card's scorer must skip, or must not: every live-slot
+    count from 0 to 8 at random slot positions (the rest zero rects of amp
+    0), −0 amps, negative amps with a live slot of infinite area, a query
+    whose slots are all zero, and a zero-amp slot whose extent area
+    overflows among live ones."""
+    qr, qa = [], []
+    for n_live in range(9):
+        r = np.zeros((8, 4), np.float32)
+        a = np.zeros(8, np.float32)
+        pos = rng.choice(8, n_live, replace=False)
+        r[pos] = _rects(rng, n_live)
+        a[pos] = rng.uniform(0.5, 2.0, n_live)
+        dead = np.setdiff1d(np.arange(8), pos)
+        r[dead[: len(dead) // 2]] = _rects(rng, len(dead) // 2)  # amp 0, real extent
+        qr.append(r)
+        qa.append(a)
+    r = _rects(rng, 8)
+    qr.append(r)
+    qa.append(np.where(np.arange(8) % 2 == 0, -0.0, rng.uniform(0.5, 2.0, 8)).astype(np.float32))
+    r = _rects(rng, 8)
+    r[0] = (-HUGE, 0.0, HUGE, 1.0)  # live, area inf: ±inf where it meets a wide rect
+    qr.append(r)
+    qa.append(rng.uniform(-2.0, 1.0, 8).astype(np.float32))
+    r = _rects(rng, 8)
+    r[3] = (-HUGE, -HUGE, HUGE, HUGE)  # amp 0 but area inf: live, and NaN where it meets a huge rect
+    a = rng.uniform(0.5, 2.0, 8).astype(np.float32)
+    a[3] = 0.0
+    a[6] = -0.0
+    qr.append(r)
+    qa.append(a)
+    return _t(np.stack(qr)), _t(np.stack(qa))
+
+
+def _adversarial_store(rng, T, mode):
+    """A store with ±inf and huge coordinates among ordinary rects, in the
+    dtypes of the three compress modes: (rects, amps, scale)."""
+    rects = _store(rng, T)[0]
+    bad = rng.choice(T, 40, replace=False)
+    rects[bad[:10]] = (-np.inf, -np.inf, np.inf, np.inf)
+    rects[bad[10:20]] = (-HUGE, -HUGE, HUGE, HUGE)
+    rects[bad[20:30], 0] = np.inf
+    rects[bad[30:], 3] = -np.inf
+    amps = rng.uniform(-0.2, 1.0, T).astype(np.float32)
+    if mode == "f32":
+        return _t(rects), _t(amps), None
+    if mode == "f16":
+        return _t(rects.astype(np.float16)), _t(amps.astype(np.float16)), None
+    q8, s8 = quantize_amps_np(amps)
+    return _t(rects.astype(np.float16)), _t(q8), _t(s8)
+
+
+def test_live_slot_rule():
+    """Dead: amp ±0 with a finite extent area (inverted or empty rects
+    included).  Live: any nonzero amp, or an area that is inf or NaN."""
+    qr = _t(np.array([[[0.2, 0.2, 0.6, 0.6], [0.6, 0.6, 0.2, 0.2], [0, 0, 0, 0],
+                       [-HUGE, 0, HUGE, 1], [0, 0, np.inf, 1], [0, 0, 1, 1],
+                       [np.nan, 0, 1, 1], [0, 0, 1, 1]]], np.float32))
+    qa = _t(np.array([[0.0, -0.0, 0.0, 0.0, 0.0, -1.0, 0.0, 1e-30]], np.float32))
+    assert psr.live_slots(qr, qa).tolist() == [[False, False, False, True, True, True, True, True]]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("mode", ["f32", "f16", "int8"])
+def test_live_slot_scorer_equals_all_slot_sum_bitwise(mode, seed):
+    """Summing only the live slots (the card's loop) gives the all-slot
+    sum's bit patterns, NaN and inf included, over adversarial queries and
+    a store with ±inf and huge coordinates."""
+    rng = np.random.default_rng(seed)
+    T, budget = 3000, 1024
+    store = _adversarial_store(rng, T, mode)
+    qr, qa = _adversarial_queries(rng)
+    pad_budget = ps.padded_budget(budget)
+    B = qr.shape[0]
+    starts = rng.integers(0, T, (B, 3)) // psk.TILE
+    starts[:, 0] = 0  # every query covers the store's head, where the bad rows are too
+    block_starts = _t(starts.astype(np.int32))
+    want = psr.sweep_score_planar_ref(block_starts, qr, qa, store, pad_budget)
+    got = psr.sweep_score_planar_live_ref(block_starts, qr, qa, store, pad_budget)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    live = psr.live_slots(qr, qa)
+    assert live.sum(dim=1)[:9].tolist() == list(range(9)) and bool(live[-1, 3])
+    assert bool(torch.isnan(want[-1]).any()) and bool(torch.isinf(want).any())
+    assert not bool(torch.isnan(want[:9]).any())
+
+
 def test_cpu_calls_do_not_count_as_launches():
     reset_launch_counts()
     rng = np.random.default_rng(3)
