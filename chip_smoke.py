@@ -37,7 +37,20 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    tiles), beside a torch fill of its output's size and the store bytes
    its windows request and the unique bytes;
 5. runs one profiler pass per variant: each stage's host time and device
-   time, and the device's idle share over a batch.
+   time, and the device's idle share over a batch;
+6. serves 2048-query traces through ``GeoServer`` over the phase-3 index,
+   at ``launch/serve.py``'s defaults (Landlord cache of 512, deadline
+   batcher of 32 × 8 terms × 4 rects, 5 ms deadline open loop):
+   ``serve_fused`` (zipf, closed loop, the sweep_score kernel),
+   ``serve_pruned_poisson`` (zipf at 200 queries/s, the pruned sweep
+   kernel) and ``serve_auto_mixture`` (the mixture trace under the planner,
+   pruned, through the pruned sweep and text_probe kernels); prints each
+   report (queries/s, p50/p99, hit rate, padding, the open-loop stage split,
+   the plan mix), its launches and recall@10; then replays the first 512
+   queries of each trace open loop with Poisson stamps and a fixed service
+   time through the kernel executor and its plain twin, whose reports and
+   per-query ids and scores must be equal.  It runs after phase 4 and
+   before phase 5, so no profiler session precedes a timed serving run.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -93,6 +106,23 @@ SOURCES = {
 # (half its FP32 lanes): 132 SMs x 64 x 1.98 GHz
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 N_BITMAP_TERMS = 64
+# phase 6: launch/serve.py's serving defaults (--queries, --pool-size,
+# --cache landlord --cache-capacity, --batch, --rate-qps, --max-wait-ms 5
+# open loop; the stamp seed is --seed + 3)
+SERVE_QUERIES = 2048
+SERVE_POOL = 256
+CACHE_CAPACITY = 512
+RATE_QPS = 200.0
+OPEN_WAIT_S = 5e-3
+STAMP_SEED = 3
+RECALL_PROBE = 64
+# the twin replay: the first TWIN_QUERIES of each trace, open loop on the
+# virtual clock with a fixed service time; arrivals fast enough that the
+# buckets fill inside the deadline, so few, full batches keep the plain
+# twins' host loops short
+TWIN_QUERIES = 512
+TWIN_RATE_QPS = 6400.0
+TWIN_SERVICE_S = 1e-3
 
 
 def check(cond: bool, what: str) -> None:
@@ -696,6 +726,11 @@ def main() -> int:
     for name, times in latency.items():
         say(f"phase 4: {name}: batch latency median {1e3 * statistics.median(times):.2f} ms, "
             f"{len(times) * BATCH / sum(times):.1f} queries/s")
+    # ---- phase 6: the serving stack at size, before the profiler pass ----
+    serve_counts = serving_phase(corpus, plain_ex.engine.index, budgets)
+    for row in table:
+        main_counts[row["name"]] += serve_counts[row["name"]]
+        row["launches"] = main_counts[row["name"]]
     # ---- phase 5: one profiler pass per variant, after every timing, so
     # no profiler session runs before or during a timed run ---------------
     peak = torch.cuda.max_memory_allocated()
@@ -709,6 +744,149 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def serving_phase(corpus, index, budgets) -> dict[str, int]:
+    """Phase 6: ``GeoServer`` over ``index`` at serve.py's defaults, three
+    runs and their twin replays (see the module docstring).  Returns the
+    kernel launches of the three runs (the twin replays compare kernels
+    with their plain versions and are not counted)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import GeoSearchEngine
+    from repro_torch.corpus import (
+        make_mixture_trace,
+        make_zipf_trace,
+        pad_trace_batch,
+        stamp_arrivals,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import DeadlineBatcher, GeoServer, SingleDeviceExecutor, make_cache
+
+    t_phase = time.perf_counter()
+    pr = replace(budgets, prune=True)
+    t = time.perf_counter()
+    zipf = make_zipf_trace(corpus, n_queries=SERVE_QUERIES, pool_size=SERVE_POOL, seed=1)
+    mixture = make_mixture_trace(corpus, n_queries=SERVE_QUERIES, seed=1)
+    say(f"phase 6: zipf and mixture traces of {SERVE_QUERIES} queries in "
+        f"{time.perf_counter() - t:.1f} s")
+    # (budgets, algorithm, trace, arrival): serve.py --fused;
+    # --prune --fused --arrival poisson; --algorithm auto --prune --fused
+    # --trace mixture
+    runs = {
+        "serve_fused": (budgets, "k_sweep", zipf, "closed"),
+        "serve_pruned_poisson": (
+            pr, "k_sweep",
+            stamp_arrivals(zipf, "poisson", rate_qps=RATE_QPS, seed=STAMP_SEED), "poisson"),
+        "serve_auto_mixture": (pr, "auto", mixture, "closed"),
+    }
+    # the kernel each planned label reaches (geo_first reaches none)
+    kernel_of = {"k_sweep+prune+fused": "sweep_score_pruned",
+                 "text_first+prune+fused": "text_probe"}
+    totals = dict.fromkeys(launch_counts(), 0)
+
+    def kernels_used(rep, b, algorithm):
+        if algorithm == "auto":
+            return {kernel_of[label] for label in rep.plan_queries if label in kernel_of}
+        return {"sweep_score_pruned" if b.prune else "sweep_score"}
+
+    def launched(counts, used, what):
+        """Every batch of a kernel's plan launches it once (the warm-up's
+        inert batches too); no other kernel launches."""
+        for k, n in counts.items():
+            check(n >= 1 if k in used else n == 0, f"{what}: {k} launched {n} times")
+
+    def server(ex, open_loop):
+        return GeoServer(ex, cache=make_cache("landlord", CACHE_CAPACITY),
+                         batcher=DeadlineBatcher(max_batch=BATCH, max_terms=8, max_rects=4,
+                                                 max_wait_s=OPEN_WAIT_S if open_loop
+                                                 else float("inf")))
+
+    def decomposes(rep, n, what):
+        check(rep.n_queries == n and len(rep.latencies_s) == n, f"{what}: queries {rep.n_queries}")
+        check(rep.cache_hits + rep.cache_misses == n, f"{what}: hits + misses")
+        total = (np.asarray(rep.batch_wait_s) + np.asarray(rep.queue_wait_s)
+                 + np.asarray(rep.service_s))
+        err = float(np.abs(total - np.asarray(rep.latencies_s)).max())
+        check(err <= 1e-9, f"{what}: batch-wait + queue-wait + service off by {err}")
+
+    for name, (b, algorithm, trace, arrival) in runs.items():
+        eng = GeoSearchEngine.from_index(index, b)
+        kernel_ex = SingleDeviceExecutor(eng, algorithm, fused=True)
+        open_loop = arrival != "closed"
+        srv = server(kernel_ex, open_loop)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        rep = srv.run_trace(trace, arrival=arrival)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        counts = launch_counts()
+        for k, n in counts.items():
+            totals[k] += n
+        decomposes(rep, len(trace), name)
+        launched(counts, kernels_used(rep, b, algorithm), name)
+        for line in rep.summary().splitlines():
+            say(f"phase 6: {name}: {line}")
+        summary = {
+            "queries": rep.n_queries, "run_s": run_s, "qps": rep.qps,
+            "p50_ms": rep.percentile_ms(50), "p99_ms": rep.percentile_ms(99),
+            "hit_rate": rep.hit_rate, "padding": rep.padding_overhead,
+            "batches": rep.n_batches, "shapes": rep.n_compiled_shapes,
+            "launches": {k: n for k, n in counts.items() if n},
+        }
+        if open_loop:
+            summary["stages_ms"] = {
+                stage: [rep.stage_percentile_ms(stage, 50), rep.stage_percentile_ms(stage, 99)]
+                for stage in ("batch_wait", "queue_wait", "service")}
+        if algorithm == "auto":
+            summary["plans"] = {
+                label: [n, rep.plan_percentile_ms(label, 50), rep.plan_percentile_ms(label, 99)]
+                for label, n in sorted(rep.plan_queries.items())}
+            # serve.py's recall probe: the trace's first 64 queries
+            summary["recall_at_10"] = eng.recall_at_k(
+                pad_trace_batch(trace[:RECALL_PROBE]), "auto", fused=True)
+        say(f"phase 6: {name}: " + json.dumps(summary))
+
+        # the twin replay: kernel executor vs its plain twin, same engine
+        twin = stamp_arrivals(trace[:TWIN_QUERIES], "poisson", rate_qps=TWIN_RATE_QPS,
+                              seed=STAMP_SEED)
+        reps, twin_counts = [], []
+        t = time.perf_counter()
+        for ex in (kernel_ex, SingleDeviceExecutor(eng, algorithm)):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            reps.append(server(ex, True).run_trace(
+                twin, arrival="poisson", collect_results=True,
+                service_time=lambda raw: TWIN_SERVICE_S))
+            torch.cuda.synchronize()
+            twin_counts.append(launch_counts())
+        kern, plain = reps
+        decomposes(kern, len(twin), f"{name} twin")
+        launched(twin_counts[0], kernels_used(kern, b, algorithm), f"{name} twin (kernels)")
+        launched(twin_counts[1], set(), f"{name} twin (plain)")
+
+        def unfused(d):
+            return {label.replace("+fused", ""): v for label, v in d.items()}
+
+        for f in ("n_queries", "wall_s", "cache_hits", "cache_misses", "coalesced",
+                  "n_batches", "pad_slots", "real_slots", "element_padding_overhead",
+                  "shapes_used", "stats", "latencies_s", "batch_wait_s", "queue_wait_s",
+                  "service_s", "batch_events"):
+            check(getattr(kern, f) == getattr(plain, f), f"{name} twin: {f} differs")
+        for f in ("plan_queries", "plan_latencies_s", "plan_stats"):
+            check(unfused(getattr(kern, f)) == getattr(plain, f), f"{name} twin: {f} differs")
+        for i, (x, y) in enumerate(zip(kern.results, plain.results)):
+            check(np.array_equal(x.ids, y.ids)
+                  and np.array_equal(x.scores.view(np.uint32), y.scores.view(np.uint32)),
+                  f"{name} twin: query {i} result differs")
+        say(f"phase 6: {name} twin: {len(twin)} queries at {TWIN_RATE_QPS:g}/s, "
+            f"{kern.n_batches} batches, {kern.cache_hits} hits; kernel launches "
+            f"{ {k: n for k, n in twin_counts[0].items() if n} }, plain none; reports and "
+            f"every query's ids and scores equal (bitwise) in {time.perf_counter() - t:.1f} s")
+    say(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
+    return totals
 
 
 def profile_batch(run, torch, spans) -> list[str]:

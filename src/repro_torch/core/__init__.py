@@ -7,7 +7,7 @@ Modules (each the counterpart of ``repro/core/<name>.py``):
   spatial_index  Morton toe-print store + tile-interval grid
   ranking        combined text/geo/pagerank ranking
   algorithms     TEXT-FIRST, GEO-FIRST, K-SWEEP (batched) + exact oracle
-  planner        QueryPlan
+  planner        QueryPlan, cost model and the per-query Planner
   engine         GeoSearchEngine facade
   convert        the reference's index arrays → the port's GeoIndex
 """
@@ -20,11 +20,11 @@ from repro_torch.core.algorithms import (
     register_algorithm,
 )
 from repro_torch.core.engine import GeoIndex, GeoSearchEngine
-from repro_torch.core.planner import QueryPlan
+from repro_torch.core.planner import COST_KEYS, CostModel, Planner, QueryFeatures, QueryPlan
 from repro_torch.core.ranking import RankWeights
 
 __all__ = [
     "GeoIndex", "GeoSearchEngine", "QueryBatch", "QueryBudgets",
     "TopKResult", "ALGORITHMS", "get_algorithm", "register_algorithm",
-    "QueryPlan", "RankWeights",
+    "QueryPlan", "RankWeights", "COST_KEYS", "CostModel", "Planner", "QueryFeatures",
 ]

@@ -71,7 +71,8 @@ def get_algorithm(name: str):
     except KeyError:
         raise ValueError(
             f"unknown algorithm {name!r}; registered: {sorted(ALGORITHMS)} "
-            "('auto' is not ported yet)"
+            "(plus 'auto' at the engine/serving layer, which routes through "
+            "the cost-based planner)"
         ) from None
 
 

@@ -4,12 +4,14 @@
 Execution is plan-driven: every call resolves to a
 :class:`~repro_torch.core.planner.QueryPlan` and the function cache is keyed
 by plan, so one engine can hold several pipeline variants against one
-index.  The engine lives on one device — CUDA unless ``device="cpu"`` is
+index.  ``algorithm="auto"`` routes through the engine's cost-based
+:class:`~repro_torch.core.planner.Planner`, which picks the cheapest plan per
+query.  The engine lives on one device — CUDA unless ``device="cpu"`` is
 passed to :meth:`GeoSearchEngine.build`.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from functools import partial
 from typing import Callable
 
@@ -18,14 +20,14 @@ import torch
 
 from repro_torch.core import algorithms as alg
 from repro_torch.core import ranking
-from repro_torch.core.planner import QueryPlan
+from repro_torch.core.planner import Planner, QueryPlan
 from repro_torch.core.spatial_index import (
     SpatialIndex,
     build_spatial_index_np,
     normalize_compress,
 )
 from repro_torch.core.text_index import TextIndex, build_text_index_np
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_numpy
 
 
 @dataclass(frozen=True)
@@ -117,18 +119,74 @@ class GeoSearchEngine:
         **kw,
     ) -> alg.TopKResult:
         """Run one batch under a plan (``plan=None``: the default plan for
-        ``algorithm`` from the engine's own budgets)."""
+        ``algorithm`` from the engine's own budgets).  ``algorithm="auto"``
+        asks the engine's planner for a per-query plan and gathers each
+        row's result from its assigned plan's run."""
         if plan is None:
             if algorithm == "auto":
-                raise NotImplementedError(
-                    "algorithm='auto' needs the cost-based planner, which is not "
-                    "ported yet"
-                )
+                return self._query_auto(batch, **kw)
             plan = QueryPlan(algorithm, self.budgets, fused=bool(kw.pop("fused", False)))
         else:
             kw.pop("fused", None)  # the plan owns the fused flag
         fn = self._compiled(plan, tuple(sorted(kw.items())))
         return fn(batch.to(self.device))
+
+    @property
+    def planner(self) -> Planner:
+        """Lazily-built cost-based planner over this engine's index."""
+        p = self.__dict__.get("_planner")
+        if p is None:
+            p = Planner.from_engine(self)
+            self.__dict__["_planner"] = p
+        return p
+
+    def _query_auto(self, batch: alg.QueryBatch, **kw) -> alg.TopKResult:
+        """Per-query plan dispatch at the engine level.
+
+        The serving layer runs plan-homogeneous batches; against one padded
+        batch this emulates it, as the reference does: each distinct chosen
+        plan runs on the whole batch and every row's ids, scores and stats
+        are gathered from its own plan's run.  With more than one plan the
+        rows are gathered on the host and the stats come back ``float32``
+        (the reference's float64 gather, through ``jnp.asarray`` with x64
+        off); ids stay ``int32`` and scores ``float32``.
+        """
+        fused = bool(kw.pop("fused", False))
+        plans = self.planner.plan_rows(batch)
+        if fused:  # route rows with a kernel pipeline through it
+            plans = [
+                replace(p, fused=True)
+                if p.algorithm == "k_sweep"
+                or (p.algorithm == "text_first" and p.budgets.prune)
+                else p
+                for p in plans
+            ]
+        uniq: list[QueryPlan] = []
+        for p in plans:
+            if p not in uniq:
+                uniq.append(p)
+        if len(uniq) == 1:
+            return self.query(batch, plan=uniq[0], **kw)
+        results = {p: self.query(batch, plan=p, **kw) for p in uniq}
+        rows = [np.asarray([plan == p for plan in plans]) for p in uniq]
+        ids = np.zeros_like(to_numpy(results[uniq[0]].ids))
+        scores = np.zeros_like(to_numpy(results[uniq[0]].scores))
+        keys = sorted({k for r in results.values() for k in r.stats})
+        stats = {k: np.zeros((batch.batch,), np.float64) for k in keys}
+        for p, sel in zip(uniq, rows):
+            res = results[p]
+            ids[sel] = to_numpy(res.ids)[sel]
+            scores[sel] = to_numpy(res.scores)[sel]
+            for k in keys:  # absent counters contribute 0 for this plan
+                if k in res.stats:
+                    v = to_numpy(res.stats[k]).astype(np.float64)
+                    stats[k][sel] = v[sel] if v.ndim else v
+        dev = self.device
+        return alg.TopKResult(
+            ids=torch.from_numpy(ids).to(dev),
+            scores=torch.from_numpy(scores).to(dev),
+            stats={k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in stats.items()},
+        )
 
     def oracle(self, batch: alg.QueryBatch, k: int | None = None) -> alg.TopKResult:
         idx = self.index

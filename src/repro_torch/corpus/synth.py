@@ -9,11 +9,14 @@ while the loop sheds the per-scalar ``np.clip``/``rng.choice`` overhead
 that made the reference take minutes at 2^20 documents.
 
 Queries come back as torch tensors on the CPU where the reference returns
-``jnp`` arrays; the engine moves them to its device.
+``jnp`` arrays; the engine moves them to its device.  The arrival processes
+and the mixture and uniform traces are the reference's code under the same
+draws; ``term_document_frequencies`` counts the same integers without the
+reference's per-document loop.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -221,6 +224,223 @@ def make_zipf_trace(
     # Zipf over pool ranks (rejection-free: clip the unbounded tail)
     ranks = np.minimum(rng.zipf(zipf_a, n_queries) - 1, pool_size - 1)
     return [pool[r] for r in ranks]
+
+
+# ---------------------------------------------------------------------------
+# arrival processes
+# ---------------------------------------------------------------------------
+
+ARRIVAL_KINDS = ("closed", "poisson", "bursty", "diurnal")
+
+
+def make_arrivals(
+    kind: str,
+    n: int,
+    rate_qps: float = 200.0,
+    seed: int = 0,
+    burst_factor: float = 4.0,
+    on_frac: float = 0.1,
+    diurnal_period_s: float = 60.0,
+    diurnal_depth: float = 0.8,
+) -> np.ndarray:
+    """Arrival-time stamps (seconds, non-decreasing, f64[n]) for a stream.
+
+    ``closed`` is all zeros (the replay ignores them); ``poisson`` has
+    i.i.d. exponential gaps at ``rate_qps``; ``bursty`` is a two-state
+    on/off Markov-modulated Poisson process whose mean rate is ``rate_qps``
+    (ON at ``burst_factor`` times it for ~``on_frac`` of the time);
+    ``diurnal`` thins a Poisson process to the rate ``rate_qps · (1 +
+    diurnal_depth · sin(2πt / diurnal_period_s))``.
+    """
+    if kind not in ARRIVAL_KINDS:
+        raise ValueError(f"unknown arrival kind {kind!r}; want one of {ARRIVAL_KINDS}")
+    if kind == "closed":
+        return np.zeros(n, dtype=np.float64)
+    if rate_qps <= 0:
+        raise ValueError("rate_qps must be > 0 for open-loop arrivals")
+    rng = np.random.default_rng(seed)
+    if kind == "poisson":
+        return np.cumsum(rng.exponential(1.0 / rate_qps, n))
+    if kind == "bursty":
+        if not 0.0 < on_frac < 1.0:
+            raise ValueError("on_frac must be in (0, 1)")
+        if burst_factor * on_frac >= 1.0:
+            raise ValueError("burst_factor * on_frac must be < 1 (mean-rate budget)")
+        rate_on = burst_factor * rate_qps
+        rate_off = (1.0 - burst_factor * on_frac) * rate_qps / (1.0 - on_frac)
+        mean_dwell = diurnal_period_s / 10.0
+        out = np.empty(n, dtype=np.float64)
+        t, i, on = 0.0, 0, False
+        state_end = t + rng.exponential(mean_dwell * (1.0 - on_frac))
+        while i < n:
+            rate = rate_on if on else rate_off
+            nxt = t + rng.exponential(1.0 / rate)
+            if nxt >= state_end:
+                # no arrival before the switch: restart the clock in the new
+                # state (exponential dwell is memoryless, so this is exact)
+                t, on = state_end, not on
+                state_end = t + rng.exponential(
+                    mean_dwell * (on_frac if on else 1.0 - on_frac)
+                )
+                continue
+            t = nxt
+            out[i] = t
+            i += 1
+        return out
+    # diurnal: thinning against the peak rate
+    rate_max = rate_qps * (1.0 + diurnal_depth)
+    out = np.empty(n, dtype=np.float64)
+    t, i = 0.0, 0
+    while i < n:
+        t += rng.exponential(1.0 / rate_max)
+        rate_t = rate_qps * (
+            1.0 + diurnal_depth * np.sin(2.0 * np.pi * t / diurnal_period_s)
+        )
+        if rng.random() * rate_max < rate_t:
+            out[i] = t
+            i += 1
+    return out
+
+
+def stamp_arrivals(
+    trace: list[TraceQuery],
+    kind: str = "poisson",
+    rate_qps: float = 200.0,
+    seed: int = 0,
+    **kw,
+) -> list[TraceQuery]:
+    """Return a copy of ``trace`` with ``arrival_s`` stamped by ``kind``."""
+    times = make_arrivals(kind, len(trace), rate_qps=rate_qps, seed=seed, **kw)
+    return [replace(q, arrival_s=float(t)) for q, t in zip(trace, times)]
+
+
+def term_document_frequencies(corpus: SynthCorpus) -> np.ndarray:
+    """Per-term document frequency (docs containing the term), f64[n_terms]."""
+    lens = np.fromiter((len(t) for t in corpus.doc_terms), np.int64, len(corpus.doc_terms))
+    if not lens.sum():
+        return np.zeros((corpus.n_terms,), dtype=np.float64)
+    terms = np.concatenate(corpus.doc_terms).astype(np.int64)
+    docs = np.repeat(np.arange(len(lens), dtype=np.int64), lens)
+    # each (doc, term) pair once, then a count per term: exact integers
+    pairs = np.unique(docs * corpus.n_terms + terms)
+    return np.bincount(pairs % corpus.n_terms, minlength=corpus.n_terms).astype(np.float64)
+
+
+def make_mixture_trace(
+    corpus: SynthCorpus,
+    n_queries: int = 2048,
+    rare_frac: float = 0.5,
+    rare_df_max: int = 4,
+    hot_quantile: float = 0.92,
+    seed: int = 1,
+) -> list[TraceQuery]:
+    """Bimodal term-selectivity × footprint-area workload (planner stressor).
+
+    ``rare_frac`` of the queries hold one rare term (df ≤ ``rare_df_max``)
+    over a country-sized footprint (TEXT-FIRST territory); the rest hold
+    2–3 of the hottest terms (df above the ``hot_quantile``) over a
+    city-block footprint on a real document's least crowded rect, drawn
+    from the sparse tail of the geographic density (spatial-first
+    territory).  No fixed algorithm is close to per-query selection here.
+    """
+    rng = np.random.default_rng(seed)
+    df = term_document_frequencies(corpus)
+    rare_terms = np.nonzero((df >= 1) & (df <= rare_df_max))[0]
+    if len(rare_terms) == 0:  # tiny corpora: fall back to the rarest decile
+        order = np.argsort(df + np.where(df < 1, np.inf, 0.0))
+        rare_terms = order[: max(corpus.n_terms // 10, 1)]
+    hot_cut = np.quantile(df[df > 0], hot_quantile)
+    hot_set = set(np.nonzero(df >= max(hot_cut, 2))[0].tolist())
+    # footprint rects intersecting each cell of a coarse grid (2D difference
+    # trick + cumsum = integral image); hot+tiny queries anchor on doc rects
+    # in the emptiest cells, where the tile grid's intervals are tight
+    G = 64
+    N, R, _ = corpus.doc_rects.shape
+    rects_flat = corpus.doc_rects.reshape(-1, 4)
+    valid_flat = rects_flat[:, 2] > rects_flat[:, 0]
+    vx0 = np.clip((rects_flat[:, 0] * G).astype(np.int64), 0, G - 1)
+    vy0 = np.clip((rects_flat[:, 1] * G).astype(np.int64), 0, G - 1)
+    vx1 = np.clip((rects_flat[:, 2] * G).astype(np.int64), 0, G - 1)
+    vy1 = np.clip((rects_flat[:, 3] * G).astype(np.int64), 0, G - 1)
+    diff = np.zeros((G + 1, G + 1))
+    w = valid_flat.astype(np.float64)
+    np.add.at(diff, (vy0, vx0), w)
+    np.add.at(diff, (vy1 + 1, vx0), -w)
+    np.add.at(diff, (vy0, vx1 + 1), -w)
+    np.add.at(diff, (vy1 + 1, vx1 + 1), w)
+    crowd = diff.cumsum(axis=0).cumsum(axis=1)[:G, :G]  # [iy, ix]
+    # per doc: its least-crowded valid rect (anchor) and that crowding
+    cx = ((rects_flat[:, 0] + rects_flat[:, 2]) * 0.5 * G).astype(np.int64)
+    cy = ((rects_flat[:, 1] + rects_flat[:, 3]) * 0.5 * G).astype(np.int64)
+    rect_crowd = np.where(
+        valid_flat,
+        crowd[np.clip(cy, 0, G - 1), np.clip(cx, 0, G - 1)],
+        np.inf,
+    ).reshape(N, R)
+    anchor_rect = rect_crowd.argmin(axis=1)
+    anchor_crowd = rect_crowd.min(axis=1)
+    finite = np.isfinite(anchor_crowd)
+    cut = np.quantile(anchor_crowd[finite], 0.15) if finite.any() else np.inf
+    quiet_docs = np.nonzero(finite & (anchor_crowd <= cut))[0]
+    if len(quiet_docs) == 0:
+        quiet_docs = np.nonzero(finite)[0]
+    out = []
+    for _ in range(n_queries):
+        if rng.random() < rare_frac:
+            # rare + huge: one rare term, near-domain-wide footprint
+            t = np.array([rare_terms[rng.integers(0, len(rare_terms))]], np.int32)
+            w = rng.uniform(0.25, 0.45)
+            qx, qy = rng.uniform(0.35, 0.65, 2)
+            rect = (
+                max(qx - w, 0.0), max(qy - w, 0.0),
+                min(qx + w, 1.0), min(qy + w, 1.0),
+            )
+        else:
+            # hot + tiny: the doc's hottest terms, city-block footprint at
+            # the doc's least-crowded footprint rect
+            while True:
+                d_i = int(quiet_docs[rng.integers(0, len(quiet_docs))])
+                cand = np.unique(corpus.doc_terms[d_i])
+                hot = cand[np.isin(cand, list(hot_set))] if hot_set else cand
+                if len(hot) == 0:  # fall back to the doc's highest-df terms
+                    hot = cand[np.argsort(-df[cand])][:3]
+                if len(hot):
+                    break
+            nt = int(rng.integers(2, 4))
+            t = np.sort(rng.choice(hot, size=min(nt, len(hot)), replace=False))
+            r0 = corpus.doc_rects[d_i, anchor_rect[d_i]]
+            qx = float((r0[0] + r0[2]) * 0.5)
+            qy = float((r0[1] + r0[3]) * 0.5)
+            w = rng.uniform(0.002, 0.006)
+            rect = (
+                max(qx - w, 0.0), max(qy - w, 0.0),
+                min(qx + w, 1.0), min(qy + w, 1.0),
+            )
+        out.append(
+            TraceQuery(
+                terms=t.astype(np.int32),
+                rects=np.asarray([rect], dtype=np.float32),
+                amps=np.ones((1,), dtype=np.float32),
+            )
+        )
+    return out
+
+
+def make_uniform_trace(
+    corpus: SynthCorpus,
+    n_queries: int = 2048,
+    d_terms: int = 4,
+    q_rects: int = 2,
+    seed: int = 1,
+) -> list[TraceQuery]:
+    """Adversarial trace for the cache: every query distinct, no locality."""
+    rng = np.random.default_rng(seed)
+    return [
+        _one_query(
+            rng, corpus, int(rng.integers(0, len(corpus.cities))), d_terms, q_rects
+        )
+        for _ in range(n_queries)
+    ]
 
 
 def pad_trace_batch(

@@ -1,6 +1,8 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution shared by every entry point of the port, and the
+host copy the host-side modules (planner, server) read tensors through."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -18,3 +20,11 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def to_numpy(x) -> np.ndarray:
+    """A host numpy copy of a tensor on any device (or ``np.asarray`` of
+    anything else); reading a CUDA tensor waits for the work that writes it."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

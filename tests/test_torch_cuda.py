@@ -1,6 +1,7 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its
 plain PyTorch version, bitwise, through the public wrappers, and the
-launch counters.  Imports no JAX, so it runs on a GPU host without the
+launch counters; and GeoServer over the kernel executors against its plain
+twins.  Imports no JAX, so it runs on a GPU host without the
 reference; without CUDA every test skips."""
 import numpy as np
 import pytest
@@ -368,3 +369,58 @@ def test_new_wrappers_reject_bad_inputs_on_card(cuda):
         pbm.bitmap_and_popcount(bm.view(torch.int32))
     with pytest.raises(ValueError):
         pbm.bitmap_and_popcount(bm[:, ::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm,prune", [("k_sweep", False), ("k_sweep", True),
+                                             ("auto", True)])
+def test_geo_server_kernel_executor_equals_plain_on_card(cuda, algorithm, prune):
+    """Open-loop replay with an injected service time is deterministic, so
+    the server over the kernel executor (fused K-SWEEP, pruned K-SWEEP, or
+    auto with pruning: the text_probe and pruned sweep kernels) and over its
+    plain twin (same engine, ``fused=False``) give equal reports and
+    bitwise equal per-query results; only the kernel side launches."""
+    import dataclasses
+
+    from repro_torch.core import GeoSearchEngine, QueryBudgets
+    from repro_torch.corpus import make_corpus, make_mixture_trace, make_zipf_trace, stamp_arrivals
+    from repro_torch.serving import DeadlineBatcher, GeoServer, SingleDeviceExecutor, make_cache
+
+    corpus = make_corpus(n_docs=3000, n_terms=400, seed=5)
+    budgets = QueryBudgets(max_candidates=512, max_tiles=256, k_sweeps=4, sweep_budget=512,
+                           prune=prune)
+    eng = GeoSearchEngine.build(corpus.doc_terms, corpus.doc_rects, corpus.doc_amps,
+                                corpus.n_terms, pagerank=corpus.pagerank, budgets=budgets)
+    trace = make_zipf_trace(corpus, n_queries=96, pool_size=24, seed=6)
+    if algorithm == "auto":
+        trace = make_mixture_trace(corpus, n_queries=64, seed=7) + trace[:64]
+    trace = stamp_arrivals(trace, "poisson", rate_qps=800.0, seed=3)
+    reports, counts = [], []
+    for fused in (True, False):
+        server = GeoServer(SingleDeviceExecutor(eng, algorithm, fused=fused),
+                           cache=make_cache("landlord", 32),
+                           batcher=DeadlineBatcher(max_batch=8, max_wait_s=2e-3),
+                           n_workers=2, coalesce=True)
+        reset_launch_counts()
+        reports.append(server.run_trace(trace, arrival="poisson", collect_results=True,
+                                        service_time=lambda raw: 1e-3 + 1e-4 * raw.n_real))
+        torch.cuda.synchronize()
+        counts.append(launch_counts())
+    kern, plain = reports
+    for f in dataclasses.fields(kern):
+        a, b = getattr(kern, f.name), getattr(plain, f.name)
+        if f.name == "results":
+            for x, y in zip(a, b):
+                assert np.array_equal(x.ids, y.ids)
+                assert np.array_equal(x.scores.view(np.uint32), y.scores.view(np.uint32))
+        elif f.name in ("plan_queries", "plan_latencies_s", "plan_stats"):
+            # the twins' labels differ only by "+fused"
+            assert {k.replace("+fused", ""): v for k, v in a.items()} == b, f.name
+        else:
+            assert a == b, f.name
+    assert sum(counts[1].values()) == 0
+    used = {"sweep_score_pruned" if prune else "sweep_score"} if algorithm == "k_sweep" else {
+        k for k, label in (("sweep_score_pruned", "k_sweep+prune+fused"),
+                           ("text_probe", "text_first+prune+fused")) if label in kern.plan_queries}
+    assert used and all(counts[0][k] > 0 for k in used), counts[0]
+    assert all(n == 0 for k, n in counts[0].items() if k not in used), counts[0]

@@ -161,9 +161,12 @@ def test_plans_and_unported_options(setup):
     assert torch.equal(a.ids, b.ids)
     assert len(port._fn_cache) >= 1
     for kind in ("sharded", "mesh"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="distributed slice"):
             make_executor(kind, corpus, device="cpu")
-    with pytest.raises(NotImplementedError):
-        port.query(q, "auto")
+    # "auto" is ported: the planner's rows, each from its own plan's run
+    auto = port.query(q, "auto")
+    assert auto.ids.shape == b.ids.shape and auto.ids.dtype == torch.int32
+    with pytest.raises(NotImplementedError, match="obs slice"):
+        SingleDeviceExecutor(port).attach_telemetry(object())
     with pytest.raises(ValueError):
         port.query(q, "no_such_algorithm")
