@@ -36,8 +36,9 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    again with every window at one origin (all windows on a few store
    tiles), beside a torch fill of its output's size and the store bytes
    its windows request and the unique bytes;
-5. runs one profiler pass per variant: each stage's host time and device
-   time, and the device's idle share over a batch;
+5. runs one profiler pass per variant (phase 7's sharded executor too):
+   each stage's host time and device time, and the device's idle share
+   over a batch;
 6. serves 2048-query traces through ``GeoServer`` over the phase-3 index,
    at ``launch/serve.py``'s defaults (Landlord cache of 512, deadline
    batcher of 32 × 8 terms × 4 rects, 5 ms deadline open loop):
@@ -50,7 +51,27 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    queries of each trace open loop with Poisson stamps and a fixed service
    time through the kernel executor and its plain twin, whose reports and
    per-query ids and scores must be equal.  It runs after phase 4 and
-   before phase 5, so no profiler session precedes a timed serving run.
+   before phase 5, so no profiler session precedes a timed serving run;
+7. shards the same corpus into 8 region shards behind footprint routing
+   (``make_executor("sharded", corpus, n_shards=8,
+   partitioner=RegionRangePartitioner(), routing="footprint", fused=True,
+   budgets=prune)``) and drives the 256-query trace through it: footprint
+   equals broadcast (ids and scores bitwise) and the kernel executor its
+   plain twin (ids, scores and every counter bitwise), both over the same
+   shard engines; the pruned sweep launches once per visited shard per
+   batch; a narrow batch (copies of one query whose footprint, cut to a
+   fifth, misses some shards) holds the same checks while routing skips
+   shards; one batch each of fused K-SWEEP and ``use_pallas`` K-SWEEP (with
+   early termination, so the kernels' scores pick the candidates) and of
+   pruned fused TEXT-FIRST equals its plain twin; ``GeoServer`` serves a
+   2048-query zipf trace over the sharded executor
+   (``serve_sharded_footprint``: serve.py's defaults with ``--shards 8
+   --partition region --routing footprint --prune --fused``; its launches
+   exactly one per visited shard per live batch plus 8 per warm-up shape);
+   and the mesh executor on an (8, 1) data × model mesh equals the sharded
+   one on the trace and the narrow batch (ids and scores after sorting each
+   row by (−score, id), counter sums within rtol 1e-6).  It runs after
+   phase 6 and before phase 5.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -728,8 +749,10 @@ def main() -> int:
             f"{len(times) * BATCH / sum(times):.1f} queries/s")
     # ---- phase 6: the serving stack at size, before the profiler pass ----
     serve_counts = serving_phase(corpus, plain_ex.engine.index, budgets)
+    # ---- phase 7: document-sharded serving, before the profiler pass ----
+    shard_counts, executors["sharded_footprint"] = sharded_phase(corpus, budgets, batches)
     for row in table:
-        main_counts[row["name"]] += serve_counts[row["name"]]
+        main_counts[row["name"]] += serve_counts[row["name"]] + shard_counts[row["name"]]
         row["launches"] = main_counts[row["name"]]
     # ---- phase 5: one profiler pass per variant, after every timing, so
     # no profiler session runs before or during a timed run ---------------
@@ -889,11 +912,251 @@ def serving_phase(corpus, index, budgets) -> dict[str, int]:
     return totals
 
 
+def sharded_phase(corpus, budgets, batches) -> tuple[dict[str, int], tuple]:
+    """Phase 7: the sharded and mesh executors over 8 region shards of the
+    phase-3 corpus (see the module docstring).  Returns the kernel launches
+    of the runs a user's entry points make — the footprint-routed trace,
+    the one-batch kernel variants, the served trace and the mesh; the
+    broadcast and plain-twin comparisons are not counted — and the
+    sharded executor with its algorithm, for phase 5's profile."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import QueryPlan, RegionRangePartitioner, make_mesh
+    from repro_torch.corpus import make_zipf_trace
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.geo_score.ops import geo_score_toeprints
+    from repro_torch.serving import (
+        DeadlineBatcher,
+        GeoServer,
+        ShardedExecutor,
+        make_cache,
+        make_executor,
+    )
+
+    t_phase = time.perf_counter()
+    pr = replace(budgets, prune=True)
+    totals = dict.fromkeys(launch_counts(), 0)
+
+    def sync():
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+
+    def counted(counts, used, what, add=True):
+        """Only ``used`` kernels launched, each as often as given."""
+        for k, n in counts.items():
+            check(n == used.get(k, 0), f"{what}: {k} launched {n} times, expected "
+                  f"{used.get(k, 0)}")
+            if add:
+                totals[k] += n
+
+    def host_equal(a, b, what, counters=True):
+        """Host results equal: ids exactly, scores bitwise (−inf included),
+        and every counter exactly."""
+        check(np.array_equal(a.ids, b.ids), f"{what}: ids differ")
+        check(np.asarray(a.scores).tobytes() == np.asarray(b.scores).tobytes(),
+              f"{what}: scores differ")
+        if counters:
+            check(set(a.stats) == set(b.stats), f"{what}: stats keys differ")
+            for k in a.stats:
+                check(np.array_equal(a.stats[k], b.stats[k]), f"{what}: stats[{k}] differs")
+
+    def run_all(ex, runs, plan=None):
+        sync()
+        reset_launch_counts()
+        outs, times = [], []
+        for b in runs:
+            t = time.perf_counter()
+            outs.append(ex.run(b, plan=plan))
+            sync()
+            times.append(time.perf_counter() - t)
+        return outs, launch_counts(), times
+
+    t = time.perf_counter()
+    # serve.py --shards 8 --partition region --routing footprint --prune --fused
+    ex = make_executor("sharded", corpus, n_shards=8, partitioner=RegionRangePartitioner(),
+                       routing="footprint", fused=True, budgets=pr, device=DEVICE)
+    engines, gids = ex.engines, ex.global_ids
+    sizes = [len(g) for g in gids]
+    tps = [e.index.spatial.n_toeprints for e in engines]
+    say(f"phase 7: 8 region shards built in {time.perf_counter() - t:.1f} s; docs per shard "
+        f"{min(sizes)}-{max(sizes)}, toe prints per shard {min(tps)}-{max(tps)}")
+    broadcast = ShardedExecutor(engines, gids, "k_sweep", routing="broadcast", fused=True)
+    plain = ShardedExecutor(engines, gids, "k_sweep", routing="footprint")
+
+    # the 256-query trace through the footprint-routed kernel executor
+    ex.run(batches[0])  # warm-up
+    outs, counts, times = run_all(ex, batches)
+    visited = [int(o.stats["shards_visited"]) for o in outs]
+    touched = np.concatenate([o.stats["shards_touched"] for o in outs])
+    counted(counts, {"sweep_score_pruned": sum(visited)}, "sharded footprint")
+    for o in outs:
+        ids = np.asarray(o.ids)
+        check(ids.shape == (BATCH, budgets.top_k), "sharded: ids shape")
+        check(bool(((ids >= -1) & (ids < N_DOCS)).all()), "sharded: ids out of range")
+        check(bool(np.isfinite(np.asarray(o.scores)[ids >= 0]).all()), "sharded: non-finite score")
+    say(f"phase 7: sharded footprint: {len(batches)} batches of {BATCH}; shards visited per "
+        f"batch {visited}; shards touched per query mean {touched.mean():.4f}; launches "
+        f"{ {k: n for k, n in counts.items() if n} } (one per visited shard per batch); batch "
+        f"latency median {1e3 * statistics.median(times):.2f} ms, "
+        f"{len(times) * BATCH / sum(times):.1f} queries/s")
+    b_outs, b_counts, b_times = run_all(broadcast, batches)
+    counted(b_counts, {"sweep_score_pruned": 8 * len(batches)}, "sharded broadcast", add=False)
+    for i, (x, y) in enumerate(zip(outs, b_outs)):
+        host_equal(x, y, f"footprint vs broadcast batch {i}", counters=False)
+    say(f"phase 7: footprint == broadcast in ids and scores (bitwise); broadcast batch latency "
+        f"median {1e3 * statistics.median(b_times):.2f} ms, "
+        f"{len(b_times) * BATCH / sum(b_times):.1f} queries/s")
+    p_outs, p_counts, _ = run_all(plain, batches)
+    counted(p_counts, {}, "sharded plain twin", add=False)
+    for i, (x, y) in enumerate(zip(outs, p_outs)):
+        host_equal(x, y, f"sharded kernel vs plain batch {i}")
+    say("phase 7: sharded kernel executor == plain twin in ids, scores and every counter")
+
+    # the trace's batches reach nearly every shard; a narrow batch makes
+    # footprint routing skip some: copies of the trace's first query whose
+    # footprint, cut to the middle fifth of its first rect, misses a shard
+    cands = (narrow_batch(b, i, BATCH) for b in batches for i in range(BATCH))
+    nb = next((b for b in cands if ex.route_batch(b)[0].sum() < 8), None)
+    check(nb is not None, "narrow batch: every cut footprint of the trace reaches all 8 shards")
+    n_outs, n_counts, n_times = run_all(ex, [nb])
+    narrow_vis = int(n_outs[0].stats["shards_visited"])
+    check(narrow_vis < 8, f"narrow batch: {narrow_vis} shards visited")
+    counted(n_counts, {"sweep_score_pruned": narrow_vis}, "sharded narrow")
+    nb_outs, nb_counts, _ = run_all(broadcast, [nb])
+    counted(nb_counts, {"sweep_score_pruned": 8}, "sharded narrow broadcast", add=False)
+    host_equal(n_outs[0], nb_outs[0], "narrow footprint vs broadcast", counters=False)
+    np_outs, np_counts, _ = run_all(plain, [nb])
+    counted(np_counts, {}, "sharded narrow plain twin", add=False)
+    host_equal(n_outs[0], np_outs[0], "narrow kernel vs plain")
+    say(f"phase 7: narrow batch ({BATCH} copies of one cut footprint): {narrow_vis} of 8 shards "
+        f"visited, sweep_score_pruned launched {n_counts['sweep_score_pruned']} times; "
+        f"{int((np.asarray(n_outs[0].ids) >= 0).sum())} live ids; batch latency "
+        f"{1e3 * n_times[0]:.2f} ms; footprint == broadcast (bitwise) and kernel == plain twin")
+
+    # one batch each of the other kernels through the same shards: fused and
+    # geo-score K-SWEEP with early termination (their scores pick the
+    # candidates), and pruned fused TEXT-FIRST
+    et = replace(engines[0].budgets, prune=False, early_termination=True)
+    one = [
+        ("fused_et", ShardedExecutor(engines, gids, "k_sweep", routing="footprint"),
+         QueryPlan("k_sweep", et, fused=True), QueryPlan("k_sweep", et), "sweep_score"),
+        ("geo_score_et", ShardedExecutor(engines, gids, "k_sweep", routing="footprint",
+                                         tp_scorer=geo_score_toeprints),
+         QueryPlan("k_sweep", et), QueryPlan("k_sweep", et), "geo_score"),
+        ("tf_pruned", ShardedExecutor(engines, gids, "text_first", routing="footprint"),
+         QueryPlan("text_first", engines[0].budgets, fused=True),
+         QueryPlan("text_first", engines[0].budgets), "text_probe"),
+    ]
+    for name, kern_ex, kplan, pplan, kernel in one:
+        k_out, k_counts, _ = run_all(kern_ex, batches[:1], kplan)
+        n_vis = int(k_out[0].stats["shards_visited"])
+        counted(k_counts, {kernel: n_vis}, f"sharded {name}")
+        twin = ShardedExecutor(engines, gids, kplan.algorithm, routing="footprint")
+        p_out, p_counts, _ = run_all(twin, batches[:1], pplan)
+        counted(p_counts, {}, f"sharded {name} plain twin", add=False)
+        host_equal(k_out[0], p_out[0], f"sharded {name} vs plain")
+        say(f"phase 7: sharded {name} (batch 0) == plain twin in ids, scores and every counter; "
+            f"{kernel} launched {k_counts[kernel]} times ({n_vis} visited shards)")
+
+    # GeoServer over the sharded executor at serve.py's defaults
+    zipf = make_zipf_trace(corpus, n_queries=SERVE_QUERIES, pool_size=SERVE_POOL, seed=1)
+    srv = GeoServer(ex, cache=make_cache("landlord", CACHE_CAPACITY),
+                    batcher=DeadlineBatcher(max_batch=BATCH, max_terms=8, max_rects=4,
+                                            max_wait_s=float("inf")))
+    # the warm-up runs one inert batch per predicted shape, broadcast to
+    # all 8 shards
+    n_shapes = len(srv._predict_shapes(zipf, open_loop=False))
+    sync()
+    reset_launch_counts()
+    t = time.perf_counter()
+    rep = srv.run_trace(zipf, arrival="closed")
+    sync()
+    run_s = time.perf_counter() - t
+    counts = launch_counts()
+    check(rep.n_queries == len(zipf) and rep.cache_hits + rep.cache_misses == len(zipf),
+          "serve_sharded_footprint: query count")
+    label = ex.algorithm  # a fixed-algorithm executor's batches carry its name
+    r = rep.routing.get(label)
+    check(r is not None and r["batches"] == rep.n_batches, "serve_sharded_footprint: routing")
+    # each live batch launches once per visited shard, each warm-up batch
+    # once per shard
+    check(rep.n_compiled_shapes == n_shapes,
+          f"serve_sharded_footprint: {rep.n_compiled_shapes} shapes run, {n_shapes} predicted")
+    counted(counts, {"sweep_score_pruned": int(r["shards_visited"]) + 8 * n_shapes},
+            "serve_sharded_footprint")
+    for line in rep.summary().splitlines():
+        say(f"phase 7: serve_sharded_footprint: {line}")
+    say("phase 7: serve_sharded_footprint: " + json.dumps({
+        "queries": rep.n_queries, "run_s": run_s, "qps": rep.qps,
+        "p50_ms": rep.percentile_ms(50), "p99_ms": rep.percentile_ms(99),
+        "hit_rate": rep.hit_rate, "padding": rep.padding_overhead,
+        "batches": rep.n_batches, "shapes": rep.n_compiled_shapes,
+        "shards_touched_mean": rep.routing_mean(label),
+        "shards_visited_per_batch": r["shards_visited"] / max(r["batches"], 1),
+        "warmup_batches": n_shapes,
+        "launches": {k: n for k, n in counts.items() if n}}))
+
+    # the mesh step over the same partitioning, stacked on the card
+    t = time.perf_counter()
+    mesh_ex = make_executor("mesh", corpus, mesh=make_mesh((8, 1), ("data", "model"),
+                                                           device=DEVICE),
+                            partitioner=RegionRangePartitioner(), routing="footprint",
+                            fused=True, budgets=pr)
+    say(f"phase 7: mesh (8, 1) data x model: stacked index built in "
+        f"{time.perf_counter() - t:.1f} s; {mesh_ex.index.tp_rects.shape[1]} toe-print rows "
+        f"per shard")
+    mesh_ex.run(batches[0])  # warm-up
+    m_outs, m_counts, m_times = run_all(mesh_ex, batches)
+    # every shard runs the step on every batch (the SPMD twin); untouched
+    # (query, shard) pairs are masked
+    counted(m_counts, {"sweep_score_pruned": 8 * len(batches)}, "mesh")
+    mn_outs, mn_counts, _ = run_all(mesh_ex, [nb])
+    counted(mn_counts, {"sweep_score_pruned": 8}, "mesh narrow")
+    check(float(mn_outs[0].stats["shards_visited"][0]) == narrow_vis,
+          "mesh narrow: shards visited differ from the sharded executor's")
+
+    def by_score(ids, scores):
+        o = np.lexsort((ids, -scores), axis=-1)
+        return np.take_along_axis(ids, o, -1), np.take_along_axis(scores, o, -1)
+
+    for i, (m, h) in enumerate(zip(m_outs + mn_outs, outs + n_outs)):
+        mi, ms = by_score(m.ids.cpu().numpy(), m.scores.cpu().numpy())
+        hi, hs = by_score(np.asarray(h.ids), np.asarray(h.scores))
+        check(np.array_equal(mi, hi) and ms.tobytes() == hs.tobytes(),
+              f"mesh vs sharded batch {i}: ids or scores differ")
+        check(set(m.stats) == set(h.stats), f"mesh vs sharded batch {i}: stats keys")
+        for k in h.stats:
+            a = float(np.asarray(m.stats[k], np.float64).sum())
+            b = float(np.asarray(h.stats[k], np.float64).sum())
+            check(abs(a - b) <= 1e-6 * abs(b), f"mesh vs sharded batch {i}: stats[{k}] {a} vs {b}")
+    say(f"phase 7: mesh == sharded in ids and scores (rows sorted by -score, id) and counter "
+        f"sums (rtol 1e-6), the narrow batch included; launches { {k: n for k, n in m_counts.items() if n} }; batch latency "
+        f"median {1e3 * statistics.median(m_times):.2f} ms, "
+        f"{len(m_times) * BATCH / sum(m_times):.1f} queries/s")
+    say(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
+    return totals, (ex, ex.algorithm)
+
+
+def narrow_batch(batch, i: int, n: int):
+    """``n`` copies of query ``i`` of ``batch``, its footprint cut to the
+    middle fifth of its first rect (the other rect slots padding)."""
+    terms = batch.terms[i : i + 1].cpu().repeat(n, 1)
+    r0 = batch.rects[i, 0].cpu()
+    c, h = (r0[:2] + r0[2:]) / 2, (r0[2:] - r0[:2]) / 10
+    rects = batch.rects.new_tensor([1.0, 1.0, 0.0, 0.0]).cpu().repeat(n, batch.rects.shape[1], 1)
+    rects[:, 0, :2], rects[:, 0, 2:] = c - h, c + h
+    amps = batch.amps.new_zeros((n, batch.amps.shape[1])).cpu()
+    amps[:, 0] = 1.0
+    return type(batch)(terms, rects, amps)
+
+
 def profile_batch(run, torch, spans) -> list[str]:
     """One profiler pass over ``run()`` (one batch).  For each stage span
     in ``spans``: its host ms, its extent on the device timeline (the
     profiler's device-side annotation of the span) and the device-busy ms
-    inside that extent; then the device's busy time and idle share over the
+    inside that extent, each summed over the span's runs (one per shard
+    of a sharded batch); then the device's busy time and idle share over the
     batch, and the device ops that took the longest.  Busy time is the
     union of kernel, copy and set intervals, annotations excluded."""
     from torch.autograd import DeviceType
@@ -910,7 +1173,10 @@ def profile_batch(run, torch, spans) -> list[str]:
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     work = sorted((e.time_range.start, e.time_range.end, e.name)
                   for e in device if e.name not in labels)
-    marks = {e.name: e for e in device if e.name in spans}
+    marks: dict[str, list] = {}  # a sharded batch runs each span once per shard
+    for e in device:
+        if e.name in spans:
+            marks.setdefault(e.name, []).append(e.time_range)
 
     def busy_us(w0, w1):
         busy, covered = 0.0, w0  # union of work intervals inside [w0, w1)
@@ -927,9 +1193,11 @@ def profile_batch(run, torch, spans) -> list[str]:
                    if e.name == name and e.device_type == DeviceType.CPU)
         line = f"{name}: host {host / 1e3:.3f} ms"
         if name in marks:
-            m = marks[name].time_range
-            line += (f", device extent {(m.end - m.start) / 1e3:.3f} ms, "
-                     f"busy {busy_us(m.start, m.end) / 1e3:.3f} ms")
+            ext = sum(m.end - m.start for m in marks[name])
+            busy = sum(busy_us(m.start, m.end) for m in marks[name])
+            line += (f", device extent {ext / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms"
+                     + (f" (summed over {len(marks[name])} spans)" if len(marks[name]) > 1
+                        else ""))
         lines.append(line)
     batch = [e for e in events if e.name == "chip_smoke.batch"
              and e.device_type == DeviceType.CPU]

@@ -9,6 +9,7 @@ Modules (each the counterpart of ``repro/core/<name>.py``):
   algorithms     TEXT-FIRST, GEO-FIRST, K-SWEEP (batched) + exact oracle
   planner        QueryPlan, cost model and the per-query Planner
   engine         GeoSearchEngine facade
+  distributed    partitioners, coverage routing, ShardedGeoIndex, the mesh step
   convert        the reference's index arrays → the port's GeoIndex
 """
 from repro_torch.core.algorithms import (
@@ -19,6 +20,19 @@ from repro_torch.core.algorithms import (
     get_algorithm,
     register_algorithm,
 )
+from repro_torch.core.distributed import (
+    COVERAGE_GRID,
+    HashPartitioner,
+    Mesh,
+    MortonPartitioner,
+    Partitioner,
+    RegionRangePartitioner,
+    ShardedGeoIndex,
+    make_mesh,
+    make_serve_fn,
+    resolve_partitioner,
+    shard_corpus_np,
+)
 from repro_torch.core.engine import GeoIndex, GeoSearchEngine
 from repro_torch.core.planner import COST_KEYS, CostModel, Planner, QueryFeatures, QueryPlan
 from repro_torch.core.ranking import RankWeights
@@ -27,4 +41,7 @@ __all__ = [
     "GeoIndex", "GeoSearchEngine", "QueryBatch", "QueryBudgets",
     "TopKResult", "ALGORITHMS", "get_algorithm", "register_algorithm",
     "QueryPlan", "RankWeights", "COST_KEYS", "CostModel", "Planner", "QueryFeatures",
+    "COVERAGE_GRID", "Partitioner", "HashPartitioner", "MortonPartitioner",
+    "RegionRangePartitioner", "resolve_partitioner", "ShardedGeoIndex", "shard_corpus_np",
+    "Mesh", "make_mesh", "make_serve_fn",
 ]

@@ -13,10 +13,10 @@ and the Morton-store span of the blocks whose MBR the footprint touches);
 :class:`Planner` picks the cheapest, charging candidates a plan's budgets
 would drop far above their bytes.  The feature tables are host numpy copies
 of the index's ``offsets``, ``blk_mbr``, ``tile_starts`` and ``tile_ends``,
-made once at build, so planning never touches the device.  The cost model
-of a sharded index (``from_shards``, ``from_sharded_index``) arrives with the
-distributed slice and raises until then.  The reference's docstrings give
-each estimate's derivation.
+made once at build, so planning never touches the device; a sharded
+index's model sums or concatenates its shards' tables (``from_shards``,
+``from_sharded_index``).  The reference's docstrings give each estimate's
+derivation.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ import numpy as np
 
 from repro_torch.core import algorithms as alg
 from repro_torch.core import geometry
-from repro_torch.core.spatial_index import INVALID
+from repro_torch.core.spatial_index import INVALID, SCALE_BLOCK
 from repro_torch.device import to_numpy
 
 # objective keys: the per-stage counters every algorithm reports
@@ -194,16 +194,83 @@ class CostModel:
 
     @staticmethod
     def from_shards(indexes, budgets: alg.QueryBudgets) -> "CostModel":
-        raise NotImplementedError(
-            "CostModel.from_shards is not ported yet: it arrives with the "
-            "distributed slice (the sharded executor)"
+        """Aggregate feature tables over per-shard :class:`GeoIndex` es: df
+        and tile coverage sum across shards (every shard sees every query),
+        block metadata concatenates, so the features count the whole
+        corpus."""
+        parts = [CostModel.from_geo_index(ix, budgets) for ix in indexes]
+        tot_p = max(sum(p.n_postings for p in parts), 1)
+        tot_t = max(sum(p.n_toeprints for p in parts), 1)
+        return CostModel(
+            df=np.sum([p.df for p in parts], axis=0),
+            blk_mbr=np.concatenate([p.blk_mbr for p in parts], axis=0),
+            blk_count=np.concatenate([p.blk_count for p in parts], axis=0),
+            tile_sat=np.sum([p.tile_sat for p in parts], axis=0),
+            grid=parts[0].grid,
+            n_postings=sum(p.n_postings for p in parts),
+            n_toeprints=sum(p.n_toeprints for p in parts),
+            n_docs=sum(p.n_docs for p in parts),
+            rect_slots=parts[0].rect_slots,
+            budgets=budgets,
+            # record sizes weighted by each shard's postings / toe prints
+            posting_bytes=sum(p.posting_bytes * p.n_postings for p in parts) / tot_p,
+            tp_bytes=sum(p.tp_bytes * p.n_toeprints for p in parts) / tot_t,
+            doc_bytes=parts[0].doc_bytes,
+            tp_id_bytes=parts[0].tp_id_bytes,
         )
 
     @staticmethod
     def from_sharded_index(sharded, budgets: alg.QueryBudgets) -> "CostModel":
-        raise NotImplementedError(
-            "CostModel.from_sharded_index is not ported yet: it arrives with the "
-            "distributed slice (the mesh executor)"
+        """Build from a stacked
+        :class:`~repro_torch.core.distributed.ShardedGeoIndex` (the mesh
+        executor).  Padding is excluded where the reference excludes it
+        (zero amplitudes, zero block maxima, doc map −1) and counted where
+        it counts it (the packed-word and block columns)."""
+        offsets = to_numpy(sharded.offsets).astype(np.int64)  # [S, M+1]
+        df = np.diff(offsets, axis=1).sum(axis=0).astype(np.float64)
+        blk_mbr = to_numpy(sharded.blk_mbr).reshape(-1, 4)
+        # int8 amp stores keep the sign (positive scales): a widening cast
+        # counts the valid toe prints
+        n_tp = int((to_numpy(sharded.tp_amps).astype(np.float32) > 0).sum())
+        blk_amp = to_numpy(sharded.blk_max_amp).reshape(-1)
+        blk_count = np.where(blk_amp > 0, float(sharded.block_size), 0.0)
+        n_docs = int((to_numpy(sharded.doc_offset) >= 0).sum())
+        grid = int(sharded.grid)
+        sat = np.sum(
+            [
+                _tile_sat(to_numpy(sharded.tile_starts[s]), to_numpy(sharded.tile_ends[s]), grid)
+                for s in range(sharded.n_shards)
+            ],
+            axis=0,
+        )
+        P_tot = max(int(df.sum()), 1)
+        imp_b = sharded.impacts.element_size()
+        if sharded.blk_first.shape[1] > 0:  # compressed posting store
+            # 20 B of block metadata per block, 8 B per impact segment
+            packed = 4 * sharded.post_packed.numel() + 20 * sharded.blk_first.numel()
+            if sharded.layout == "impact":
+                packed += 8 * sharded.seg_pos.numel()
+            posting_bytes = packed / P_tot + imp_b
+        else:
+            seg = 8 * sharded.seg_pos.numel() if sharded.layout == "impact" else 0
+            posting_bytes = 4.0 + seg / P_tot + imp_b
+        scale_b = 4.0 / SCALE_BLOCK if sharded.tp_amp_scale.shape[1] else 0.0
+        plane_b = 4 * sharded.tp_rects.element_size() + sharded.tp_amps.element_size() + scale_b
+        return CostModel(
+            df=df,
+            blk_mbr=blk_mbr,
+            blk_count=blk_count,
+            tile_sat=sat,
+            grid=grid,
+            n_postings=int(df.sum()),
+            n_toeprints=n_tp,
+            n_docs=n_docs,
+            rect_slots=int(sharded.doc_rects.shape[2]),
+            budgets=budgets,
+            posting_bytes=float(posting_bytes),
+            tp_bytes=float(plane_b + sharded.tp_doc_ids.element_size()),
+            doc_bytes=float(4 * sharded.doc_rects.element_size() + sharded.doc_amps.element_size()),
+            tp_id_bytes=float(sharded.tp_doc_ids.element_size()),
         )
 
     # ------------------------------------------------------------------
@@ -503,9 +570,8 @@ def coarse_cells(rects: np.ndarray, grid: int):
     MBRs still cover their point's cell, while inverted (padding) MBRs come
     back with ``ix1 < ix0`` and cover nothing.
 
-    The reference's footprint routing (its ``core/distributed.py``)
-    buckets per-shard coverage through this same mapping, so the
-    distributed slice reuses it.
+    Footprint routing (:mod:`repro_torch.core.distributed`) buckets each
+    shard's coverage through this same mapping.
     """
     g = float(grid)
     ix0 = np.clip(np.floor(rects[..., 0] * g).astype(np.int64), 0, grid - 1)

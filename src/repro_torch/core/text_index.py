@@ -29,12 +29,13 @@ does its shifts and masks in int64.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_numpy
 
 BLOCK = 128  # docs per bitmap block
 WORDS_PER_BLOCK = BLOCK // 32
@@ -469,6 +470,50 @@ def text_index_from_numpy(arrays: dict[str, np.ndarray], statics: dict, device=N
         layout=layout,
         max_term_segments=int(statics.get("max_term_segments", 1)),
     )
+
+
+def global_idf_np(doc_terms: list[np.ndarray], n_terms: int) -> np.ndarray:
+    """Corpus-wide IDF, f64[M], the formula :func:`build_text_arrays_np`
+    applies.  Document frequencies are integer counts of distinct (term,
+    doc) pairs (exact in float64, as the reference's per-doc ``np.add.at``
+    loop), so the logarithms are the reference's bit for bit."""
+    n_docs = len(doc_terms)
+    df = np.zeros((n_terms,), dtype=np.float64)
+    if n_docs:
+        lens = np.fromiter((len(t) for t in doc_terms), np.int64, n_docs)
+        flat = np.concatenate(doc_terms).astype(np.int64)
+        doc_of = np.repeat(np.arange(n_docs, dtype=np.int64), lens)
+        key = np.unique(flat * n_docs + doc_of)
+        df += np.bincount(key // n_docs, minlength=n_terms)[:n_terms]
+    return np.log(1.0 + n_docs / np.maximum(df, 1.0))
+
+
+def _with_impacts(index: TextIndex, impacts: np.ndarray) -> TextIndex:
+    """Replace the impact column and refresh ``blk_max_impact`` to match
+    (re-enveloped per term under the impact layout, as in the reference)."""
+    bm = block_max_impacts_np(impacts, to_numpy(index.blk_pos), to_numpy(index.blk_len))
+    if index.layout == "impact":
+        bm = _suffix_max_per_term_np(bm, to_numpy(index.blk_term_off))
+    dev = index.offsets.device
+    return dataclasses.replace(
+        index,
+        impacts=torch.from_numpy(np.ascontiguousarray(impacts)).to(dev),
+        blk_max_impact=torch.from_numpy(bm).to(dev),
+    )
+
+
+def rescale_impacts_to_global(index: TextIndex, idf_global: np.ndarray) -> TextIndex:
+    """Swap a shard-local index's IDF for the corpus-global one: each
+    posting's impact times ``idf_global / idf_local`` of its term (the
+    reference's arithmetic, f32 product).  The sharded builders do not use
+    it: they pass the global IDF into the build, so impacts round to f32
+    once and are bitwise equal across partitionings."""
+    offsets = to_numpy(index.offsets)
+    counts = np.diff(offsets)
+    idf_local = np.log(1.0 + index.n_docs / np.maximum(counts.astype(np.float64), 1.0))
+    ratio = np.where(counts > 0, idf_global / idf_local, 1.0)
+    impacts = to_numpy(index.impacts) * np.repeat(ratio, counts).astype(np.float32)
+    return _with_impacts(index, impacts)
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,9 @@
 * :mod:`~repro_torch.serving.cache` — LRU and cost-aware Landlord caches.
 * :mod:`~repro_torch.serving.batcher` — shape-bucketed and deadline batchers.
 * :mod:`~repro_torch.serving.pending` — the in-flight table for coalescing.
-* :mod:`~repro_torch.serving.executor` — the single-device executor.
+* :mod:`~repro_torch.serving.executor` — single-device, doc-sharded
+  scatter-gather and mesh executors, with footprint routing.
 * :mod:`~repro_torch.serving.server` — the closed- and open-loop serve loop.
-
-The sharded and mesh executors arrive with the distributed slice.
 """
 from repro_torch.serving.batcher import (
     BucketShape,
@@ -22,7 +21,12 @@ from repro_torch.serving.batcher import (
     ShapeBucketedBatcher,
 )
 from repro_torch.serving.cache import LandlordCache, LRUCache, make_cache
-from repro_torch.serving.executor import SingleDeviceExecutor
+from repro_torch.serving.executor import (
+    ROUTINGS,
+    MeshExecutor,
+    ShardedExecutor,
+    SingleDeviceExecutor,
+)
 from repro_torch.serving.factory import EXECUTOR_KINDS, make_executor
 from repro_torch.serving.fingerprint import query_fingerprint
 from repro_torch.serving.pending import PendingEntry, PendingTable
@@ -42,6 +46,9 @@ __all__ = [
     "LRUCache",
     "LandlordCache",
     "make_cache",
+    "ROUTINGS",
+    "MeshExecutor",
+    "ShardedExecutor",
     "SingleDeviceExecutor",
     "EXECUTOR_KINDS",
     "make_executor",

@@ -424,3 +424,110 @@ def test_geo_server_kernel_executor_equals_plain_on_card(cuda, algorithm, prune)
                            ("text_probe", "text_first+prune+fused")) if label in kern.plan_queries}
     assert used and all(counts[0][k] > 0 for k in used), counts[0]
     assert all(n == 0 for k, n in counts[0].items() if k not in used), counts[0]
+
+
+def _narrow_batch(batch, i, n):
+    """``n`` copies of query ``i`` of ``batch``, its footprint cut to the
+    middle fifth of its first rect (the other rect slots padding)."""
+    r0 = batch.rects[i, 0]
+    c, h = (r0[:2] + r0[2:]) / 2, (r0[2:] - r0[:2]) / 10
+    rects = torch.tensor([1.0, 1.0, 0.0, 0.0]).repeat(n, batch.rects.shape[1], 1)
+    rects[:, 0, :2], rects[:, 0, 2:] = c - h, c + h
+    amps = torch.zeros((n, batch.amps.shape[1]))
+    amps[:, 0] = 1.0
+    return type(batch)(batch.terms[i : i + 1].repeat(n, 1), rects, amps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm,prune,fused_kw", [
+    ("k_sweep", True, dict(fused=True)),
+    ("k_sweep", False, dict(fused=True)),
+    ("k_sweep", False, dict(use_pallas=True)),
+    ("text_first", True, dict(fused=True)),
+])
+def test_sharded_executor_on_card_equals_plain_and_cpu(cuda, algorithm, prune, fused_kw):
+    """The footprint-routed sharded executor on the card, on a trace batch
+    and on a narrow batch that skips shards: its kernel variant equals the
+    plain twin over the same shard engines (ids, scores and every counter
+    bitwise; the kernel launched once per visited shard) and the same
+    executor built on the CPU (ids and counters exactly, scores within
+    1e-5: the card and the CPU may order a reduction differently)."""
+    import dataclasses
+
+    from repro_torch.core import QueryBudgets, RegionRangePartitioner
+    from repro_torch.corpus import make_corpus, make_zipf_trace, pad_trace_batch
+    from repro_torch.serving import ShardedExecutor, make_executor
+
+    corpus = make_corpus(n_docs=3000, n_terms=400, seed=5)
+    q = pad_trace_batch(make_zipf_trace(corpus, n_queries=32, pool_size=16, seed=6))
+    budgets = QueryBudgets(max_candidates=512, max_tiles=256, k_sweeps=4, sweep_budget=512,
+                           prune=prune, early_termination=not prune)
+    kw = dict(algorithm=algorithm, n_shards=4, partitioner=RegionRangePartitioner(),
+              routing="footprint", budgets=budgets, **fused_kw)
+    card = make_executor("sharded", corpus, **kw)
+    cpu = make_executor("sharded", corpus, device="cpu", **kw)
+    twin = ShardedExecutor(card.engines, card.global_ids, algorithm, routing="footprint")
+    kernel = {"text_first": "text_probe"}.get(
+        algorithm, "geo_score" if "use_pallas" in fused_kw else
+        "sweep_score_pruned" if prune else "sweep_score")
+    # the trace, then copies of its first query with the footprint cut to a
+    # fifth, which footprint routing sends to fewer than all 4 shards
+    for batch, narrow in ((q, False), (_narrow_batch(q, 0, 32), True)):
+        reset_launch_counts()
+        got = card.run(batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        visited = int(got.stats["shards_visited"])
+        assert 1 <= visited < 4 if narrow else visited >= 1
+        assert counts == {k: (visited if k == kernel else 0) for k in counts}
+        plain, on_cpu = twin.run(batch), cpu.run(batch)
+        for want, exact_scores in ((plain, True), (on_cpu, False)):
+            assert np.array_equal(got.ids, want.ids)
+            if exact_scores:
+                assert got.scores.tobytes() == want.scores.tobytes()
+            else:
+                np.testing.assert_allclose(got.scores, want.scores, rtol=1e-5, atol=1e-6)
+            assert set(got.stats) == set(want.stats)
+            for k in want.stats:
+                assert np.array_equal(got.stats[k], want.stats[k]), k
+    assert dataclasses.asdict(card.engines[0].budgets) == dataclasses.asdict(
+        cpu.engines[0].budgets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["k_sweep", "text_first"])
+def test_mesh_executor_on_card_equals_plain_and_cpu(cuda, algorithm):
+    """The mesh step on a (2, 2) data × model mesh on the card: pruned and
+    fused, it equals its plain twin (ids, scores and counters bitwise; every
+    shard launches the kernel once per query slice) and the same step on
+    the CPU (ids and counters exactly, scores within 1e-5)."""
+    from repro_torch.core import QueryBudgets, RegionRangePartitioner, make_mesh
+    from repro_torch.corpus import make_corpus, make_zipf_trace, pad_trace_batch
+    from repro_torch.serving import make_executor
+
+    corpus = make_corpus(n_docs=3000, n_terms=400, seed=5)
+    q = pad_trace_batch(make_zipf_trace(corpus, n_queries=32, pool_size=16, seed=6))
+    budgets = QueryBudgets(max_candidates=512, max_tiles=256, k_sweeps=4, sweep_budget=512,
+                           prune=True)
+    runs = {}
+    for name, fused, dev in (("kernel", True, "cuda"), ("plain", False, "cuda"),
+                             ("cpu", True, "cpu")):
+        ex = make_executor("mesh", corpus, algorithm=algorithm,
+                           mesh=make_mesh((2, 2), ("data", "model"), device=dev),
+                           partitioner=RegionRangePartitioner(), routing="footprint",
+                           budgets=budgets, fused=fused)
+        reset_launch_counts()
+        runs[name] = ex.run(q)
+        torch.cuda.synchronize()
+        kernel = "sweep_score_pruned" if algorithm == "k_sweep" else "text_probe"
+        want_n = 4 if name == "kernel" else 0  # 2 shards x 2 query slices
+        assert launch_counts() == {k: (want_n if k == kernel else 0) for k in launch_counts()}
+    got = runs["kernel"]
+    assert torch.equal(got.ids, runs["plain"].ids) and torch.equal(got.scores, runs["plain"].scores)
+    assert torch.equal(got.ids.cpu(), runs["cpu"].ids)
+    assert torch.allclose(got.scores.cpu(), runs["cpu"].scores, rtol=1e-5, atol=1e-6)
+    for other in ("plain", "cpu"):
+        assert list(got.stats) == list(runs[other].stats)
+        for k in got.stats:
+            assert np.array_equal(got.stats[k], runs[other].stats[k]), (other, k)
+    assert got.stats["shards_visited"].shape == (2,)

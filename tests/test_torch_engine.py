@@ -160,9 +160,16 @@ def test_plans_and_unported_options(setup):
     a, b = ex.run(q, plan=plan), port.query(q, fused=True)
     assert torch.equal(a.ids, b.ids)
     assert len(port._fn_cache) >= 1
-    for kind in ("sharded", "mesh"):
-        with pytest.raises(NotImplementedError, match="distributed slice"):
-            make_executor(kind, corpus, device="cpu")
+    # the sharded and mesh kinds build on the CPU and serve the batch
+    from repro_torch.core import make_mesh
+    from repro_torch.device import to_numpy
+
+    for kind, kw in (("sharded", dict(n_shards=2)),
+                     ("mesh", dict(mesh=make_mesh((2, 1), ("data", "model"), device="cpu")))):
+        res = make_executor(kind, corpus, grid=GRID, budgets=port.budgets, device="cpu",
+                            **kw).run(q)
+        ids = to_numpy(res.ids)
+        assert ids.dtype == np.int32 and ids.shape == tuple(b.ids.shape), kind
     # "auto" is ported: the planner's rows, each from its own plan's run
     auto = port.query(q, "auto")
     assert auto.ids.shape == b.ids.shape and auto.ids.dtype == torch.int32

@@ -231,7 +231,30 @@ def test_auto_beats_every_fixed_algorithm_on_mixture(mixture):
 
 
 def test_cost_model_of_shards_waits_for_distributed_slice(small):
-    _, _, port = small
-    for build in (CostModel.from_shards, CostModel.from_sharded_index):
-        with pytest.raises(NotImplementedError, match="distributed slice"):
-            build([port.index], port.budgets)
+    """The sharded cost models are ported: over one shard (the whole index)
+    their tables equal the reference's."""
+    from repro.core.distributed import HashPartitioner as RefHash
+    from repro.core.distributed import shard_corpus_np as ref_shard
+    from repro.core.planner import CostModel as RefCostModel
+    from repro_torch.core import HashPartitioner, shard_corpus_np
+
+    corpus, ref, port = small
+    args = (corpus.doc_terms, corpus.doc_rects, corpus.doc_amps, corpus.pagerank,
+            corpus.n_terms, 1)
+    pairs = [
+        (RefCostModel.from_shards([ref.index], ref.budgets),
+         CostModel.from_shards([port.index], port.budgets)),
+        (RefCostModel.from_sharded_index(ref_shard(*args, RefHash(), grid=SMALL["grid"]),
+                                         ref.budgets),
+         CostModel.from_sharded_index(shard_corpus_np(*args, HashPartitioner(),
+                                                      grid=SMALL["grid"], device="cpu"),
+                                      port.budgets)),
+    ]
+    for want, got in pairs:
+        for name in ("df", "blk_mbr", "blk_count", "tile_sat"):
+            a, b = np.asarray(getattr(want, name)), getattr(got, name)
+            assert b.dtype == a.dtype, name
+            np.testing.assert_array_equal(b, a, err_msg=name)
+        for name in ("grid", "n_postings", "n_toeprints", "n_docs", "rect_slots",
+                     "posting_bytes", "tp_bytes", "doc_bytes", "tp_id_bytes"):
+            assert getattr(got, name) == getattr(want, name), name
