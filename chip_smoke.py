@@ -72,6 +72,32 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    one on the trace and the narrow batch (ids and scores after sorting each
    row by (−score, id), counter sums within rtol 1e-6).  It runs after
    phase 6 and before phase 5.
+8. puts telemetry (``repro_torch.obs.Telemetry``) to work: (a) serves
+   phase 6's ``serve_auto_mixture`` (without its cache, whose wall-clock
+   eviction credits could move a hit between runs) three times each
+   without and with a handle, alternating, and prints the queries/s ratio of the best runs
+   (on/off, as the reference's serve benchmark computes it; not gated),
+   again with every sink but the planner audit, and the planner's host
+   time per query (``plan_query`` and the audit's ``explain``);
+   ids, scores, every counter, hits, batches and shapes equal the
+   telemetry-off run, the tracer's stage sums equal the report's four
+   latency lists exactly, the trace validates, the latency histogram's
+   p50/p99 fall in the report's bucket or the next, each
+   ``executor.<stat>_total`` summed over plans equals the report's stat,
+   and the audit joins one record per executed planned query with a
+   finite error summary; (b) serves ``serve_sharded_footprint`` over phase
+   7's executor with and without a handle: equal results, one ``shard s``
+   span per visited shard per batch (warm-up batches visit all 8), and as
+   many ``executor.shards_touched`` observations as routed queries; (c)
+   runs the CLI as users start it, ``python -m repro_torch.launch.serve
+   --n-docs 1048576 --trace zipf --algorithm auto --prune --fused
+   --arrival poisson --rate-qps 200 --coalesce`` with the four export
+   flags, in a subprocess: it exits 0, prints its report and recall@10,
+   writes four non-empty files whose trace ``python -m
+   repro_torch.obs.validate`` accepts, and its kernel plans' served
+   batches (one launch of their kernel each, from
+   ``executor.batches_total``) are printed.  Its in-process launches are
+   added to the kernel table's.  It runs after phase 7 and before phase 5.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -144,6 +170,8 @@ RECALL_PROBE = 64
 TWIN_QUERIES = 512
 TWIN_RATE_QPS = 6400.0
 TWIN_SERVICE_S = 1e-3
+# phase 8: the serving CLI's subprocess (corpus, index, serving, recall)
+CLI_TIMEOUT_S = 600
 
 
 def check(cond: bool, what: str) -> None:
@@ -751,8 +779,12 @@ def main() -> int:
     serve_counts = serving_phase(corpus, plain_ex.engine.index, budgets)
     # ---- phase 7: document-sharded serving, before the profiler pass ----
     shard_counts, executors["sharded_footprint"] = sharded_phase(corpus, budgets, batches)
+    # ---- phase 8: telemetry and the serving CLI, before the profiler pass
+    tel_counts = telemetry_phase(corpus, plain_ex.engine.index, budgets,
+                                 executors["sharded_footprint"][0])
     for row in table:
-        main_counts[row["name"]] += serve_counts[row["name"]] + shard_counts[row["name"]]
+        main_counts[row["name"]] += (serve_counts[row["name"]] + shard_counts[row["name"]]
+                                     + tel_counts[row["name"]])
         row["launches"] = main_counts[row["name"]]
     # ---- phase 5: one profiler pass per variant, after every timing, so
     # no profiler session runs before or during a timed run ---------------
@@ -1136,6 +1168,218 @@ def sharded_phase(corpus, budgets, batches) -> tuple[dict[str, int], tuple]:
         f"{len(m_times) * BATCH / sum(m_times):.1f} queries/s")
     say(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
     return totals, (ex, ex.algorithm)
+
+
+def telemetry_phase(corpus, index, budgets, sharded) -> dict[str, int]:
+    """Phase 8: telemetry on the single and sharded serving paths and the
+    serving CLI with its export flags (see the module docstring).  Returns
+    the kernel launches of (a) and (b), all served through a user's entry
+    points (the CLI's run in (c) launches in its own process; its launches
+    are printed, not added)."""
+    import math
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import GeoSearchEngine
+    from repro_torch.corpus import make_mixture_trace, make_zipf_trace
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import Telemetry, validate_trace
+    from repro_torch.serving import (
+        DeadlineBatcher,
+        GeoServer,
+        ShardedExecutor,
+        SingleDeviceExecutor,
+        make_cache,
+    )
+
+    t_phase = time.perf_counter()
+    pr = replace(budgets, prune=True)
+    totals = dict.fromkeys(launch_counts(), 0)
+
+    def sync():
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+
+    def serve(ex, trace, tel, cache=True):
+        srv = GeoServer(ex, cache=make_cache("landlord", CACHE_CAPACITY) if cache else None,
+                        batcher=DeadlineBatcher(max_batch=BATCH, max_terms=8, max_rects=4,
+                                                max_wait_s=float("inf")),
+                        telemetry=tel)
+        sync()
+        reset_launch_counts()
+        rep = srv.run_trace(trace, arrival="closed", collect_results=True)
+        sync()
+        for k, n in launch_counts().items():
+            totals[k] += n
+        return rep
+
+    def same_results(a, b, what):
+        """ids and scores bitwise per query; counters, hits, batches, shapes
+        and the per-plan tallies exactly (latencies are wall clock)."""
+        check(len(a.results) == len(b.results), f"{what}: result count")
+        for i, (x, y) in enumerate(zip(a.results, b.results)):
+            check(np.array_equal(x.ids, y.ids)
+                  and np.array_equal(x.scores.view(np.uint32), y.scores.view(np.uint32)),
+                  f"{what}: query {i} result differs")
+        for f in ("n_queries", "cache_hits", "cache_misses", "coalesced", "n_batches",
+                  "pad_slots", "real_slots", "shapes_used", "stats", "plan_queries",
+                  "plan_stats", "routing"):
+            check(getattr(a, f) == getattr(b, f), f"{what}: {f} differs")
+
+    def spans_match(rep, tel, what):
+        """Stage sums are the report's lists exactly; the trace validates;
+        histogram p50/p99 in the report's bucket or the next."""
+        check(tel.tracer.stage_sums() == (rep.latencies_s, rep.batch_wait_s,
+                                          rep.queue_wait_s, rep.service_s),
+              f"{what}: stage sums differ from the report")
+        errors = validate_trace(tel.tracer.to_trace_events())
+        check(errors == [], f"{what}: trace invalid: {errors[:3]}")
+        h = tel.metrics.histogram("server.latency_ms")
+        for p in (50, 99):
+            check(h.same_or_adjacent_bucket(h.quantile(p), rep.percentile_ms(p)),
+                  f"{what}: latency p{p} histogram {h.quantile(p)} vs {rep.percentile_ms(p)}")
+
+    # (a) serve_auto_mixture without and with a handle, best of 3 each.
+    # Without a cache, as the reference's serve benchmark pairs them: the
+    # Landlord cache's credits are wall-clock service costs, so which entry
+    # it evicts, and so a later hit, can move between two runs whatever the
+    # telemetry (the mixture trace repeats almost nothing: 1 hit in 2048)
+    mixture = make_mixture_trace(corpus, n_queries=SERVE_QUERIES, seed=1)
+    off_ex = SingleDeviceExecutor(GeoSearchEngine.from_index(index, pr), "auto", fused=True)
+    on_ex = SingleDeviceExecutor(GeoSearchEngine.from_index(index, pr), "auto", fused=True)
+    # "no_audit": every sink but the planner audit, whose explain() repeats
+    # the planner's feature pass per planned query inside the timed loop
+    # (the plans themselves are made in the warm-up's shape prediction)
+    no_audit_ex = SingleDeviceExecutor(GeoSearchEngine.from_index(index, pr), "auto", fused=True)
+    runs = {"off": [], "on": [], "no_audit": []}
+    for _ in range(3):
+        runs["off"].append((serve(off_ex, mixture, None, cache=False), None))
+        tel = Telemetry()
+        runs["on"].append((serve(on_ex, mixture, tel, cache=False), tel))
+        runs["no_audit"].append((serve(no_audit_ex, mixture, Telemetry(audit=None),
+                                       cache=False), None))
+    off, (on, tel) = runs["off"][0][0], runs["on"][0]
+    same_results(on, off, "telemetry on vs off")
+    spans_match(on, tel, "telemetry on")
+    m = tel.metrics
+    for key, total in on.stats.items():
+        got = sum(c.value for (name, _), c in m._counters.items()
+                  if name == f"executor.{key}_total")
+        check(math.isclose(got, total, rel_tol=1e-12),
+              f"executor.{key}_total {got} vs report {total}")
+    executed = on.cache_misses - on.coalesced
+    audit = tel.audit
+    check(len(audit.records) == len(audit.joined) == executed,
+          f"audit: {len(audit.records)} records, {len(audit.joined)} joined, "
+          f"{executed} executed planned queries")
+    errs = audit.error_summary()
+    check(bool(errs) and all(math.isfinite(v) for v in errs.values()), "audit: error summary")
+    best = {side: max(r.qps for r, _ in rs) for side, rs in runs.items()}
+    n_events = len(tel.tracer.to_trace_events()["traceEvents"])
+    say(f"phase 8: serve_auto_mixture with telemetry: results, counters, hits, batches and "
+        f"shapes equal the telemetry-off run; stage sums == report; trace valid "
+        f"({n_events} events); p50/p99 within a bucket; executor.<stat>_total == report "
+        f"stats; {len(audit.joined)} audit records joined")
+    say("phase 8: audit pred-error " + "  ".join(
+        f"{a}/{c}={e:.3f}" for (a, c), e in sorted(errs.items())))
+    # the planner's host time per query: one pass of each entry point over
+    # the trace (host clock; planning reads host numpy only)
+    planner = on_ex.planner
+    plan_ms = {}
+    for name, fn in (("plan_query", planner.plan_query), ("explain", planner.explain)):
+        t = time.perf_counter()
+        for q in mixture:
+            fn(q.terms, q.rects, q.amps)
+        plan_ms[name] = (time.perf_counter() - t) / len(mixture) * 1e3
+    say("phase 8: telemetry overhead: " + json.dumps({
+        **{f"qps_{side}": [r.qps for r, _ in rs] for side, rs in runs.items()},
+        "qps_ratio": best["on"] / best["off"],
+        "qps_ratio_no_audit": best["no_audit"] / best["off"],
+        "p50_ms_off": off.percentile_ms(50), "p50_ms_on": on.percentile_ms(50),
+        "p99_ms_off": off.percentile_ms(99), "p99_ms_on": on.percentile_ms(99),
+        "planner_ms_per_query": plan_ms}))
+
+    # (b) serve_sharded_footprint over phase 7's engines without and with a
+    # handle (fresh executors: attaching one binds its registry to the
+    # shared engines, detached again below)
+    zipf = make_zipf_trace(corpus, n_queries=SERVE_QUERIES, pool_size=SERVE_POOL, seed=1)
+
+    def sharded_ex():
+        return ShardedExecutor(sharded.engines, sharded.global_ids, sharded.algorithm,
+                               routing="footprint", **sharded.kw)
+
+    s_off = serve(sharded_ex(), zipf, None)
+    s_tel = Telemetry()
+    srv_probe = GeoServer(sharded_ex(), cache=make_cache("landlord", CACHE_CAPACITY),
+                          batcher=DeadlineBatcher(max_batch=BATCH, max_terms=8, max_rects=4,
+                                                  max_wait_s=float("inf")))
+    n_shapes = len(srv_probe._predict_shapes(zipf, open_loop=False))
+    try:
+        s_on = serve(sharded_ex(), zipf, s_tel)
+    finally:
+        for e in sharded.engines:
+            e.metrics = None
+    same_results(s_on, s_off, "sharded telemetry on vs off")
+    spans_match(s_on, s_tel, "sharded telemetry on")
+    r = s_on.routing[sharded.algorithm]
+    shard_spans = [s for s in s_tel.tracer.exec_spans if s.track.startswith("shard ")]
+    check(len(shard_spans) == int(r["shards_visited"]) + 8 * n_shapes,
+          f"sharded: {len(shard_spans)} shard spans, {int(r['shards_visited'])} visited "
+          f"shards in live batches + 8 x {n_shapes} warm-up batches")
+    check({s.track for s in shard_spans} <= {f"shard {i}" for i in range(8)}, "shard tracks")
+    touched = sum(h.n for (name, _), h in s_tel.metrics._histograms.items()
+                  if name == "executor.shards_touched")
+    check(touched == r["queries"], f"executor.shards_touched observed {touched} times, "
+          f"{r['queries']} routed queries")
+    say(f"phase 8: serve_sharded_footprint with telemetry: results equal the telemetry-off "
+        f"run; {len(shard_spans)} shard spans = {int(r['shards_visited'])} visited in "
+        f"{r['batches']} live batches + 8 x {n_shapes} warm-up; shards_touched observed for "
+        f"{touched} routed queries; qps off {s_off.qps:.1f}, on {s_on.qps:.1f}")
+
+    # (c) the CLI as users start it, in a subprocess
+    with tempfile.TemporaryDirectory() as d:
+        exports = {"--trace-out": "T.json", "--metrics-out": "M.prom",
+                   "--audit-out": "A.jsonl", "--events-out": "E.jsonl"}
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--n-docs", str(N_DOCS),
+               "--trace", "zipf", "--algorithm", "auto", "--prune", "--fused",
+               "--arrival", "poisson", "--rate-qps", "200", "--coalesce",
+               *[x for kv in exports.items() for x in kv]]
+        if DEVICE != "cuda":  # a CPU rehearsal names the opt-in
+            cmd += ["--device", DEVICE]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        say("phase 8: cli: " + " ".join(cmd[1:]))
+        t = time.perf_counter()
+        cli = subprocess.run(cmd, cwd=d, env=env, capture_output=True, text=True,
+                             timeout=CLI_TIMEOUT_S)
+        cli_s = time.perf_counter() - t
+        for line in cli.stdout.splitlines():
+            say(f"phase 8: cli: {line}")
+        check(cli.returncode == 0, f"cli exited {cli.returncode}: {cli.stderr[-2000:]}")
+        check(any(line.startswith("queries=") for line in cli.stdout.splitlines()),
+              "cli: no report line")
+        check("recall@10 vs oracle = " in cli.stdout, "cli: no recall@10 line")
+        for name in exports.values():
+            path = Path(d) / name
+            check(path.exists() and path.stat().st_size > 0, f"cli: {name} missing or empty")
+        val = subprocess.run([sys.executable, "-m", "repro_torch.obs.validate", "T.json"],
+                             cwd=d, env=env, capture_output=True, text=True, timeout=300)
+        check(val.returncode == 0, f"cli trace invalid: {val.stderr[-2000:]}")
+        batches = {m.group(1): int(float(m.group(2))) for m in re.finditer(
+            r'^executor_batches_total\{plan="([^"]+)"\} (\S+)$',
+            (Path(d) / "M.prom").read_text(), re.M)}
+    kernel_of = {"k_sweep+prune+fused": "sweep_score_pruned",
+                 "text_first+prune+fused": "text_probe"}
+    cli_launches = {kernel_of[label]: n for label, n in batches.items() if label in kernel_of}
+    check(bool(cli_launches), f"cli: no kernel plan served a batch ({batches})")
+    say(f"phase 8: cli: exit 0 in {cli_s:.1f} s; {val.stdout.strip()}; batches per plan "
+        f"{batches}; kernel launches on its served batches (one per batch of the kernel's "
+        f"plan) {cli_launches}")
+    say(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+    return totals
 
 
 def narrow_batch(batch, i: int, n: int):

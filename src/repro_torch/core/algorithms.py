@@ -22,6 +22,7 @@ from torch.profiler import record_function
 from repro_torch.core import footprint as fp
 from repro_torch.core import geometry
 from repro_torch.core import ranking, spatial_index as sidx, text_index as tidx
+from repro_torch.core.ranking import fma32 as _fma32
 from repro_torch.core.spatial_index import INVALID
 from repro_torch.kernels.text_probe.ops import window_size
 
@@ -186,15 +187,6 @@ def _rank_docs(spatial, pagerank, cand, valid, tscore, q_rects, q_amps, weights,
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     """A Python number rounded to a float32 scalar, as ``jnp.float32(x)``."""
     return torch.tensor(x, dtype=torch.float32, device=like.device)
-
-
-def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a·b + c`` rounded once to float32.  XLA contracts the reference's
-    ``a * b + c`` into a fused multiply-add, so its modeled byte counters and
-    score bounds are rounded once; the product of two float32 values is
-    exact in float64, and at these magnitudes (counts times bytes, sums of
-    bounded scores) so is the sum, which makes this one rounding."""
-    return (a.double() * b.double() + c.double()).float()
 
 
 # ---------------------------------------------------------------------------

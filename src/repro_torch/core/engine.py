@@ -49,6 +49,9 @@ class GeoSearchEngine:
     budgets: alg.QueryBudgets
     weights: ranking.RankWeights
     _fn_cache: dict = field(default_factory=dict, repr=False, compare=False)
+    # metrics registry attached by the serving layer's attach_telemetry;
+    # each distinct plan x kw pipeline counts in engine.compiled_fns_total
+    metrics: object = field(default=None, repr=False, compare=False)
 
     @staticmethod
     def build(
@@ -199,6 +202,8 @@ class GeoSearchEngine:
         """Plan-keyed function cache (one bound pipeline per plan × kw)."""
         key = (plan, kw_key)
         if key not in self._fn_cache:
+            if self.metrics is not None:
+                self.metrics.inc("engine.compiled_fns_total")
             idx = self.index
             self._fn_cache[key] = partial(
                 alg.get_algorithm(plan.algorithm),

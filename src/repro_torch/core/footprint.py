@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import geometry
+from repro_torch.core.ranking import fma32
 
 
 def geo_score(
@@ -19,20 +20,33 @@ def geo_score(
     """Amplitude-weighted intersection score, f32[...].
 
     The query's leading dims broadcast against the docs' (the batched port
-    passes ``[B, 1, Q, 4]`` against ``[B, C, R, 4]``).  Terms are added one
-    (rect, query rect) pair at a time in slot order — elementwise, so a
-    doc's score never depends on the shape of the batch it is scored in,
-    and a doc with no overlap scores exactly 0.
+    passes ``[B, 1, Q, 4]`` against ``[B, C, R, 4]``).  The terms are added
+    elementwise, so a doc's score never depends on the shape of the batch
+    it is scored in, and a doc with no overlap scores exactly 0.  They are
+    added in the order of the reference's compiled reduction on the CPU,
+    each product added as a fused multiply-add
+    (:func:`~repro_torch.core.ranking.fma32`): with one query rect, one
+    chain over the doc rects; with more, one chain over the query rects per
+    doc rect ``r``, and those lanes then added pairwise, halves first
+    (``(l0 + l2) + (l1 + l3)`` for four doc rects).
     """
-    acc = None
-    for r in range(doc_rects.shape[-2]):
+    R, Q = doc_rects.shape[-2], query_rects.shape[-2]
+    lanes = [None] * (1 if Q == 1 else R)
+    for r in range(R):
         d = doc_rects[..., r, :].float()
         da = doc_amps[..., r].float()
-        for q in range(query_rects.shape[-2]):
+        lane = 0 if Q == 1 else r
+        for q in range(Q):
             inter = geometry.rect_intersection_area(d, query_rects[..., q, :].float())
-            term = inter * (da * query_amps[..., q].float())
-            acc = term if acc is None else acc + term
-    return acc
+            w = da * query_amps[..., q].float()
+            acc = lanes[lane]
+            lanes[lane] = w * inter if acc is None else fma32(w, inter, acc)
+    while len(lanes) > 1:
+        if len(lanes) % 2:
+            lanes.append(torch.zeros_like(lanes[0]))
+        h = len(lanes) // 2
+        lanes = [lanes[i] + lanes[i + h] for i in range(h)]
+    return lanes[0]
 
 
 def query_mass(query_rects: torch.Tensor, query_amps: torch.Tensor) -> torch.Tensor:

@@ -28,17 +28,28 @@ def combine_scores(
     ``query_mass`` broadcasts against the scores (``[B, 1]`` for ``[B, C]``).
     The ``require_geo`` gate is exact because every caller passes a geo
     score computed directly from each doc's own rect rows (see the
-    reference's exactness contract).
+    reference's exactness contract).  Each weighted term is added as XLA
+    contracts it, a multiply-add rounded once (:func:`fma32`).
     """
     norm = torch.clamp(query_mass, min=1e-12)
-    score = (
-        weights.w_text * text_score
-        + weights.w_geo * geo_score / norm
-        + weights.w_pr * pagerank
-    )
+    geo = weights.w_geo * geo_score / norm
+    score = fma32(weights.w_text, text_score, geo)
+    score = fma32(weights.w_pr, pagerank, score)
     if require_geo:
         score = torch.where(geo_score > 0.0, score, -torch.inf)
     return score
+
+
+def fma32(a: "torch.Tensor | float", b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a·b + c`` rounded once to float32 (a Python ``a`` is first rounded
+    to float32, as the reference's weak-typed weights are).  XLA contracts
+    the reference's ``a * b + c`` into a fused multiply-add, so its scores,
+    score bounds and modeled byte counters are rounded once.  The product
+    of two float32 values is exact in float64; the float64 sum is exact for
+    the byte counters and carries 29 spare bits for scores, so rounding it
+    to float32 differs from one rounding only at a float32 tie."""
+    a = a.double() if isinstance(a, torch.Tensor) else float(np.float32(a))
+    return (a * b.double() + c.double()).float()
 
 
 def select_top(values: torch.Tensor, k: int):

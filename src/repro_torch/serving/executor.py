@@ -25,8 +25,21 @@ Every executor serves ``k_sweep``, ``text_first``, ``geo_first`` and
 ``auto``: under ``auto`` it holds a cost-based
 :class:`~repro_torch.core.planner.Planner`, so the serving layer can ask
 :meth:`plan_query` for each query's cheapest plan before batching;
-fixed-algorithm executors return ``None`` there.  A telemetry handle
-raises until the obs slice ports ``repro.obs``.
+fixed-algorithm executors return ``None`` there.
+
+Telemetry: every executor has :meth:`attach_telemetry` (the server calls it
+when built with a :class:`~repro_torch.obs.Telemetry` handle).  It hands the
+metrics registry to the engines (``engine.compiled_fns_total``) and to the
+planner's cost model (``planner.tp_span_probe``), and with a tracer the
+executors record host wall-clock spans on the trace's executor process: the
+engine call of :class:`SingleDeviceExecutor` (``engine`` /
+``query[label]``), one span per visited shard of :class:`ShardedExecutor`
+from its dispatch to its host pull (``shard s``), and the mesh step of
+:class:`MeshExecutor` (``mesh step`` / ``serve[label]``).  No span
+synchronizes the device: the engine and mesh spans end when the call
+returns, which on CUDA may be before the work it queued has finished; a
+shard span ends after its host pull, so it covers its shard's device work.
+``telemetry=None`` (the default) leaves ``run`` untouched.
 """
 from __future__ import annotations
 
@@ -76,16 +89,6 @@ def _reject_partition_kwarg(kw: dict) -> None:
         )
 
 
-def reject_telemetry(telemetry) -> None:
-    """``None`` is accepted (no telemetry); any handle raises until the obs
-    slice ports ``repro.obs``."""
-    if telemetry is not None:
-        raise NotImplementedError(
-            "telemetry is not ported yet: the metrics, tracer, audit and event "
-            "sinks arrive with the obs slice; pass telemetry=None"
-        )
-
-
 class SingleDeviceExecutor:
     """Run batches through one engine on its device."""
 
@@ -103,7 +106,11 @@ class SingleDeviceExecutor:
         return self.engine.budgets.top_k
 
     def attach_telemetry(self, telemetry) -> None:
-        reject_telemetry(telemetry)
+        self.telemetry = telemetry
+        if telemetry and telemetry.metrics is not None:
+            self.engine.metrics = telemetry.metrics
+            if self.planner is not None:
+                self.planner.model.metrics = telemetry.metrics
 
     def plan_query(self, terms, rects, amps) -> QueryPlan | None:
         """Cheapest plan for one query; ``None`` when the algorithm is fixed."""
@@ -114,9 +121,19 @@ class SingleDeviceExecutor:
     def run(
         self, batch: alg.QueryBatch, plan: QueryPlan | None = None
     ) -> alg.TopKResult:
+        tracer = self.telemetry.tracer if self.telemetry else None
+        t0 = tracer.wall_now() if tracer is not None else 0.0
         if plan is not None:
-            return self.engine.query(batch, plan=plan, **self.kw)
-        return self.engine.query(batch, self.algorithm, **self.kw)
+            res = self.engine.query(batch, plan=plan, **self.kw)
+        else:
+            res = self.engine.query(batch, self.algorithm, **self.kw)
+        if tracer is not None:
+            label = plan.label if plan is not None else self.algorithm
+            tracer.span(
+                "engine", f"query[{label}]", t0, tracer.wall_now(),
+                args={"batch": int(batch.terms.shape[0])},
+            )
+        return res
 
 
 class ShardedExecutor:
@@ -168,7 +185,12 @@ class ShardedExecutor:
         return self.engines[0].budgets.top_k
 
     def attach_telemetry(self, telemetry) -> None:
-        reject_telemetry(telemetry)
+        self.telemetry = telemetry
+        if telemetry and telemetry.metrics is not None:
+            for eng in self.engines:
+                eng.metrics = telemetry.metrics
+            if self.planner is not None:
+                self.planner.model.metrics = telemetry.metrics
 
     def plan_query(self, terms, rects, amps) -> QueryPlan | None:
         if self.planner is None:
@@ -262,11 +284,14 @@ class ShardedExecutor:
                     scores=np.full((b, k), -np.inf, dtype=np.float32),
                     stats=stats_acc,
                 )
+        tracer = self.telemetry.tracer if self.telemetry else None
+        label = plan.label if plan is not None else self.algorithm
         # scatter: issue every routed shard's query before pulling any
         pending = []
         for shard, (eng, gid) in enumerate(zip(self.engines, self.global_ids)):
             if not visit[shard]:
                 continue
+            t0 = tracer.wall_now() if tracer is not None else 0.0
             if plan is not None:
                 # each shard's engine clamps the plan's sweep budget to its
                 # own toe-print store
@@ -275,9 +300,9 @@ class ShardedExecutor:
                 res = eng.query(batch, self.algorithm, **self.kw)
             if not self.overlap and eng.device.type == "cuda":
                 torch.cuda.synchronize(eng.device)
-            pending.append((gid, res))
+            pending.append((shard, gid, res, t0))
         # gather: the host pulls each shard's lists and counters
-        for gid, res in pending:
+        for shard, gid, res, t0 in pending:
             ids = to_numpy(res.ids)
             scores = to_numpy(res.scores).copy()
             valid = ids >= 0
@@ -288,6 +313,13 @@ class ShardedExecutor:
             for key, v in res.stats.items():
                 v = to_numpy(v).astype(np.float64)
                 stats_acc[key] = stats_acc.get(key, 0.0) + v
+            if tracer is not None:
+                # from this shard's dispatch to its host pull: under overlap
+                # the shard spans overlap in time
+                tracer.span(
+                    f"shard {shard}", f"query[{label}]", t0, tracer.wall_now(),
+                    args={"batch": int(batch.terms.shape[0])},
+                )
         k = all_ids[0].shape[-1]
         ids = np.concatenate(all_ids, axis=-1)  # [B, S*k]
         scores = np.concatenate(all_scores, axis=-1)
@@ -403,7 +435,10 @@ class MeshExecutor:
         return self._index
 
     def attach_telemetry(self, telemetry) -> None:
-        reject_telemetry(telemetry)
+        self.telemetry = telemetry
+        if telemetry and telemetry.metrics is not None:
+            if self.planner is not None:
+                self.planner.model.metrics = telemetry.metrics
 
     def plan_query(self, terms, rects, amps) -> QueryPlan | None:
         if self.planner is None:
@@ -414,6 +449,8 @@ class MeshExecutor:
         """The serve step for a plan (made on first use)."""
         if plan in self._serve_fns:
             return self._serve_fns[plan]
+        if self.telemetry and self.telemetry.metrics is not None:
+            self.telemetry.metrics.inc("engine.compiled_fns_total")
         idx = self._index
         budgets = replace(
             plan.budgets, sweep_budget=min(plan.budgets.sweep_budget, idx.tp_rects.shape[1])
@@ -430,5 +467,14 @@ class MeshExecutor:
         self, batch: alg.QueryBatch, plan: QueryPlan | None = None
     ) -> alg.TopKResult:
         """ids and scores on the mesh's device; the counters as host numpy."""
-        ids, scores, stats = self._serve_for(plan)(self._index, batch)
+        serve = self._serve_for(plan)
+        tracer = self.telemetry.tracer if self.telemetry else None
+        t0 = tracer.wall_now() if tracer is not None else 0.0
+        ids, scores, stats = serve(self._index, batch)
+        if tracer is not None:
+            label = plan.label if plan is not None else self.algorithm
+            tracer.span(
+                "mesh step", f"serve[{label}]", t0, tracer.wall_now(),
+                args={"batch": int(batch.terms.shape[0])},
+            )
         return alg.TopKResult(ids=ids, scores=scores, stats={k: to_numpy(v) for k, v in stats.items()})

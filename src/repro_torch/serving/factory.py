@@ -25,7 +25,6 @@ from repro_torch.serving.executor import (
     ShardedExecutor,
     SingleDeviceExecutor,
     _check_routing,
-    reject_telemetry,
 )
 
 EXECUTOR_KINDS = ("single", "sharded", "mesh")
@@ -71,8 +70,8 @@ def make_executor(
     host executors only).  ``routing="footprint"`` (sharded/mesh) skips or
     masks shards no query footprint touches.  ``compress``
     (``"none"``/``"f16"``/``"int8"``) and ``layout`` (``"docid"``/
-    ``"impact"``) select the index storage.  ``telemetry`` must be ``None``
-    until the obs slice lands.
+    ``"impact"``) select the index storage.  ``telemetry`` (a
+    :class:`repro_torch.obs.Telemetry`) is attached before returning.
     """
     if kind not in EXECUTOR_KINDS:
         raise ValueError(f"kind must be one of {EXECUTOR_KINDS}, got {kind!r}")
@@ -82,7 +81,6 @@ def make_executor(
             "partitioner must be a Partitioner instance; resolve strings at "
             "the CLI boundary with repro_torch.core.distributed.resolve_partitioner"
         )
-    reject_telemetry(telemetry)
     budgets = budgets or alg.QueryBudgets()
     kw = {}
     if use_pallas:
@@ -116,24 +114,28 @@ def make_executor(
             budgets=budgets, weights=weights, compress=compress, layout=layout,
             device=device,
         )
-        return SingleDeviceExecutor(eng, algorithm, **kw)
-    if kind == "sharded":
-        return ShardedExecutor.build(
+        executor = SingleDeviceExecutor(eng, algorithm, **kw)
+    elif kind == "sharded":
+        executor = ShardedExecutor.build(
             corpus.doc_terms, corpus.doc_rects, corpus.doc_amps, corpus.n_terms,
             pagerank=corpus.pagerank, n_shards=n_shards, partitioner=partitioner,
             grid=grid, budgets=budgets, weights=weights, algorithm=algorithm,
             routing=routing, compress=compress, layout=layout, device=device, **kw,
         )
-    if mesh is None:
-        raise ValueError("kind='mesh' requires mesh=")
-    if device is not None and resolve_device(device) != mesh.device:
-        raise ValueError(
-            f"kind='mesh' runs on its mesh's device ({mesh.device}), not {device}: "
-            "pass device= to make_mesh"
-        )
-    return MeshExecutor.build(
+    else:  # mesh
+        if mesh is None:
+            raise ValueError("kind='mesh' requires mesh=")
+        if device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(
+                f"kind='mesh' runs on its mesh's device ({mesh.device}), not {device}: "
+                "pass device= to make_mesh"
+            )
+        executor = MeshExecutor.build(
         corpus.doc_terms, corpus.doc_rects, corpus.doc_amps, corpus.n_terms,
-        pagerank=corpus.pagerank, mesh=mesh, partitioner=partitioner, grid=grid,
-        budgets=budgets, weights=weights, algorithm=algorithm, fused=fused,
-        routing=routing, compress=compress, layout=layout,
-    )
+            pagerank=corpus.pagerank, mesh=mesh, partitioner=partitioner, grid=grid,
+            budgets=budgets, weights=weights, algorithm=algorithm, fused=fused,
+            routing=routing, compress=compress, layout=layout,
+        )
+    if telemetry is not None:
+        executor.attach_telemetry(telemetry)
+    return executor

@@ -60,9 +60,11 @@ device; :meth:`GeoServer._finish_batch` copies ids, scores and every stats
 counter back to the host before the batch's completion time is read, so a
 measured service time covers finished device work, not a queued launch.
 The warmup runs one inert batch per predicted shape and waits for the
-device, so each kernel's first launch never lands in a timed batch.  The
-telemetry branches are the reference's; a telemetry handle raises
-``NotImplementedError`` until the obs slice lands.
+device, so each kernel's first launch never lands in a timed batch.  With a
+:class:`~repro_torch.obs.Telemetry` handle the server records the
+reference's metrics, spans, planner audit and events; they read only values
+the serve loop already holds on the host (the stats ``_finish_batch``
+copied), so they add no device synchronization and change no result.
 """
 from __future__ import annotations
 
@@ -83,7 +85,6 @@ from repro_torch.serving.batcher import (
     RawBatch,
     ShapeBucketedBatcher,
 )
-from repro_torch.serving.executor import reject_telemetry
 from repro_torch.serving.fingerprint import query_fingerprint
 from repro_torch.serving.pending import PendingTable
 
@@ -286,11 +287,9 @@ class GeoServer:
         self.fingerprint_quant = fingerprint_quant
         self.n_workers = n_workers
         self.coalesce = coalesce
-        # telemetry handle, or None: every telemetry branch in the serve
-        # loop is behind a single `if self.telemetry` check, so a server
-        # built without one runs the telemetry-free code path (the only one
-        # until the obs slice lands)
-        reject_telemetry(telemetry)
+        # repro_torch.obs.Telemetry handle, or None: every telemetry branch
+        # in the serve loop is behind a single `if self.telemetry` check, so
+        # a server built without one runs the telemetry-free code path
         self.telemetry = telemetry
         if telemetry:
             attach = getattr(executor, "attach_telemetry", None)
@@ -874,7 +873,8 @@ class GeoServer:
         metrics = tel.metrics if tel else None
         pstats = report.plan_stats.setdefault(label, {})
         per_row: dict[str, np.ndarray] = {}
-        for key, v in res.stats.items():
+        # in key order, as the reference's jit outputs return their dicts
+        for key, v in sorted(res.stats.items()):
             # only the real rows' work is attributable to served queries,
             # but padded rows burn real bytes too — count everything
             arr = to_numpy(v).astype(np.float64)

@@ -531,3 +531,70 @@ def test_mesh_executor_on_card_equals_plain_and_cpu(cuda, algorithm):
         for k in got.stats:
             assert np.array_equal(got.stats[k], runs[other].stats[k]), (other, k)
     assert got.stats["shards_visited"].shape == (2,)
+
+
+@pytest.mark.cuda
+def test_geo_server_telemetry_on_card_changes_nothing(cuda):
+    """A ``Telemetry()`` attached to a single-executor ``GeoServer`` on the
+    card (auto, pruned, fused: the text_probe and pruned sweep kernels)
+    leaves ids, scores, stats and every report field equal to the
+    telemetry-off run; its trace validates and its stage sums are the
+    report's lists."""
+    import dataclasses
+
+    from repro_torch.core import QueryBudgets
+    from repro_torch.corpus import make_corpus, make_mixture_trace, stamp_arrivals
+    from repro_torch.obs import Telemetry, validate_trace
+    from repro_torch.serving import DeadlineBatcher, GeoServer, make_cache, make_executor
+
+    corpus = make_corpus(n_docs=3000, n_terms=400, seed=5)
+    budgets = QueryBudgets(max_candidates=512, max_tiles=256, k_sweeps=4, sweep_budget=512,
+                           prune=True)
+    trace = stamp_arrivals(make_mixture_trace(corpus, n_queries=96, seed=7), "poisson",
+                           rate_qps=800.0, seed=3)
+    reports, tels = [], []
+    for tel in (None, Telemetry()):
+        ex = make_executor("single", corpus, algorithm="auto", budgets=budgets, fused=True)
+        server = GeoServer(ex, cache=make_cache("landlord", 32),
+                           batcher=DeadlineBatcher(max_batch=8, max_wait_s=2e-3),
+                           n_workers=2, coalesce=True, telemetry=tel)
+        reports.append(server.run_trace(trace, arrival="poisson", collect_results=True,
+                                        service_time=lambda raw: 1e-3 + 1e-4 * raw.n_real))
+        tels.append(tel)
+    off, on = reports
+    for f in dataclasses.fields(off):
+        a, b = getattr(on, f.name), getattr(off, f.name)
+        if f.name == "results":
+            for x, y in zip(a, b):
+                assert np.array_equal(x.ids, y.ids)
+                assert np.array_equal(x.scores.view(np.uint32), y.scores.view(np.uint32))
+        else:
+            assert a == b, f.name
+    tel = tels[1]
+    assert tel.tracer.stage_sums() == (on.latencies_s, on.batch_wait_s, on.queue_wait_s,
+                                       on.service_s)
+    assert validate_trace(tel.tracer.to_trace_events()) == []
+    assert len(tel.audit.joined) == len(tel.audit.records) > 0
+
+
+@pytest.mark.cuda
+def test_serve_cli_on_card_writes_valid_exports(cuda, tmp_path, monkeypatch, capsys):
+    """``python -m repro_torch.launch.serve`` at 20000 docs on the card
+    (its default device), pruned and fused under the planner, open loop:
+    exits normally and writes the four exports, the trace valid."""
+    import json
+
+    from repro_torch.launch import serve
+    from repro_torch.obs import validate_trace
+
+    monkeypatch.chdir(tmp_path)
+    serve.main(["--n-docs", "20000", "--queries", "512", "--trace", "zipf", "--algorithm",
+                "auto", "--prune", "--fused", "--arrival", "poisson", "--coalesce",
+                "--trace-out", "T.json", "--metrics-out", "M.prom", "--audit-out", "A.jsonl",
+                "--events-out", "E.jsonl"])
+    out = capsys.readouterr().out
+    assert "recall@10 vs oracle = " in out and "queries=512" in out
+    for name in ("T.json", "M.prom", "A.jsonl", "E.jsonl"):
+        assert (tmp_path / name).stat().st_size > 0, name
+    assert validate_trace(json.loads((tmp_path / "T.json").read_text())) == []
+    assert "# TYPE server_queries_total counter" in (tmp_path / "M.prom").read_text()

@@ -173,7 +173,18 @@ def test_plans_and_unported_options(setup):
     # "auto" is ported: the planner's rows, each from its own plan's run
     auto = port.query(q, "auto")
     assert auto.ids.shape == b.ids.shape and auto.ids.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="obs slice"):
-        SingleDeviceExecutor(port).attach_telemetry(object())
+    # a telemetry handle attaches: the engine's pipelines count in its
+    # registry and the executor records one engine span per batch
+    from repro_torch.obs import Telemetry
+
+    tel = Telemetry()
+    tex = SingleDeviceExecutor(port, fused=True)
+    tex.attach_telemetry(tel)
+    assert tex.telemetry is tel and port.metrics is tel.metrics
+    try:
+        assert torch.equal(tex.run(q).ids, b.ids)
+        assert [(s.track, s.name) for s in tel.tracer.exec_spans] == [("engine", "query[k_sweep]")]
+    finally:
+        port.metrics = None  # the fixture's engine is shared
     with pytest.raises(ValueError):
         port.query(q, "no_such_algorithm")

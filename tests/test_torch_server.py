@@ -225,10 +225,14 @@ def test_guards_match_reference(k_sweep, zipf):
     srv = GeoServer(port_ex, batcher=ShapeBucketedBatcher(**SHAPE))
     with pytest.raises(ValueError, match="DeadlineBatcher"):
         srv.run_trace(zipf[:4], arrival="poisson")
-    # telemetry arrives with the obs slice: a handle raises, None does not
-    with pytest.raises(NotImplementedError, match="obs slice"):
-        GeoServer(port_ex, telemetry=object())
-    with pytest.raises(NotImplementedError, match="obs slice"):
-        make_executor("single", make_corpus(64, 20, seed=1), device="cpu", telemetry=object())
+    # a telemetry handle attaches through the server and the factory; None
+    # detaches the executor's
+    from repro_torch.obs import Telemetry
+
+    tel = Telemetry()
+    fresh = make_executor("single", make_corpus(64, 20, seed=1), device="cpu", telemetry=tel)
+    assert fresh.telemetry is tel and fresh.engine.metrics is tel.metrics
+    srv = GeoServer(fresh, telemetry=Telemetry())
+    assert srv.telemetry and fresh.telemetry is srv.telemetry
     port_ex.attach_telemetry(None)
     assert port_ex.telemetry is None

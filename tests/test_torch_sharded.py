@@ -226,10 +226,8 @@ def _service(raw) -> float:
 def test_geo_server_over_sharded_equals_reference(corpus):
     """Open loop with an injected service time: every report field of the
     port's server over its footprint-routed sharded executor equals the
-    reference's (the routing summary included); collected ids equal, scores
-    within rtol 1e-6: on this 2-term, 2-rect trace the port's engine, the
-    single one too, rounds some scores 1 ulp away from the reference's
-    compiled steps."""
+    reference's (the routing summary included); collected ids and scores
+    equal."""
     kw = dict(n_shards=2, routing="footprint", grid=GRID, algorithm="k_sweep", fused=True)
     ref_ex = ref_make_executor("sharded", corpus, partitioner=rd.RegionRangePartitioner(),
                                budgets=RefBudgets(**BUDGETS, prune=True), **kw)
@@ -253,7 +251,7 @@ def test_geo_server_over_sharded_equals_reference(corpus):
             assert len(a) == len(b)
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(x.ids, y.ids)
-                np.testing.assert_allclose(x.scores, y.scores, rtol=1e-6, atol=1e-7)
+                np.testing.assert_array_equal(x.scores, y.scores)
         else:
             assert _plain(a) == _plain(b), f.name
 
@@ -261,10 +259,11 @@ def test_geo_server_over_sharded_equals_reference(corpus):
 @pytest.mark.parametrize("kind", ["single", "sharded"])
 @pytest.mark.parametrize("name", ["k_sweep_pruned_fused", "text_first_pruned_fused", "geo_first"])
 def test_scores_within_one_ulp_of_reference_on_two_term_trace(corpus, kind, name):
-    """The ``GeoServer`` test's 2-term, 2-rect queries in one batch: ids and
-    every counter exactly, each finite score at most 1 ulp from the
-    reference's (the single engine's as the sharded executor's: the
-    difference is in the engine's scoring, not in the shard merge)."""
+    """The ``GeoServer`` test's 2-term, 2-rect queries in one batch: ids,
+    every counter and every score exactly, the single engine's as the
+    sharded executor's.  (These scores were once 1 ulp off: the reference's
+    compiled combine adds the pagerank term as one fused multiply-add, and
+    ``ranking.combine_scores`` now rounds it once too.)"""
     kw = dict(VARIANTS[name])
     prune = kw.pop("prune", False)
     if kind == "sharded":
@@ -281,11 +280,8 @@ def test_scores_within_one_ulp_of_reference_on_two_term_trace(corpus, kind, name
     ids, scores = (np.asarray(x.cpu() if torch.is_tensor(x) else x) for x in (got.ids, got.scores))
     np.testing.assert_array_equal(ids, np.asarray(want.ids))
     ref_scores = np.asarray(want.scores)
-    fin = np.isfinite(ref_scores)
-    np.testing.assert_array_equal(np.isfinite(scores), fin)
-    ulps = np.abs(scores[fin].view(np.int32).astype(np.int64)
-                  - ref_scores[fin].view(np.int32).astype(np.int64))
-    assert fin.sum() > 0 and ulps.max() <= 1, ulps.max()
+    assert np.isfinite(ref_scores).sum() > 0
+    assert scores.dtype == ref_scores.dtype and scores.tobytes() == ref_scores.tobytes()
     for k, v in want.stats.items():
         np.testing.assert_array_equal(np.asarray(got.stats[k]), np.asarray(v), err_msg=k)
 
@@ -332,6 +328,8 @@ def test_stale_partition_kwarg_and_strings_rejected(corpus):
         ShardedExecutor.build(corpus.doc_terms, corpus.doc_rects, corpus.doc_amps,
                               corpus.n_terms, corpus.pagerank, 2, partitioner="hash",
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="obs slice"):
-        make_executor("sharded", corpus, n_shards=2, grid=GRID, device="cpu",
-                      telemetry=object())
+    from repro_torch.obs import Telemetry
+
+    tel = Telemetry()
+    ex = make_executor("sharded", corpus, n_shards=2, grid=GRID, device="cpu", telemetry=tel)
+    assert ex.telemetry is tel and all(e.metrics is tel.metrics for e in ex.engines)
