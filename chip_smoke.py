@@ -38,7 +38,9 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    its windows request and the unique bytes;
 5. runs one profiler pass per variant (phase 7's sharded executor too):
    each stage's host time and device time, and the device's idle share
-   over a batch;
+   over a batch; and one over each of phase 9's recsys cells (the
+   geo-blended retrieval and every serve shape): the device's busy time,
+   idle share and top device ops;
 6. serves 2048-query traces through ``GeoServer`` over the phase-3 index,
    at ``launch/serve.py``'s defaults (Landlord cache of 512, deadline
    batcher of 32 × 8 terms × 4 rects, 5 ms deadline open loop):
@@ -98,6 +100,25 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    batches (one launch of their kernel each, from
    ``executor.batches_total``) are printed.  Its in-process launches are
    added to the kernel table's.  It runs after phase 7 and before phase 5.
+9. drives the recsys serving path (``repro_torch.launch.steps.
+   build_recsys_cell``) at the four recsys archs' published ``CONFIG``s,
+   f32 matmuls at full f32 (no TF32): (d) each ``SMOKE`` config gives the
+   same losses, forwards, towers and geo-blended top-100 on the card as on
+   the CPU (the same weights, carried by ``params_from_numpy``; rtol 1e-4 /
+   atol 1e-5; ids where adjacent scores are separated, −inf picks exactly);
+   ``two-tower-retrieval`` at ``retrieval_cand`` (1,000,000 candidates, 4
+   rects each, 2 query rects, weight 5): (a) ``geo_score_docs`` equals its
+   plain version bitwise, (b) the retrieval through the kernel equals the
+   one through the plain geo path in top-100 ids and scores, (c) launches
+   ``geo_score`` exactly once, (e) its −inf picks are the candidates beyond
+   the geo matches; then times it with and without the blend, split into
+   the towers, score and blend, the kernel (beside its plain version and
+   bound) and top-k; then every arch at ``serve_p99`` and ``serve_bulk``:
+   ms per batch, rows/s, model FLOP/s and their share of 67e12, parameter
+   bytes and peak memory, finite outputs.  The CTR models'
+   ``retrieval_cand`` waits for the mesh across cards.  Its driven
+   retrieval's launch is added to the kernel table's.  It runs after phase
+   8 and before phase 5.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -172,6 +193,25 @@ TWIN_RATE_QPS = 6400.0
 TWIN_SERVICE_S = 1e-3
 # phase 8: the serving CLI's subprocess (corpus, index, serving, recall)
 CLI_TIMEOUT_S = 600
+# phase 9: the recsys serving path at the published CONFIGs (one card)
+RECSYS_ARCHS = ("two-tower-retrieval", "dcn-v2", "autoint", "bst")
+RECSYS_SEED = 0
+TOP_K = 100
+# the retrieval's geo blend: configs/geoweb.py's doc-major R = 4 rects per
+# candidate and Q = 2 query rects, weight 5 (examples/recsys_retrieval.py)
+GEO_RECTS = 4
+GEO_Q_RECTS = ((0.3, 0.3, 0.5, 0.5), (0.6, 0.6, 0.75, 0.75))
+GEO_WEIGHT = 5.0
+# the SMOKE configs, card vs CPU: cuBLAS and the CPU's BLAS sum in other
+# orders.  The retrieval's footprints are small enough that fewer than
+# TOP_K candidates match, so its −inf picks are compared too
+SMOKE_TOL = dict(rtol=1e-4, atol=1e-5)
+SMOKE_ROWS = 512
+SMOKE_CANDIDATES = 4096
+SMOKE_Q_RECTS = ((0.3, 0.3, 0.35, 0.35), (0.6, 0.6, 0.62, 0.62))
+# f32 FLOP/s outside the tensor cores with an FMA counted as two, as model
+# FLOPs count a multiply-add (cuBLAS f32 without TF32 runs there)
+F32_FLOPS_PER_S = 67e12
 
 
 def check(cond: bool, what: str) -> None:
@@ -782,17 +822,22 @@ def main() -> int:
     # ---- phase 8: telemetry and the serving CLI, before the profiler pass
     tel_counts = telemetry_phase(corpus, plain_ex.engine.index, budgets,
                                  executors["sharded_footprint"][0])
+    peak = torch.cuda.max_memory_allocated()
+    # ---- phase 9: the recsys serving path, before the profiler pass -----
+    rec_counts = recsys_phase()
     for row in table:
         main_counts[row["name"]] += (serve_counts[row["name"]] + shard_counts[row["name"]]
-                                     + tel_counts[row["name"]])
+                                     + tel_counts[row["name"]] + rec_counts[row["name"]])
         row["launches"] = main_counts[row["name"]]
     # ---- phase 5: one profiler pass per variant, after every timing, so
     # no profiler session runs before or during a timed run ---------------
-    peak = torch.cuda.max_memory_allocated()
     for name, (ex, algorithm) in executors.items():
         for line in profile_batch(lambda: ex.run(batches[0]), torch, SPANS[algorithm]):
             say(f"phase 5: {name}: profile (batch 0): {line}")
-    say(f"peak device memory {peak / 2**30:.2f} GiB; "
+    for name, lines in recsys_profiles():
+        for line in lines:
+            say(f"phase 5: {name}: profile: {line}")
+    say(f"peak device memory of phases 1-8 {peak / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
@@ -1380,6 +1425,271 @@ def telemetry_phase(corpus, index, budgets, sharded) -> dict[str, int]:
         f"plan) {cli_launches}")
     say(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
     return totals
+
+
+def recsys_phase() -> dict[str, int]:
+    """Phase 9: the recsys serving path at the published ``CONFIG``s (see
+    the module docstring).  Returns the kernel launches of the driven
+    geo-blended retrieval (the checks' and timings' launches not counted)."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.ranking import select_top
+    from repro_torch.data.recsys import make_generator
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.geo_score import kernel as GK
+    from repro_torch.kernels.geo_score import ref as GR
+    from repro_torch.kernels.geo_score.ops import geo_score_docs, pad_query
+    from repro_torch.launch.steps import build_recsys_cell, recsys_batch
+    from repro_torch.models import recsys as rec
+    from repro_torch.models.params import params_from_numpy
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    prec, tf32 = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+    say(f"phase 9: float32 matmul precision {prec!r}, cuBLAS TF32 {tf32}")
+    check(prec == "highest" and not tf32, "phase 9: f32 matmuls must run at full f32, no TF32")
+
+    def plain_geo(geo):
+        """Per-candidate geo scores by the kernel's plain version."""
+        n = geo["cand_rects"].shape[0]
+        qr, qa = pad_query(geo["q_rects"][None], geo["q_amps"][None])
+        flat = GR.geo_score_toeprints_ref(geo["cand_rects"].reshape(1, -1, 4),
+                                          geo["cand_amps"].reshape(1, -1), qr, qa)
+        return flat.reshape(n, GEO_RECTS).sum(dim=1)
+
+    def on(tree, device):
+        return {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in tree.items()}
+
+    def close(got, want, what):
+        """Card vs CPU within SMOKE_TOL, −inf where the CPU has −inf;
+        returns the max abs difference."""
+        got = got.cpu()
+        fin = torch.isfinite(want)
+        check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+        check(torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], want[~fin]),
+              f"{what}: non-finite entries differ between the card and the CPU")
+        err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+        check(bool(torch.allclose(got[fin], want[fin], **SMOKE_TOL)),
+              f"{what}: card vs CPU beyond rtol 1e-4 / atol 1e-5 (max abs {err:.3g})")
+        return err
+
+    # (d) each SMOKE config: the same weights (the port's init on the CPU,
+    # carried to the card by params_from_numpy) and inputs on both
+    losses = {"two-tower-retrieval": rec.two_tower_loss, "dcn-v2": rec.dcn_v2_loss,
+              "autoint": rec.autoint_loss, "bst": rec.bst_loss}
+    forwards = {"dcn-v2": rec.dcn_v2_forward, "autoint": rec.autoint_forward,
+                "bst": rec.bst_forward}
+    for name in RECSYS_ARCHS:
+        cfg = get_arch(name).smoke_config
+        p_cpu = cfg.init(RECSYS_SEED, "cpu")
+        p_dev = params_from_numpy(cfg.param_defs(), {k: v.numpy() for k, v in p_cpu.items()}, dev)
+        b_cpu = recsys_batch(cfg, SMOKE_ROWS, "cpu", RECSYS_SEED)
+        b_dev = on(b_cpu, dev)
+        errs = {"loss": close(losses[name](cfg, p_dev, b_dev)[0], losses[name](cfg, p_cpu, b_cpu)[0],
+                              f"{name} smoke loss")}
+        if name in forwards:
+            errs["forward"] = close(forwards[name](cfg, p_dev, b_dev),
+                                    forwards[name](cfg, p_cpu, b_cpu), f"{name} smoke forward")
+            say(f"phase 9: {name} smoke: card == CPU within rtol 1e-4 / atol 1e-5; max abs "
+                + json.dumps(errs))
+            continue
+        errs["user tower"] = close(rec.two_tower_user(cfg, p_dev, b_dev),
+                                   rec.two_tower_user(cfg, p_cpu, b_cpu), f"{name} smoke user tower")
+        errs["item tower"] = close(
+            rec.two_tower_item(cfg, p_dev, b_dev["target"], b_dev["item_fields"]),
+            rec.two_tower_item(cfg, p_cpu, b_cpu["target"], b_cpu["item_fields"]),
+            f"{name} smoke item tower")
+        geo_cpu = recsys_geo(SMOKE_CANDIDATES, 0.01, SMOKE_Q_RECTS, "cpu")
+        geo_dev = on(geo_cpu, dev)
+        cand_ids = torch.arange(SMOKE_CANDIDATES, dtype=torch.int32) % cfg.n_items
+        cand_fields = torch.randint(0, cfg.field_vocab, (SMOKE_CANDIDATES, cfg.n_item_fields),
+                                    generator=make_generator(RECSYS_SEED, 1, "cpu"),
+                                    dtype=torch.int32)
+        user = {k: v[:1] for k, v in b_cpu.items()}
+        s_cpu, i_cpu = rec.two_tower_score_candidates(cfg, p_cpu, user, cand_ids, cand_fields,
+                                                       TOP_K, geo_cpu)
+        s_dev, i_dev = rec.two_tower_score_candidates(cfg, p_dev, on(user, dev), cand_ids.to(dev),
+                                                       cand_fields.to(dev), TOP_K, geo_dev)
+        errs["retrieval scores"] = close(s_dev, s_cpu, f"{name} smoke retrieval scores")
+        # ids equal wherever adjacent CPU scores differ by more than the
+        # tolerance; the −inf picks (lowest positions outside the
+        # footprint) exactly
+        i_dev = i_dev.cpu()
+        fin = torch.isfinite(s_cpu)
+        tol = SMOKE_TOL["atol"] + SMOKE_TOL["rtol"] * s_cpu.abs()
+        gap = (s_cpu[..., 1:] - s_cpu[..., :-1]).abs()
+        sep = fin.clone()
+        sep[..., 1:] &= gap > tol[..., 1:]
+        sep[..., :-1] &= gap > tol[..., :-1]
+        check(torch.equal(i_dev[sep], i_cpu[sep]) and torch.equal(i_dev[~fin], i_cpu[~fin]),
+              f"{name} smoke retrieval: top-{TOP_K} ids differ between the card and the CPU")
+        n_match = int((plain_geo(geo_cpu) > 0).sum())
+        check(int((~fin).sum()) == max(0, TOP_K - n_match),
+              f"{name} smoke retrieval: −inf picks are not the candidates beyond the matches")
+        say(f"phase 9: {name} smoke: card == CPU within rtol 1e-4 / atol 1e-5 (loss, towers at "
+            f"{SMOKE_ROWS} rows, retrieval over {SMOKE_CANDIDATES} candidates with {n_match} geo "
+            f"matches: {int(sep.sum())} separated ids equal, {int((~fin).sum())} −inf picks "
+            f"equal); max abs " + json.dumps(errs))
+        del p_dev, b_dev, geo_dev
+
+    # the published CONFIGs: the geo-blended retrieval, then every serve shape
+    report = []
+
+    def record(model, shape, rows, ms, flops, param_bytes, peak, **extra):
+        row = {"model": model, "shape": shape, "rows": rows, "ms": ms,
+               "rows_per_s": rows / ms * 1e3, "model_flops": flops,
+               "flops_per_s": flops / ms * 1e3, "f32_share": flops / ms * 1e3 / F32_FLOPS_PER_S,
+               "param_gb": param_bytes / 1e9, "peak_gib": peak / 2**30, **extra}
+        report.append(row)
+        say(f"phase 9: {model} {shape}: {ms:.4f} ms per batch of {rows}, {row['rows_per_s']:.1f} "
+            f"rows/s, {flops:.4g} model FLOP -> {row['flops_per_s'] / 1e12:.3f} TFLOP/s "
+            f"({row['f32_share']:.4f} of {F32_FLOPS_PER_S / 1e12:g}e12), params "
+            f"{row['param_gb']:.3f} GB, peak {row['peak_gib']:.2f} GiB")
+
+    spec = get_arch("two-tower-retrieval")
+    shape = spec.shape("retrieval_cand")
+    cfg, n_cand = spec.config, shape.params["n_candidates"]
+    torch.cuda.reset_peak_memory_stats()
+    geo = recsys_geo(n_cand, 0.08, GEO_Q_RECTS, dev)
+    cell = build_recsys_cell(spec, shape, dev, RECSYS_SEED, geo=geo)
+    params, batch, cand_ids, cand_fields = cell.args
+    param_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    check(param_bytes == cfg.n_params() * 4, "two-tower: parameter bytes differ from its defs")
+    # (a) the kernel at the retrieval shape against its plain version
+    g = geo_score_docs(geo["cand_rects"][None], geo["cand_amps"][None],
+                       geo["q_rects"][None], geo["q_amps"][None])[0]
+    g_plain = plain_geo(geo)
+    err_a = exact(g, g_plain, "geo_score_docs at the retrieval shape", torch)
+    n_match = int((g_plain > 0).sum())
+    # the driven run: counts from 0 just before, read just after
+    reset_launch_counts()
+    vals, ids = cell.fn(*cell.args)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # (c) one geo_score launch per geo retrieval, no other kernel
+    check(counts == {**{k: 0 for k in counts}, "geo_score": 1},
+          f"phase 9: a geo retrieval launched {counts}, not geo_score once")
+    # (b) the same retrieval through the plain geo path
+    u = rec.two_tower_user(cfg, params, batch)
+    v = rec.two_tower_item(cfg, params, cand_ids, cand_fields)
+    scores = u @ v.T
+    pv, pi = select_top(rec.geo_blend(scores, g_plain, GEO_WEIGHT), TOP_K)
+    exact(vals, pv, "geo retrieval top-100 scores, kernel vs plain geo path", torch)
+    exact(ids, pi, "geo retrieval top-100 ids, kernel vs plain geo path", torch)
+    # (e) finite where the reference's are: the picks up to the matches
+    n_inf = int(torch.isneginf(vals).sum())
+    check(n_inf == max(0, TOP_K - n_match) and bool(torch.isfinite(vals[:, : TOP_K - n_inf]).all()),
+          f"phase 9: {n_inf} −inf picks with {n_match} geo matches")
+    check(bool(torch.isfinite(u).all() and torch.isfinite(v).all()), "phase 9: non-finite towers")
+    nv, ni = rec.two_tower_score_candidates(cfg, params, batch, cand_ids, cand_fields, TOP_K)
+    check(bool(torch.isfinite(nv).all()) and ni.shape == (1, TOP_K), "phase 9: plain retrieval")
+    say(f"phase 9: retrieval over {n_cand} candidates x {GEO_RECTS} rects, {len(GEO_Q_RECTS)} "
+        f"query rects, weight {GEO_WEIGHT}: {n_match} geo matches; geo_score_docs kernel == "
+        f"plain (max abs err {err_a}); top-{TOP_K} ids and scores with the kernel == the plain geo "
+        f"path; {n_inf} −inf picks; launches {counts}; "
+        f"{len(set(ni[0].tolist()) & set(ids[0].tolist()))} of the {TOP_K} picks without the "
+        f"blend are among those with it")
+    # timings: the whole retrieval with and without the blend, its split,
+    # and the kernel beside its plain version and its bound
+    blended = rec.geo_blend(scores, g, GEO_WEIGHT)
+    qr, qa = pad_query(geo["q_rects"][None], geo["q_amps"][None])
+    flat_r, flat_a = geo["cand_rects"].reshape(1, -1, 4), geo["cand_amps"].reshape(1, -1)
+    exact(GK.geo_score_cuda(flat_r, flat_a, qr, qa), GR.geo_score_toeprints_ref(flat_r, flat_a, qr, qa),
+          "geo_score kernel at the retrieval shape", torch)
+    split = {
+        "retrieval_geo": time_ms(lambda: cell.fn(*cell.args), torch),
+        "retrieval_no_geo": time_ms(lambda: rec.two_tower_score_candidates(
+            cfg, params, batch, cand_ids, cand_fields, TOP_K), torch),
+        "user_tower": time_ms(lambda: rec.two_tower_user(cfg, params, batch), torch),
+        "item_tower": time_ms(lambda: rec.two_tower_item(cfg, params, cand_ids, cand_fields), torch),
+        "score_and_blend": time_ms(lambda: rec.geo_blend(u @ v.T, g, GEO_WEIGHT), torch),
+        "geo_score_docs": time_ms(lambda: geo_score_docs(
+            geo["cand_rects"][None], geo["cand_amps"][None],
+            geo["q_rects"][None], geo["q_amps"][None]), torch),
+        "geo_score_kernel": time_ms(lambda: GK.geo_score_cuda(flat_r, flat_a, qr, qa), torch),
+        "geo_score_plain": time_ms(lambda: GR.geo_score_toeprints_ref(flat_r, flat_a, qr, qa), torch),
+        "top_k": time_ms(lambda: select_top(blended, TOP_K), torch),
+    }
+    n_tp = n_cand * GEO_RECTS
+    b_ms, b_by = bound_ms(n_tp * (STORE_BYTES + 4.0), n_tp * (OPS_PER_SLOT * len(GEO_Q_RECTS) + 1))
+    split["geo_score_bound"] = b_ms
+    peak = torch.cuda.max_memory_allocated()
+    say(f"phase 9: retrieval split (ms): " + json.dumps(split) + f"; geo_score bound {b_ms:.4f} ms "
+        f"({b_by}: {n_tp * (STORE_BYTES + 4.0):.0f} bytes), the kernel "
+        f"{split['geo_score_kernel'] / split['retrieval_geo']:.4%} of the retrieval")
+    record("two-tower-retrieval", "retrieval_cand", n_cand, split["retrieval_geo"],
+           cell.model_flops, param_bytes, peak, ms_no_geo=split["retrieval_no_geo"])
+    del cell, params, batch, cand_ids, cand_fields, geo, g, g_plain, u, v, scores, blended
+    del flat_r, flat_a, vals, ids, pv, pi, nv, ni
+    torch.cuda.empty_cache()
+    say("phase 9: dcn-v2, autoint, bst retrieval_cand (a candidate-major forward over "
+        f"{n_cand} rows) not run: it waits for the mesh across cards; AutoInt's attention "
+        "intermediates alone at 1M rows (q, k, v [1M, 39, 2, 32] and the scores and softmax "
+        "[1M, 2, 39, 39], f32, per layer) come to 54 GB of the card's 80 GB")
+
+    for name in RECSYS_ARCHS:
+        spec = get_arch(name)
+        for shape_name in ("serve_p99", "serve_bulk"):
+            shape = spec.shape(shape_name)
+            torch.cuda.reset_peak_memory_stats()
+            cell = build_recsys_cell(spec, shape, dev, RECSYS_SEED)
+            param_bytes = sum(t.numel() * t.element_size() for t in cell.args[0].values())
+            check(param_bytes == spec.config.n_params() * 4, f"{name}: parameter bytes")
+            out = cell.fn(*cell.args)
+            rows = shape.params["batch"]
+            want = (rows, spec.config.embed_dim) if name == "two-tower-retrieval" else (rows,)
+            check(tuple(out.shape) == want and bool(torch.isfinite(out).all()),
+                  f"phase 9: {name} {shape_name}: output {tuple(out.shape)}, finite "
+                  f"{bool(torch.isfinite(out).all())}")
+            ms = time_ms(lambda: cell.fn(*cell.args), torch)
+            record(name, shape_name, rows, ms, cell.model_flops, param_bytes,
+                   torch.cuda.max_memory_allocated())
+            del cell, out
+            torch.cuda.empty_cache()
+    say("phase 9: " + json.dumps(report))
+    say(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def recsys_geo(n: int, side: float, q_rects, device):
+    """Phase 9's geo dict: candidate footprints drawn as
+    examples/recsys_retrieval.py draws them (``GEO_RECTS`` square rects of
+    ``side`` at uniform corners, unit amps), unit query amps."""
+    import torch
+
+    from repro_torch.data.recsys import make_generator
+
+    g = make_generator(RECSYS_SEED, 2, device)
+    lo = torch.rand((n, GEO_RECTS, 2), generator=g, device=device) * 0.9
+    return {"cand_rects": torch.cat([lo, lo + side], dim=2),
+            "cand_amps": torch.ones((n, GEO_RECTS), device=device),
+            "q_rects": torch.tensor(q_rects, dtype=torch.float32, device=device),
+            "q_amps": torch.ones((len(q_rects),), device=device), "weight": GEO_WEIGHT}
+
+
+def recsys_profiles():
+    """Phase 5 for phase 9's cells: one profiler pass over one step of
+    each (the geo-blended retrieval, then every arch's serve shapes), each
+    cell built anew and freed after.  Yields (name, lines)."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.steps import build_recsys_cell
+
+    dev = torch.device(DEVICE)
+    cells = [("two-tower-retrieval", "retrieval_cand")] + [
+        (a, s) for a in RECSYS_ARCHS for s in ("serve_p99", "serve_bulk")]
+    for arch, shape_name in cells:
+        spec = get_arch(arch)
+        shape = spec.shape(shape_name)
+        geo = (recsys_geo(shape.params["n_candidates"], 0.08, GEO_Q_RECTS, dev)
+               if shape.kind == "recsys_retrieval" else None)
+        cell = build_recsys_cell(spec, shape, dev, RECSYS_SEED, geo=geo)
+        cell.fn(*cell.args)  # warm-up outside the profiler
+        yield f"{arch} {shape_name}", profile_batch(lambda: cell.fn(*cell.args), torch, ())
+        del cell, geo
+        torch.cuda.empty_cache()
 
 
 def narrow_batch(batch, i: int, n: int):

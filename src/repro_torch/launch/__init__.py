@@ -1,2 +1,4 @@
-"""Command-line entry points of the port (port of ``repro/launch``):
-:mod:`repro_torch.launch.serve` serves a trace through the serving stack."""
+"""Entry points of the port (port of ``repro/launch``):
+:mod:`repro_torch.launch.serve` serves a trace through the serving stack;
+:mod:`repro_torch.launch.steps` builds the recsys cells (serving and
+retrieval steps with their inputs on the device)."""

@@ -598,3 +598,75 @@ def test_serve_cli_on_card_writes_valid_exports(cuda, tmp_path, monkeypatch, cap
         assert (tmp_path / name).stat().st_size > 0, name
     assert validate_trace(json.loads((tmp_path / "T.json").read_text())) == []
     assert "# TYPE server_queries_total counter" in (tmp_path / "M.prom").read_text()
+
+
+def _geo_candidates(dev, n, side, q_rects, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    lo = torch.rand((n, 4, 2), generator=g, device=dev) * 0.9
+    return {"cand_rects": torch.cat([lo, lo + side], dim=2),
+            "cand_amps": torch.rand((n, 4), generator=g, device=dev) + 0.5,
+            "q_rects": torch.tensor(q_rects, dtype=torch.float32, device=dev),
+            "q_amps": torch.tensor([1.0, 0.7], device=dev), "weight": 5.0}
+
+
+def _plain_geo_docs(geo):
+    """Per-candidate geo scores by the kernel's plain version."""
+    n, r, _ = geo["cand_rects"].shape
+    qr, qa = pg.pad_query(geo["q_rects"][None], geo["q_amps"][None])
+    flat = geo_score_toeprints_ref(geo["cand_rects"].reshape(1, n * r, 4),
+                                   geo["cand_amps"].reshape(1, n * r), qr, qa)
+    return flat.reshape(n, r).sum(dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3000, 20000])
+def test_geo_score_docs_kernel_bitwise_on_card(cuda, n):
+    """The retrieval's geo scores: one kernel launch per call, bitwise
+    equal to the plain version."""
+    geo = _geo_candidates(cuda, n, 0.08, [[0.3, 0.3, 0.5, 0.5], [0.6, 0.6, 0.75, 0.75]])
+    reset_launch_counts()
+    got = pg.geo_score_docs(geo["cand_rects"][None], geo["cand_amps"][None],
+                            geo["q_rects"][None], geo["q_amps"][None])[0]
+    assert launch_counts()["geo_score"] == 1
+    assert torch.equal(got, _plain_geo_docs(geo))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [0.08, 0.01])
+def test_two_tower_geo_retrieval_kernel_equals_plain_on_card(cuda, side):
+    """Two-tower retrieval with the geo blend through the kernel equals the
+    same retrieval through the plain geo path (ids and scores bitwise); the
+    small footprints leave fewer matches than top_k, so the −inf picks (the
+    lowest positions outside the footprint) are compared too."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.ranking import select_top
+    from repro_torch.data.recsys import two_tower_batch
+    from repro_torch.models import recsys as rec
+
+    cfg = get_arch("two-tower-retrieval").smoke_config
+    params = cfg.init(0, cuda)
+    user = two_tower_batch(1, cfg.n_users, cfg.n_items, cfg.n_user_fields, cfg.n_item_fields,
+                           cfg.field_vocab, cfg.hist_len, seed=4, device=cuda)
+    n, top_k = 4000, 100
+    cand_ids = (torch.arange(n, device=cuda) % cfg.n_items).to(torch.int32)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    cand_fields = torch.randint(0, cfg.field_vocab, (n, cfg.n_item_fields), generator=g,
+                                device=cuda, dtype=torch.int32)
+    geo = _geo_candidates(cuda, n, side, [[0.3, 0.3, 0.34, 0.34], [0.6, 0.6, 0.62, 0.62]])
+    reset_launch_counts()
+    vals, ids = rec.two_tower_score_candidates(cfg, params, user, cand_ids, cand_fields,
+                                               top_k, geo)
+    assert launch_counts()["geo_score"] == 1
+    g = _plain_geo_docs(geo)
+    scores = rec.two_tower_user(cfg, params, user) @ rec.two_tower_item(
+        cfg, params, cand_ids, cand_fields).T
+    want_vals, want_ids = select_top(rec.geo_blend(scores, g, geo["weight"]), top_k)
+    assert torch.equal(vals, want_vals) and torch.equal(ids, want_ids)
+    n_match = int((g > 0).sum())
+    assert int(torch.isneginf(vals).sum()) == max(0, top_k - n_match)
+    if side == 0.01:
+        assert n_match < top_k
+        outside = torch.nonzero(g == 0)[: top_k - n_match, 0]
+        assert torch.equal(ids[0, n_match:], outside)
