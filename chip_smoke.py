@@ -119,6 +119,30 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    ``retrieval_cand`` waits for the mesh across cards.  Its driven
    retrieval's launch is added to the kernel table's.  It runs after phase
    8 and before phase 5.
+10. trains the four recsys archs (``repro_torch.train``: AdamW, the train
+   step, the fault-tolerant loop, checkpoints; ``build_recsys_cell``'s
+   ``recsys_train`` cell; ``python -m repro_torch.launch.train``), f32 at
+   full f32: (g) each ``SMOKE`` config takes 3 train steps on the card and
+   on the CPU from the same weights and batches — losses, parameters and
+   moments within rtol 1e-4 / atol 1e-5; (h) ``run`` with a checkpoint
+   every 2 steps and a failure at step 5 replays to step 8 bitwise equal
+   to a run without the failure (``SMOKE`` two-tower and DCN-v2); (i) the
+   train CLI as subprocesses, with and without ``--simulate-failure 5``:
+   both exit 0, the failing run prints its ``[fault]`` lines and its loss
+   lines equal the other's; (j) ``python -m
+   repro_torch.examples.recsys_retrieval`` on the card: finite losses,
+   every geo-constrained top-10 id inside the query area, one
+   ``geo_score`` launch (added to the kernel table's), ``geo_score_docs``
+   on the example's geo inputs (1,024 candidates × 1 rect, 1 query rect)
+   equal to its plain version; then each arch's
+   ``train_batch`` cell (65,536 rows) at its published ``CONFIG``, built
+   and freed in turn: 2 warm-up steps, 10 timed (CUDA events, median), one
+   split by CUDA events into forward + loss, backward and AdamW (through
+   the step's own ``value_and_grad`` and ``adamw_update``); ms per
+   step, rows/s, model FLOP/s and their share of 67e12, parameter and
+   optimizer-state bytes, peak memory; (f) finite losses and gradient
+   norms, the optimizer's step count equal to the steps taken, every
+   parameter leaf moved.  It runs after phase 9 and before phase 5.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -212,6 +236,18 @@ SMOKE_Q_RECTS = ((0.3, 0.3, 0.35, 0.35), (0.6, 0.6, 0.62, 0.62))
 # f32 FLOP/s outside the tensor cores with an FMA counted as two, as model
 # FLOPs count a multiply-add (cuBLAS f32 without TF32 runs there)
 F32_FLOPS_PER_S = 67e12
+# phase 10: recsys training.  The published CONFIGs at train_batch (65,536
+# rows): 2 warm-up steps, then 10 timed (CUDA events, median) and one split
+# into forward + loss, backward and AdamW.  The SMOKE configs, card vs CPU,
+# with the reference's _train_one optimizer (tests/test_arch_smoke.py); the
+# fault replay and the CLI as tests/test_torch_train.py runs them
+TRAIN_WARMUP = 2
+TRAIN_RUNS = 10
+TRAIN_SMOKE_STEPS = 3
+TRAIN_SMOKE_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=4)
+REPLAY_ARCHS = ("two-tower-retrieval", "dcn-v2")
+REPLAY_STEPS, REPLAY_CKPT_EVERY, REPLAY_FAILURE = 8, 2, 5
+REPLAY_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
 
 
 def check(cond: bool, what: str) -> None:
@@ -825,9 +861,13 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     # ---- phase 9: the recsys serving path, before the profiler pass -----
     rec_counts = recsys_phase()
+    torch.cuda.empty_cache()  # phase 9's cells are freed
+    # ---- phase 10: recsys training, before the profiler pass ------------
+    train_counts = training_phase()
     for row in table:
         main_counts[row["name"]] += (serve_counts[row["name"]] + shard_counts[row["name"]]
-                                     + tel_counts[row["name"]] + rec_counts[row["name"]])
+                                     + tel_counts[row["name"]] + rec_counts[row["name"]]
+                                     + train_counts[row["name"]])
         row["launches"] = main_counts[row["name"]]
     # ---- phase 5: one profiler pass per variant, after every timing, so
     # no profiler session runs before or during a timed run ---------------
@@ -1427,6 +1467,20 @@ def telemetry_phase(corpus, index, budgets, sharded) -> dict[str, int]:
     return totals
 
 
+def plain_geo(geo):
+    """Per-candidate geo scores (``geo_score_docs``) by the kernel's plain
+    version, for a geo dict of ``cand_rects [Nc,R,4]``, ``cand_amps [Nc,R]``,
+    ``q_rects [Q,4]``, ``q_amps [Q]``."""
+    from repro_torch.kernels.geo_score import ref as GR
+    from repro_torch.kernels.geo_score.ops import pad_query
+
+    n, r = geo["cand_rects"].shape[:2]
+    qr, qa = pad_query(geo["q_rects"][None], geo["q_amps"][None])
+    flat = GR.geo_score_toeprints_ref(geo["cand_rects"].reshape(1, -1, 4),
+                                      geo["cand_amps"].reshape(1, -1), qr, qa)
+    return flat.reshape(n, r).sum(dim=1)
+
+
 def recsys_phase() -> dict[str, int]:
     """Phase 9: the recsys serving path at the published ``CONFIG``s (see
     the module docstring).  Returns the kernel launches of the driven
@@ -1450,29 +1504,8 @@ def recsys_phase() -> dict[str, int]:
     say(f"phase 9: float32 matmul precision {prec!r}, cuBLAS TF32 {tf32}")
     check(prec == "highest" and not tf32, "phase 9: f32 matmuls must run at full f32, no TF32")
 
-    def plain_geo(geo):
-        """Per-candidate geo scores by the kernel's plain version."""
-        n = geo["cand_rects"].shape[0]
-        qr, qa = pad_query(geo["q_rects"][None], geo["q_amps"][None])
-        flat = GR.geo_score_toeprints_ref(geo["cand_rects"].reshape(1, -1, 4),
-                                          geo["cand_amps"].reshape(1, -1), qr, qa)
-        return flat.reshape(n, GEO_RECTS).sum(dim=1)
-
     def on(tree, device):
         return {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in tree.items()}
-
-    def close(got, want, what):
-        """Card vs CPU within SMOKE_TOL, −inf where the CPU has −inf;
-        returns the max abs difference."""
-        got = got.cpu()
-        fin = torch.isfinite(want)
-        check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
-        check(torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], want[~fin]),
-              f"{what}: non-finite entries differ between the card and the CPU")
-        err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
-        check(bool(torch.allclose(got[fin], want[fin], **SMOKE_TOL)),
-              f"{what}: card vs CPU beyond rtol 1e-4 / atol 1e-5 (max abs {err:.3g})")
-        return err
 
     # (d) each SMOKE config: the same weights (the port's init on the CPU,
     # carried to the card by params_from_numpy) and inputs on both
@@ -1486,17 +1519,18 @@ def recsys_phase() -> dict[str, int]:
         p_dev = params_from_numpy(cfg.param_defs(), {k: v.numpy() for k, v in p_cpu.items()}, dev)
         b_cpu = recsys_batch(cfg, SMOKE_ROWS, "cpu", RECSYS_SEED)
         b_dev = on(b_cpu, dev)
-        errs = {"loss": close(losses[name](cfg, p_dev, b_dev)[0], losses[name](cfg, p_cpu, b_cpu)[0],
-                              f"{name} smoke loss")}
+        errs = {"loss": card_close(losses[name](cfg, p_dev, b_dev)[0],
+                                   losses[name](cfg, p_cpu, b_cpu)[0], f"{name} smoke loss")}
         if name in forwards:
-            errs["forward"] = close(forwards[name](cfg, p_dev, b_dev),
-                                    forwards[name](cfg, p_cpu, b_cpu), f"{name} smoke forward")
+            errs["forward"] = card_close(forwards[name](cfg, p_dev, b_dev),
+                                         forwards[name](cfg, p_cpu, b_cpu), f"{name} smoke forward")
             say(f"phase 9: {name} smoke: card == CPU within rtol 1e-4 / atol 1e-5; max abs "
                 + json.dumps(errs))
             continue
-        errs["user tower"] = close(rec.two_tower_user(cfg, p_dev, b_dev),
-                                   rec.two_tower_user(cfg, p_cpu, b_cpu), f"{name} smoke user tower")
-        errs["item tower"] = close(
+        errs["user tower"] = card_close(rec.two_tower_user(cfg, p_dev, b_dev),
+                                        rec.two_tower_user(cfg, p_cpu, b_cpu),
+                                        f"{name} smoke user tower")
+        errs["item tower"] = card_close(
             rec.two_tower_item(cfg, p_dev, b_dev["target"], b_dev["item_fields"]),
             rec.two_tower_item(cfg, p_cpu, b_cpu["target"], b_cpu["item_fields"]),
             f"{name} smoke item tower")
@@ -1511,7 +1545,7 @@ def recsys_phase() -> dict[str, int]:
                                                        TOP_K, geo_cpu)
         s_dev, i_dev = rec.two_tower_score_candidates(cfg, p_dev, on(user, dev), cand_ids.to(dev),
                                                        cand_fields.to(dev), TOP_K, geo_dev)
-        errs["retrieval scores"] = close(s_dev, s_cpu, f"{name} smoke retrieval scores")
+        errs["retrieval scores"] = card_close(s_dev, s_cpu, f"{name} smoke retrieval scores")
         # ids equal wherever adjacent CPU scores differ by more than the
         # tolerance; the −inf picks (lowest positions outside the
         # footprint) exactly
@@ -1649,6 +1683,254 @@ def recsys_phase() -> dict[str, int]:
             torch.cuda.empty_cache()
     say("phase 9: " + json.dumps(report))
     say(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def card_close(got, want, what: str) -> float:
+    """Card vs CPU within SMOKE_TOL, −inf where the CPU has −inf; returns
+    the max abs difference."""
+    import torch
+
+    got = got.cpu()
+    fin = torch.isfinite(want)
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    check(torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], want[~fin]),
+          f"{what}: non-finite entries differ between the card and the CPU")
+    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    check(bool(torch.allclose(got[fin], want[fin], **SMOKE_TOL)),
+          f"{what}: card vs CPU beyond rtol 1e-4 / atol 1e-5 (max abs {err:.3g})")
+    return err
+
+
+def training_phase() -> dict[str, int]:
+    """Phase 10: recsys training (see the module docstring).  Returns the
+    kernel launches of the retrieval example (one geo_score)."""
+    import contextlib
+    import io
+    import math
+    import os
+    import re
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.examples import recsys_retrieval
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.geo_score.ops import geo_score_docs
+    from repro_torch.launch.steps import TRAIN_OPT, build_recsys_cell, recsys_batch, recsys_loss
+    from repro_torch.models.params import params_from_numpy
+    from repro_torch.train.loop import LoopConfig, make_train_step, run, value_and_grad
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_update, init_opt_state
+    from repro_torch.train.tree import leaves
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "phase 10: f32 matmuls must run at full f32, no TF32")
+
+    # (g) each SMOKE config: the same weights and batches, TRAIN_SMOKE_STEPS
+    # train steps on the card and on the CPU
+    opt = OptimizerConfig(**TRAIN_SMOKE_OPT)
+    for name in RECSYS_ARCHS:
+        cfg = get_arch(name).smoke_config
+        step = make_train_step(recsys_loss(cfg), opt)
+        p_cpu = cfg.init(RECSYS_SEED, "cpu")
+        p_dev = params_from_numpy(cfg.param_defs(), {k: v.numpy() for k, v in p_cpu.items()}, dev)
+        s_cpu, s_dev = init_opt_state(opt, p_cpu), init_opt_state(opt, p_dev)
+        errs = {"loss": 0.0, "params": 0.0}
+        for s in range(TRAIN_SMOKE_STEPS):
+            b_cpu = recsys_batch(cfg, SMOKE_ROWS, "cpu", RECSYS_SEED, s)
+            _, _, m_cpu = step(p_cpu, s_cpu, b_cpu)
+            _, _, m_dev = step(p_dev, s_dev, {k: v.to(dev) for k, v in b_cpu.items()})
+            errs["loss"] = max(errs["loss"], card_close(m_dev["loss"], m_cpu["loss"],
+                                                        f"{name} smoke step {s} loss"))
+        for k in p_cpu:
+            errs["params"] = max(errs["params"], card_close(p_dev[k], p_cpu[k],
+                                                            f"{name} smoke params[{k}]"))
+        for k in ("m", "v"):
+            for a, b in zip(leaves(s_dev[k]), leaves(s_cpu[k])):
+                card_close(a, b, f"{name} smoke {k}")
+        say(f"phase 10: (g) {name} smoke: {TRAIN_SMOKE_STEPS} train steps of {SMOKE_ROWS} rows, "
+            f"card == CPU within rtol 1e-4 / atol 1e-5 (losses, params, moments); max abs "
+            + json.dumps(errs))
+        del p_dev, s_dev
+
+    # (h) the fault-tolerant loop on the card: a failure at REPLAY_FAILURE
+    # restores the last checkpoint and replays, bitwise equal to a run
+    # without the failure
+    opt = OptimizerConfig(**REPLAY_OPT)
+    for name in REPLAY_ARCHS:
+        cfg = get_arch(name).smoke_config
+        step = make_train_step(recsys_loss(cfg), opt)
+
+        def init_state():
+            params = cfg.init(RECSYS_SEED, dev)
+            return params, init_opt_state(opt, params)
+
+        def batch_fn(s):
+            return recsys_batch(cfg, SMOKE_ROWS, dev, RECSYS_SEED, s)
+
+        logs = []
+        with tempfile.TemporaryDirectory() as d:
+            faulty = run(LoopConfig(total_steps=REPLAY_STEPS, ckpt_every=REPLAY_CKPT_EVERY,
+                                    ckpt_dir=d, log_every=1, simulate_failure_at=REPLAY_FAILURE),
+                         step, init_state, batch_fn, log=logs.append)
+        clean = run(LoopConfig(total_steps=REPLAY_STEPS, log_every=1), step, init_state,
+                    batch_fn, log=lambda line: None)
+        restored = REPLAY_FAILURE // REPLAY_CKPT_EVERY * REPLAY_CKPT_EVERY
+        check(f"[fault] restoring step {restored}" in logs, f"(h) {name}: no restore in {logs}")
+        check(dict(faulty[2]) == dict(clean[2]), f"(h) {name}: replayed losses differ")
+        n_leaves = 0
+        for a, b in zip(leaves(faulty[:2]), leaves(clean[:2])):
+            exact(a, b, f"(h) {name}: state after the replay", torch)
+            n_leaves += 1
+        say(f"phase 10: (h) {name} smoke: failure at step {REPLAY_FAILURE}, restored step "
+            f"{restored}, replayed to {REPLAY_STEPS}: params, moments and step bitwise equal to "
+            f"the run without the failure ({n_leaves} leaves)")
+
+    # (i) the train CLI in subprocesses, with and without the failure
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "dcn-v2", "--steps",
+               str(REPLAY_STEPS), "--batch-size", "64", "--ckpt-every", str(REPLAY_CKPT_EVERY)]
+        if DEVICE != "cuda":  # a CPU rehearsal names the opt-in
+            cmd += ["--device", DEVICE]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        runs = {tag: (cmd + ["--ckpt-dir", str(Path(d) / tag)] + extra) for tag, extra in
+                (("fault", ["--simulate-failure", str(REPLAY_FAILURE)]), ("clean", []))}
+        say("phase 10: (i) cli: " + " ".join(runs["fault"][1:]))
+        procs = {tag: subprocess.Popen(c, cwd=d, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+                 for tag, c in runs.items()}
+        outs = {}
+        for tag, proc in procs.items():
+            out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+            check(proc.returncode == 0, f"(i) cli ({tag}) exited {proc.returncode}: {err[-2000:]}")
+            outs[tag] = out.splitlines()
+    for line in outs["fault"]:
+        say(f"phase 10: (i) cli: {line}")
+    pat = re.compile(r"^step +(\d+) +loss (\S+) ")
+    losses = {tag: [pat.match(x).groups() for x in out if pat.match(x)]
+              for tag, out in outs.items()}
+    check([int(s) for s, _ in losses["clean"]] == list(range(REPLAY_STEPS)),
+          f"(i) cli without the failure logged {losses['clean']}")
+    check(any(x.startswith("[fault] ") for x in outs["fault"])
+          and f"[fault] restoring step {restored}" in outs["fault"], "(i) cli: no [fault] lines")
+    check(set(losses["fault"]) == set(losses["clean"])
+          and sorted({int(s) for s, _ in losses["fault"]}) == list(range(REPLAY_STEPS)),
+          f"(i) cli: loss lines differ: {losses}")
+    say(f"phase 10: (i) cli: both runs exit 0; the {len(losses['fault'])} loss lines of the "
+        f"failing run equal the {len(losses['clean'])} of the run without the failure")
+
+    # (j) the retrieval example: train, then rank through geo_score
+    reset_launch_counts()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        ex = recsys_retrieval.main(device=dev)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for line in printed.getvalue().splitlines():
+        if line.strip():
+            say(f"phase 10: (j) example: {line}")
+    check(counts == {**{k: 0 for k in counts}, "geo_score": 1},
+          f"(j) the example launched {counts}, not geo_score once")
+    check(len(ex["losses"]) == 100 and all(math.isfinite(x) for x in ex["losses"]),
+          "(j) non-finite example losses")
+    x0, y0, x1, y1 = recsys_retrieval.Q_RECT
+    r = ex["cand_rects"][ex["geo"], 0]
+    check(len(ex["geo"]) == 10 and bool(((r[:, 0] < x1) & (r[:, 2] > x0) & (r[:, 1] < y1)
+                                         & (r[:, 3] > y0)).all()),
+          "(j) a geo-constrained top-10 candidate misses the query area")
+    # the kernel at the example's shape against its plain version
+    geo = ex["geo_inputs"]
+    g = geo_score_docs(geo["cand_rects"][None], geo["cand_amps"][None],
+                       geo["q_rects"][None], geo["q_amps"][None])[0]
+    err_j = exact(g, plain_geo(geo), "(j) geo_score_docs at the example's shape", torch)
+    say(f"phase 10: (j) example: 100 finite losses, every geo top-10 id inside the query "
+        f"area, launches {counts}; geo_score_docs over {tuple(geo['cand_rects'].shape)} rects "
+        f"and {tuple(geo['q_rects'].shape)} query rects == plain (max abs err {err_j})")
+
+    # the published CONFIGs at train_batch: timings, the split, check (f)
+    report = []
+    for name in RECSYS_ARCHS:
+        spec = get_arch(name)
+        shape = spec.shape("train_batch")
+        B = shape.params["batch"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cell = build_recsys_cell(spec, shape, dev, RECSYS_SEED)
+        params, state, batch = cell.args
+        param_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+        opt_bytes = sum(t.numel() * t.element_size() for t in leaves(state))
+        check(param_bytes == spec.config.n_params() * 4, f"{name}: parameter bytes")
+        before = {k: t.to("cpu", copy=True) for k, t in params.items()}
+        metrics = []
+
+        def one():
+            metrics.append(cell.fn(*cell.args)[2])
+
+        for _ in range(TRAIN_WARMUP):
+            one()
+        times = []
+        for _ in range(TRAIN_RUNS):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            one()
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        ms = statistics.median(times)
+        # one step split by CUDA events, through the functions the step
+        # calls: value_and_grad (forward + loss, then backward) and
+        # adamw_update with the cell's optimizer config
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        loss_fn = recsys_loss(spec.config)
+
+        def timed_loss(prm, b):
+            out = loss_fn(prm, b)
+            ev[1].record()
+            return out
+
+        ev[0].record()
+        loss, _, grads = value_and_grad(timed_loss, params, batch)
+        ev[2].record()
+        _, _, m = adamw_update(TRAIN_OPT, grads, params, state)
+        ev[3].record()
+        ev[3].synchronize()
+        metrics.append({"loss": loss, **m})
+        del loss, grads
+        split = {"forward_loss": ev[0].elapsed_time(ev[1]), "backward": ev[1].elapsed_time(ev[2]),
+                 "adamw": ev[2].elapsed_time(ev[3])}
+        peak = torch.cuda.max_memory_allocated()
+        # (f) finite losses and norms, the step count, every leaf moved
+        n_steps = TRAIN_WARMUP + TRAIN_RUNS + 1
+        vals = torch.stack([torch.stack([x["loss"], x["grad_norm"]]) for x in metrics])
+        check(bool(torch.isfinite(vals).all()), f"(f) {name}: non-finite loss or grad_norm")
+        check(int(state["step"]) == n_steps, f"(f) {name}: step {int(state['step'])}, "
+              f"{n_steps} steps taken")
+        still = [k for k, t in params.items() if torch.equal(before[k], t.cpu())]
+        check(not still, f"(f) {name}: parameters that did not move: {still}")
+        flops = cell.model_flops
+        row = {"model": name, "shape": "train_batch", "rows": B, "ms": ms,
+               "rows_per_s": B / ms * 1e3, "model_flops": flops,
+               "flops_per_s": flops / ms * 1e3, "f32_share": flops / ms * 1e3 / F32_FLOPS_PER_S,
+               "param_gb": param_bytes / 1e9, "opt_state_gb": opt_bytes / 1e9,
+               "train_state_gb": (2 * param_bytes + opt_bytes) / 1e9, "peak_gib": peak / 2**30,
+               "split_ms": split, "loss_first_last": [float(vals[0, 0]), float(vals[-1, 0])]}
+        report.append(row)
+        say(f"phase 10: {name} train_batch: {ms:.4f} ms per step of {B} rows, "
+            f"{row['rows_per_s']:.1f} rows/s, {flops:.4g} model FLOP -> "
+            f"{row['flops_per_s'] / 1e12:.3f} TFLOP/s ({row['f32_share']:.4f} of "
+            f"{F32_FLOPS_PER_S / 1e12:g}e12); params {row['param_gb']:.3f} GB, optimizer state "
+            f"{row['opt_state_gb']:.3f} GB, train state (params + grads + m + v) "
+            f"{row['train_state_gb']:.3f} GB; peak {row['peak_gib']:.2f} GiB; split (ms) "
+            + json.dumps(split) + f"; (f) {n_steps} steps, losses and norms finite, every one "
+            f"of {len(before)} leaves moved")
+        del cell, params, state, batch, before, metrics, m
+        torch.cuda.empty_cache()
+    say("phase 10: " + json.dumps(report))
+    say(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 

@@ -22,9 +22,10 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
     return torch.device(device)
 
 
-def to_numpy(x) -> np.ndarray:
-    """A host numpy copy of a tensor on any device (or ``np.asarray`` of
-    anything else); reading a CUDA tensor waits for the work that writes it."""
+def to_numpy(x, copy: bool = False) -> np.ndarray:
+    """A host numpy array of a tensor on any device (or ``np.asarray`` of
+    anything else); reading a CUDA tensor waits for the work that writes it.
+    A CPU tensor's array shares its memory unless ``copy`` is true."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+        return x.detach().to("cpu", copy=copy).numpy()
+    return np.array(x, copy=True) if copy else np.asarray(x)

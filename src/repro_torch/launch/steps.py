@@ -1,15 +1,16 @@
 """Cell builders (port of the recsys part of ``repro/launch/steps.py``):
 (arch × shape) → a :class:`Cell` whose ``fn(*args)`` runs the step.
 
+* ``recsys_train``      train_step(params, opt_state, batch): the loss,
+                        its gradients and the AdamW update, in place
 * ``recsys_serve``      forward(params, batch) (two-tower: the user tower)
 * ``recsys_retrieval``  candidate scoring and top-k (two-tower: the towers,
                         the dot product, the optional geo blend)
 
 The reference's cells carry ``ShapeDtypeStruct``s for lowering; the port's
 carry real tensors on the device at the shape's sizes: parameters from
-``cfg.init(seed, device)``, batches from ``repro_torch.data.recsys``.
-``recsys_train`` waits for the training slice; the LM, GNN and geoweb
-cells for theirs.
+``cfg.init(seed, device)``, batches from ``repro_torch.data.recsys``.  The
+LM, GNN and geoweb cells wait for their slices.
 """
 from __future__ import annotations
 
@@ -24,6 +25,12 @@ from repro_torch.core.ranking import select_top
 from repro_torch.data import recsys as rec_data
 from repro_torch.device import resolve_device
 from repro_torch.models import recsys as rec_lib
+from repro_torch.train.loop import make_train_step
+from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+
+
+# the recsys_train cell's optimizer, the reference's
+TRAIN_OPT = OptimizerConfig(zero1=True)
 
 
 @dataclass
@@ -32,6 +39,10 @@ class Cell:
     shape: str
     fn: Callable
     args: tuple
+    # positions in ``args`` that ``fn`` updates in place (the reference's
+    # donated arguments); for the dry-run/mesh tooling of the multi-card
+    # slice, which reads the reference's ``donate`` there
+    donate: tuple = ()
     # analytic "useful" flops for this step (2 per multiply-add), global
     model_flops: float = 0.0
     note: str = ""
@@ -41,20 +52,34 @@ class Cell:
 # RecSys cells
 # ---------------------------------------------------------------------------
 
-def recsys_batch(cfg, B: int, device, seed: int) -> dict:
-    """The step's batch at ``B`` rows, from the port's generators."""
+def recsys_batch(cfg, B: int, device, seed: int, step: int = 0) -> dict:
+    """The batch of ``step`` at ``B`` rows, from the port's generators."""
     name = type(cfg).__name__
     if name in ("DCNv2Config", "AutoIntConfig"):
         vocabs = cfg.vocab_sizes or (100_000,) * cfg.n_sparse
         n_dense = cfg.n_dense if name == "DCNv2Config" else 0
-        return rec_data.ctr_batch(B, n_dense, vocabs, seed=seed, device=device)
+        return rec_data.ctr_batch(B, n_dense, vocabs, seed=seed, step=step, device=device)
     if name == "BSTConfig":
         return rec_data.bst_batch(B, cfg.n_items, cfg.seq_len, cfg.n_other_fields,
-                                  cfg.field_vocab, seed=seed, device=device)
+                                  cfg.field_vocab, seed=seed, step=step, device=device)
     if name == "TwoTowerConfig":
         return rec_data.two_tower_batch(
             B, cfg.n_users, cfg.n_items, cfg.n_user_fields, cfg.n_item_fields,
-            cfg.field_vocab, cfg.hist_len, seed=seed, device=device)
+            cfg.field_vocab, cfg.hist_len, seed=seed, step=step, device=device)
+    raise ValueError(name)
+
+
+def recsys_loss(cfg):
+    """The arch's loss(params, batch) -> (loss, metrics)."""
+    name = type(cfg).__name__
+    if name == "DCNv2Config":
+        return partial(rec_lib.dcn_v2_loss, cfg)
+    if name == "AutoIntConfig":
+        return partial(rec_lib.autoint_loss, cfg)
+    if name == "BSTConfig":
+        return partial(rec_lib.bst_loss, cfg)
+    if name == "TwoTowerConfig":
+        return partial(rec_lib.two_tower_loss, cfg)
     raise ValueError(name)
 
 
@@ -129,23 +154,30 @@ def _two_tower_retrieval_flops(cfg, B: int, Nc: int) -> float:
 
 
 def build_recsys_cell(
-    spec: ArchSpec, shape: ShapeSpec, device=None, seed: int = 0, geo: dict | None = None
+    spec: ArchSpec, shape: ShapeSpec, device=None, seed: int = 0, geo: dict | None = None,
 ) -> Cell:
     """The (arch, shape) cell with its inputs on ``device`` (CUDA unless
     given).  ``geo`` (two-tower ``recsys_retrieval`` only) is the
     reference's geo dict: ``cand_rects [Nc,R,4]``, ``cand_amps [Nc,R]``,
-    ``q_rects [Q,4]``, ``q_amps [Q]``, ``weight``."""
+    ``q_rects [Q,4]``, ``q_amps [Q]``, ``weight``.  ``recsys_train``
+    steps with :data:`TRAIN_OPT`."""
     cfg = spec.config
     p = shape.params
-    if shape.kind == "recsys_train":
-        raise NotImplementedError(
-            f"{spec.name}/{shape.name}: recsys_train waits for the port's training slice")
     if geo is not None and not (shape.kind == "recsys_retrieval"
                                 and type(cfg).__name__ == "TwoTowerConfig"):
         raise ValueError("geo applies to the two-tower retrieval cell only")
     dev = resolve_device(device)
     fwd = _recsys_forward(cfg)
     params = cfg.init(seed, dev)
+
+    if shape.kind == "recsys_train":
+        B = p["batch"]
+        step = make_train_step(recsys_loss(cfg), TRAIN_OPT)
+        batch = recsys_batch(cfg, B, dev, seed)
+        return Cell(
+            spec.name, shape.name, step, (params, init_opt_state(TRAIN_OPT, params), batch),
+            donate=(0, 1), model_flops=_recsys_flops(cfg, B, True),
+        )
 
     if shape.kind == "recsys_serve":
         B = p["batch"]

@@ -1,5 +1,6 @@
-"""RecSys architectures, forward functions (port of ``repro/models/recsys.py``):
-two-tower retrieval with the geo_score blend, DCN-v2, AutoInt, BST.
+"""RecSys architectures, forwards and differentiable losses (port of
+``repro/models/recsys.py``): two-tower retrieval with the geo_score blend,
+DCN-v2, AutoInt, BST.
 
 The functions keep the reference's ``(cfg, params, batch)`` signatures:
 ``params`` is the dict ``cfg.init(seed, device)`` (or
@@ -14,8 +15,12 @@ batch dict follows the reference's convention:
 
 Ids are in range by construction; −1 marks padding where a function says
 so (it is clamped to row 0 and masked).  The reference's ``shard``
-annotations are no-ops on one device and are left out.  The losses return
-their forward value only; gradients come with the training slice.
+annotations are no-ops on one device and are left out.  The losses are
+differentiable end to end (no host sync, no in-place write on autograd's
+path), with the reference's gradients: a clamped padding id masks row 0's
+gradient to zero, and ``max`` bags split a tie's gradient evenly
+(``amax``, as JAX's ``max``).  The two-tower in-batch softmax runs as
+:class:`InBatchSoftmaxNLL`, which keeps one [B, B] buffer.
 """
 from __future__ import annotations
 
@@ -196,14 +201,59 @@ def two_tower_item(cfg: TwoTowerConfig, p: dict, item_id, item_fields) -> torch.
     return _unit(_mlp_apply(p, "item", x, cfg.n_tower_layers, last_act=False))
 
 
+def in_batch_softmax_nll_plain(u: torch.Tensor, v: torch.Tensor, logq: torch.Tensor,
+                               temperature: float) -> torch.Tensor:
+    """The in-batch sampled softmax NLL op for op as the reference writes
+    it; :class:`InBatchSoftmaxNLL` is held to it.  Its autograd keeps
+    several [B, B] tensors."""
+    logits = (u @ v.T) / temperature  # [B, B]
+    logits = logits - logq[None, :]  # logQ correction
+    lse = torch.logsumexp(logits, dim=-1)
+    return torch.mean(lse - torch.diagonal(logits))
+
+
+class InBatchSoftmaxNLL(torch.autograd.Function):
+    """``mean_i(logsumexp_j L_ij − L_ii)`` with ``L = u·vᵀ/τ − logq``, in
+    one saved [B, B] buffer, with the arithmetic of the plain version's
+    autograd.  The forward writes the logits into the buffer and takes
+    ``logsumexp`` over blocks of rows (its temporary is one block, not
+    [B, B]); the backward turns the buffer in place into
+    ``dL = exp(L − lse)·g/B − I·g/B``, takes ``dlogq = −Σ_i dL_ij``, then
+    ``dS = dL/τ`` and the two GEMMs, so a forward takes one backward (a
+    second one raises, autograd seeing the buffer modified).  At batch
+    65,536 the buffer is 16 GiB; the plain version's autograd keeps and
+    makes several."""
+
+    BLOCK_ELEMENTS = 1 << 28  # logsumexp's temporary: 1 GiB of f32
+
+    @staticmethod
+    def forward(ctx, u, v, logq, temperature: float):
+        buf = torch.matmul(u, v.T)
+        buf.div_(temperature).sub_(logq[None, :])  # the logits
+        rows = max(1, InBatchSoftmaxNLL.BLOCK_ELEMENTS // buf.shape[1])
+        lse = torch.cat([torch.logsumexp(blk, dim=-1) for blk in buf.split(rows)])
+        ctx.save_for_backward(u, v, buf, lse)
+        ctx.temperature = temperature
+        return torch.mean(lse - buf.diagonal())
+
+    @staticmethod
+    def backward(ctx, g):
+        u, v, buf, lse = ctx.saved_tensors
+        g_row = g / buf.shape[0]
+        buf.sub_(lse[:, None]).exp_().mul_(g_row)  # softmax · g/B
+        buf.diagonal().sub_(g_row)  # dL
+        dlogq = -buf.sum(dim=0) if ctx.needs_input_grad[2] else None
+        buf.div_(ctx.temperature)  # dS
+        du = buf @ v if ctx.needs_input_grad[0] else None
+        dv = buf.T @ u if ctx.needs_input_grad[1] else None
+        return du, dv, dlogq, None
+
+
 def two_tower_loss(cfg: TwoTowerConfig, params: dict, batch: dict):
     """In-batch sampled softmax with logQ correction (batch["logq"] [B])."""
     u = two_tower_user(cfg, params, batch)  # [B, E]
     v = two_tower_item(cfg, params, batch["target"], batch["item_fields"])  # [B, E]
-    logits = (u @ v.T) / cfg.temperature  # [B, B]
-    logits = logits - batch["logq"][None, :]  # logQ correction
-    lse = torch.logsumexp(logits, dim=-1)
-    nll = torch.mean(lse - torch.diagonal(logits))
+    nll = InBatchSoftmaxNLL.apply(u, v, batch["logq"], cfg.temperature)
     return nll, {"nll": nll}
 
 

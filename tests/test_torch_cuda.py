@@ -670,3 +670,65 @@ def test_two_tower_geo_retrieval_kernel_equals_plain_on_card(cuda, side):
         assert n_match < top_k
         outside = torch.nonzero(g == 0)[: top_k - n_match, 0]
         assert torch.equal(ids[0, n_match:], outside)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["two-tower-retrieval", "dcn-v2", "autoint", "bst"])
+def test_smoke_train_step_on_card_matches_cpu(cuda, name):
+    """One train step of the SMOKE config on the card and on the CPU from
+    the same weights and batch: loss, norm, lr and every parameter within
+    rtol 1e-4 / atol 1e-5 (cuBLAS and the CPU's BLAS sum in other orders)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.steps import recsys_batch, recsys_loss
+    from repro_torch.models.params import params_from_numpy
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+
+    cfg = get_arch(name).smoke_config
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    step = make_train_step(recsys_loss(cfg), opt)
+    p_cpu = cfg.init(0, "cpu")
+    p_dev = params_from_numpy(cfg.param_defs(), {k: v.numpy() for k, v in p_cpu.items()}, cuda)
+    s_cpu, s_dev = init_opt_state(opt, p_cpu), init_opt_state(opt, p_dev)
+    batch = recsys_batch(cfg, 512, "cpu", 0)
+    _, _, m_cpu = step(p_cpu, s_cpu, batch)
+    _, _, m_dev = step(p_dev, s_dev, {k: v.to(cuda) for k, v in batch.items()})
+    for k in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(m_dev[k].cpu(), m_cpu[k], rtol=1e-4, atol=1e-5)
+    for k in p_cpu:
+        torch.testing.assert_close(p_dev[k].cpu(), p_cpu[k], rtol=1e-4, atol=1e-5)
+    assert int(s_dev["step"]) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["two-tower-retrieval", "dcn-v2"])
+def test_fault_replay_on_card_bitwise(cuda, name, tmp_path):
+    """``run`` on the card with a checkpoint every 2 steps and a failure at
+    step 5: params, moments and step after 8 steps equal a run without the
+    failure bitwise."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.steps import recsys_batch, recsys_loss
+    from repro_torch.train.loop import LoopConfig, make_train_step, run
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.tree import leaves
+
+    cfg = get_arch(name).smoke_config
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    step = make_train_step(recsys_loss(cfg), opt)
+
+    def init_state():
+        params = cfg.init(0, cuda)
+        return params, init_opt_state(opt, params)
+
+    def batch_fn(s):
+        return recsys_batch(cfg, 512, cuda, 0, s)
+
+    logs = []
+    faulty = run(LoopConfig(total_steps=8, ckpt_every=2, ckpt_dir=str(tmp_path), log_every=1,
+                            simulate_failure_at=5), step, init_state, batch_fn, log=logs.append)
+    clean = run(LoopConfig(total_steps=8, log_every=1), step, init_state, batch_fn,
+                log=lambda line: None)
+    assert "[fault] restoring step 4" in logs
+    assert dict(faulty[2]) == dict(clean[2])
+    for a, b in zip(leaves(faulty[:2]), leaves(clean[:2])):
+        assert a.device.type == "cuda" and torch.equal(a, b)

@@ -435,8 +435,10 @@ def test_build_recsys_cell_runs_on_cpu(name):
     vals, idx = retr.fn(*retr.args)
     assert idx.shape[-1] == 100 and torch.isfinite(vals).all()
     assert (vals[..., :-1] >= vals[..., 1:]).all()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        p_steps.build_recsys_cell(spec, spec.shape("train_batch"), device=CPU)
+    train = p_steps.build_recsys_cell(spec, spec.shape("train_batch"), device=CPU, seed=1)
+    _, state, metrics = train.fn(*train.args)
+    assert torch.isfinite(metrics["loss"]) and int(state["step"]) == 1
+    assert train.model_flops == j_steps._recsys_flops(j_get_arch(name).smoke_config, rows, True)
 
 
 def test_two_tower_cell_with_geo_matches_the_function():
