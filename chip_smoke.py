@@ -35,12 +35,16 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    slots — and each variant's batch latency; times the unpruned scorer
    again with every window at one origin (all windows on a few store
    tiles), beside a torch fill of its output's size and the store bytes
-   its windows request and the unique bytes;
+   its windows request and the unique bytes; beside each kernel's time
+   (CUDA events around one call), its device time: 100 launches queued
+   behind a spin kernel between one pair of events, over 100; and
+   ``geo_score`` both ways at phase 9's retrieval shape;
 5. runs one profiler pass per variant (phase 7's sharded executor too):
    each stage's host time and device time, and the device's idle share
    over a batch; and one over each of phase 9's recsys cells (the
-   geo-blended retrieval and every serve shape): the device's busy time,
-   idle share and top device ops;
+   geo-blended retrieval and every serve shape) and over a prefill (2,048
+   tokens) and a decode step (4,096 cached tokens) of each of phase 12's
+   LMs: the device's busy time, idle share and top device ops;
 6. serves 2048-query traces through ``GeoServer`` over the phase-3 index,
    at ``launch/serve.py``'s defaults (Landlord cache of 512, deadline
    batcher of 32 × 8 terms × 4 rects, 5 ms deadline open loop):
@@ -143,6 +147,32 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    optimizer-state bytes, peak memory; (f) finite losses and gradient
    norms, the optimizer's step count equal to the steps taken, every
    parameter leaf moved.  It runs after phase 9 and before phase 5.
+11. runs the paper's two example drivers and the geoweb cells: (a)
+   ``repro_torch.examples.quickstart`` on the card, its printed lines equal
+   to its CPU run's in this process; (b) ``geosearch_serve.run`` at its
+   defaults (20,000 docs, 512 queries, batch 64), plain and with
+   ``--use-pallas``: the counter sums and recall equal, the last K-SWEEP
+   batch's ids and scores bitwise, the ``geo_score`` launches of the
+   kernel run counted (one per K-SWEEP batch and its warm-up; added to
+   the kernel table's), queries/s, ms per query and the cost models per
+   algorithm; (c) the three geoweb SMOKE cells
+   (``launch.steps.build_cell``) on a one-card mesh equal to the same
+   cells on the CPU (ids and counters exactly, scores within 1e-5), and
+   the published ``CONFIG``'s int32 guard raising on that mesh.  It runs
+   after phase 10 and before phase 5.
+12. serves the three dense LMs (``smollm-135m``, ``qwen1.5-0.5b``,
+   ``qwen2.5-14b``) through ``build_lm_cell``: each SMOKE config at f32
+   compute gives the same forward, prefill, decode and cache on the card
+   as on the CPU (rtol 1e-4 / atol 1e-5); then each published config,
+   f32 parameters and bf16 compute, built and freed in turn: decode of
+   token 512 after a 512-token prefill equals a 513-token prefill's last
+   logits within ``LM_BF16_TOL`` of the largest logit, and its
+   ``prefill_32k`` and ``decode_32k`` cells (and SmolLM-135M's
+   ``long_500k_sliding``) at the batch and sequence of ``LM_CUTS``, each
+   cut printed with its KV arithmetic: ms per prefill or decode step (CUDA
+   events, median of 3 after a warm-up; the 524,288-token step once),
+   tokens/s, model FLOPs as a share of 989e12, peak memory, finite logits.
+   It runs after phase 11 and before phase 5.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -248,6 +278,48 @@ TRAIN_SMOKE_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=4)
 REPLAY_ARCHS = ("two-tower-retrieval", "dcn-v2")
 REPLAY_STEPS, REPLAY_CKPT_EVERY, REPLAY_FAILURE = 8, 2, 5
 REPLAY_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
+# phase 4's device times: back-to-back launches queued behind a spin
+# kernel (torch.cuda._sleep), so the card runs them without host gaps
+DEVICE_LAUNCHES = 100
+SPIN_CYCLES = 40_000_000  # ~20 ms at 1.98 GHz
+# phase 12: dense LM serving at published widths, f32 parameters, bf16
+# compute.  Every width is published; batch and sequence are cut to one
+# card's 80 GB and to the script's time limit (the reference's flash loop
+# passes over a [B, S, KVH, G, 512] f32 score block per KV chunk, so a
+# prefill costs O(S^2) passes: SmolLM-135M at B 1 x 32,768 is ~14 s).
+# (global_batch, seq_len) per (arch, shape)
+LM_ARCHS = ("smollm-135m", "qwen1.5-0.5b", "qwen2.5-14b")
+LM_CUTS = {
+    ("smollm-135m", "prefill_32k"): (1, 8192),
+    ("smollm-135m", "decode_32k"): (64, 32768),
+    ("smollm-135m", "long_500k_sliding"): (1, 524288),
+    ("qwen1.5-0.5b", "prefill_32k"): (1, 8192),
+    ("qwen1.5-0.5b", "decode_32k"): (16, 32768),
+    ("qwen2.5-14b", "prefill_32k"): (1, 4096),
+    ("qwen2.5-14b", "decode_32k"): (1, 32768),
+}
+LM_SEED = 0
+LM_WARMUP = 1
+LM_RUNS = 3
+# long_500k_sliding: one step, no warm-up (1,024 KV chunks per layer per
+# step: ~22 s on the card, host-bound in the flash loop)
+LM_LONG = (0, 1)
+# decode of token S after an S-token prefill vs an (S+1)-token prefill's
+# last position, at full width in bf16.  The 513-token prefill runs as one
+# KV chunk (attn_chunk 513: Skv % chunk == 0 as the reference asserts)
+LM_CHECK_S = 512
+# phase 5's LM profiles: a prefill of 2,048 tokens and a decode step over
+# 4,096 cached ones, batch 1 (4 and 8 KV chunks per layer: the flash loop's
+# per-chunk work at a size whose profile stays small)
+LM_PROFILE_CUT = (2048, 4096)
+# H100 SXM dense bf16 tensor-core peak (NVIDIA H100 data sheet, SXM)
+BF16_FLOPS_PER_S = 989e12
+# bf16 keeps 8 significant bits; the two paths run other GEMM shapes
+# (cuBLAS picks other kernels, so other summation orders) and a one-chunk
+# vs two-chunk softmax, and their roundings compound over up to 48 layers:
+# max |diff| within 2^-4 of max |logit| (the CPU tests allow 2^-5 for 2
+# layers of XLA-vs-torch rounding)
+LM_BF16_TOL = 2.0**-4
 
 
 def check(cond: bool, what: str) -> None:
@@ -274,6 +346,29 @@ def time_ms(fn, torch, runs: int = RUNS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, torch, launches: int = DEVICE_LAUNCHES) -> float:
+    """Device time per launch of ``fn``: ``launches`` launches queued behind
+    a spin kernel between one pair of CUDA events, so they run back to back
+    on the card.  Checks that the host queued them all before the spin
+    ended (else the figure would hold host gaps)."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    ev[1].record()
+    t = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    host = (time.perf_counter() - t) * 1e3
+    ev[2].record()
+    ev[2].synchronize()
+    spin = ev[0].elapsed_time(ev[1])
+    check(host < spin, f"device_ms: queuing {launches} launches took {host:.3f} ms, longer "
+          f"than the {spin:.3f} ms spin")
+    return ev[1].elapsed_time(ev[2]) / launches
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
@@ -837,17 +932,37 @@ def main() -> int:
                 x, y = x.view(torch.int32), y.view(torch.int32)
             max_err[name] = max(max_err[name], exact(x, y, f"{name} at timing shapes", torch))
         ms_kernel = time_ms(kern, torch)
+        ms_device = device_ms(kern, torch)
         ms_plain = time_ms(plain, torch, runs=RUNS)
         src, replaces = SOURCES[name]
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": main_counts[name], "max_abs_err": max_err[name],
-            "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
+            "ms": ms_kernel, "device_ms": ms_device, "plain_ms": ms_plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
         })
-        say(f"phase 4: {name}: kernel {ms_kernel:.4f} ms, plain {ms_plain:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), {main_counts[name]} launches in "
+        say(f"phase 4: {name}: kernel {ms_kernel:.4f} ms (events around one call), device "
+            f"{ms_device:.4f} ms ({DEVICE_LAUNCHES} back-to-back launches), plain "
+            f"{ms_plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {main_counts[name]} launches in "
             f"{kernel_batches[name]} batches (or prefilter calls) that reach it")
+    # geo_score at phase 9's retrieval shape (1,000,000 candidates x
+    # GEO_RECTS rects, 2 query rects), timed both ways
+    geo = recsys_geo(1_000_000, 0.08, GEO_Q_RECTS, dev)
+    flat_r, flat_a = geo["cand_rects"].reshape(1, -1, 4), geo["cand_amps"].reshape(1, -1)
+    gqr, gqa = pad_query(geo["q_rects"][None], geo["q_amps"][None])
+    kern = lambda: GK.geo_score_cuda(flat_r, flat_a, gqr, gqa)  # noqa: E731
+    exact(kern(), GR.geo_score_toeprints_ref(flat_r, flat_a, gqr, gqa),
+          "geo_score kernel at the retrieval shape", torch)
+    n_tp = flat_a.numel()
+    b_ms, b_by = bound_ms(n_tp * (STORE_BYTES + 4.0), n_tp * (OPS_PER_SLOT * len(GEO_Q_RECTS) + 1))
+    retrieval = {"ms": time_ms(kern, torch), "device_ms": device_ms(kern, torch),
+                 "bound_ms": b_ms, "bound_by": b_by}
+    table[[r["name"] for r in table].index("geo_score")]["retrieval_shape"] = retrieval
+    say(f"phase 4: geo_score at the retrieval shape ({n_tp} rects, {len(GEO_Q_RECTS)} query "
+        f"rects): kernel {retrieval['ms']:.4f} ms (events around one call), device "
+        f"{retrieval['device_ms']:.4f} ms ({DEVICE_LAUNCHES} back-to-back launches), bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    del geo, flat_r, flat_a
     for name, times in latency.items():
         say(f"phase 4: {name}: batch latency median {1e3 * statistics.median(times):.2f} ms, "
             f"{len(times) * BATCH / sum(times):.1f} queries/s")
@@ -864,10 +979,17 @@ def main() -> int:
     torch.cuda.empty_cache()  # phase 9's cells are freed
     # ---- phase 10: recsys training, before the profiler pass ------------
     train_counts = training_phase()
+    torch.cuda.empty_cache()
+    # ---- phase 11: the geo examples and the geoweb cells ----------------
+    example_counts = examples_phase()
+    torch.cuda.empty_cache()
+    # ---- phase 12: dense LM serving at published widths -----------------
+    lm_phase()
+    torch.cuda.empty_cache()
     for row in table:
         main_counts[row["name"]] += (serve_counts[row["name"]] + shard_counts[row["name"]]
                                      + tel_counts[row["name"]] + rec_counts[row["name"]]
-                                     + train_counts[row["name"]])
+                                     + train_counts[row["name"]] + example_counts[row["name"]])
         row["launches"] = main_counts[row["name"]]
     # ---- phase 5: one profiler pass per variant, after every timing, so
     # no profiler session runs before or during a timed run ---------------
@@ -875,6 +997,9 @@ def main() -> int:
         for line in profile_batch(lambda: ex.run(batches[0]), torch, SPANS[algorithm]):
             say(f"phase 5: {name}: profile (batch 0): {line}")
     for name, lines in recsys_profiles():
+        for line in lines:
+            say(f"phase 5: {name}: profile: {line}")
+    for name, lines in lm_profiles():
         for line in lines:
             say(f"phase 5: {name}: profile: {line}")
     say(f"peak device memory of phases 1-8 {peak / 2**30:.2f} GiB; "
@@ -1934,6 +2059,252 @@ def training_phase() -> dict[str, int]:
     return counts
 
 
+def examples_phase() -> dict[str, int]:
+    """Phase 11: the paper's two example drivers and the geoweb cells (see
+    the module docstring).  Returns the geo_score launches of the driven
+    ``--use-pallas`` run."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import make_mesh
+    from repro_torch.examples import geosearch_serve, quickstart
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_cell
+
+    t_phase = time.perf_counter()
+    # (a) quickstart on the card; its lines equal the CPU run's (the same
+    # numpy in this process, so the same corpus)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu_lines = quickstart.main("cpu")
+    t = time.perf_counter()
+    card_lines = quickstart.main(DEVICE)
+    check(card_lines == cpu_lines, f"phase 11 (a): quickstart card lines {card_lines} differ "
+          f"from the CPU's {cpu_lines}")
+    say(f"phase 11 (a): quickstart on the card in {time.perf_counter() - t:.1f} s: its "
+        f"{len(card_lines)} lines equal the CPU run's")
+
+    # (b) geosearch_serve at its defaults, plain, then through the kernel
+    # (the driven run: launch counts from 0 just before, read just after)
+    t = time.perf_counter()
+    plain = geosearch_serve.run(geosearch_serve.parse_args([]), DEVICE)
+    plain_s = time.perf_counter() - t
+    reset_launch_counts()
+    t = time.perf_counter()
+    args = geosearch_serve.parse_args(["--use-pallas"])
+    kern = geosearch_serve.run(args, DEVICE)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    kern_s = time.perf_counter() - t
+    # K-SWEEP scores through geo_score once per batch: the warm-up batch and
+    # the timed batches (the recall batch runs the default scorer, as the
+    # reference's example does)
+    n_k = args.n_queries // args.batch + 1
+    check(counts == {**{k: 0 for k in counts}, "geo_score": n_k},
+          f"phase 11 (b): --use-pallas launched {counts}, not geo_score {n_k} times")
+    for a, b in zip(plain, kern):
+        for key in ("algorithm", "n", "seeks", "bytes_seq", "bytes_random", "recall"):
+            check(a[key] == b[key], f"phase 11 (b): {a['algorithm']} {key}: plain {a[key]}, "
+                  f"kernel {b[key]}")
+    ks = plain[-1]["algorithm"]
+    exact(kern[-1]["last"].ids, plain[-1]["last"].ids, f"phase 11 (b) {ks} ids", torch)
+    exact(kern[-1]["last"].scores, plain[-1]["last"].scores, f"phase 11 (b) {ks} scores", torch)
+    for tag, rows in (("plain", plain), ("geo_score kernel", kern)):
+        for r in rows:
+            say(f"phase 11 (b): {tag} {r['algorithm']}: {r['qps']:.1f} queries/s, "
+                f"{r['ms_per_q']:.4f} ms per query, recall@10 {r['recall']:.4f}, counters "
+                f"seeks {r['seeks']:.0f} bytes_seq {r['bytes_seq']:.0f} bytes_random "
+                f"{r['bytes_random']:.0f}; cost models t_disk2010 {r['t_disk2010'] * 1e3:.4f} ms, "
+                f"t_hbm_h100 {r['t_hbm_h100'] * 1e6:.4f} us per query")
+    say(f"phase 11 (b): geosearch_serve ({args.n_docs} docs, {args.n_queries} queries, batch "
+        f"{args.batch}) plain in {plain_s:.1f} s, --use-pallas in {kern_s:.1f} s: counters and "
+        f"recall equal, the last {ks} batch's ids and scores bitwise; launches {counts}")
+    del plain, kern
+
+    # (c) the three geoweb SMOKE cells on a one-card mesh vs the CPU's
+    spec = get_arch("geoweb")
+    smoke = dataclasses.replace(spec, config=spec.smoke_config)
+    meshes = {d: make_mesh((1, 1), ("data", "model"), device=d) for d in (DEVICE, "cpu")}
+    for shape in spec.shapes:
+        shape_name = shape.name
+        card = build_cell(smoke, shape, meshes[DEVICE])
+        cpu = build_cell(smoke, shape, meshes["cpu"])
+        (ids, scores, stats), (c_ids, c_scores, c_stats) = card.fn(*card.args), cpu.fn(*cpu.args)
+        exact(ids.cpu(), c_ids, f"phase 11 (c) {shape_name} ids", torch)
+        check(sorted(stats) == sorted(c_stats), f"phase 11 (c) {shape_name}: stats keys differ")
+        for k in stats:
+            exact(stats[k].cpu(), c_stats[k], f"phase 11 (c) {shape_name} stats[{k}]", torch)
+        # scores, as phase 2's small corpus, within 1e-5
+        check(bool(torch.allclose(scores.cpu(), c_scores, rtol=1e-5, atol=1e-6)),
+              f"phase 11 (c) {shape_name}: scores card vs CPU")
+        check(int((ids >= 0).sum()) > 0, f"phase 11 (c) {shape_name}: no hits")
+        say(f"phase 11 (c): geoweb {shape_name} (SMOKE, 1 x 1 mesh): card == CPU in ids and "
+            f"every counter, scores within 1e-5; {int((ids >= 0).sum())} hits over "
+            f"{ids.shape[0]} queries; model_flops {card.model_flops:.6g}")
+    try:
+        build_cell(spec, spec.shapes[0], meshes[DEVICE])
+    except ValueError as e:
+        check(">= 8 devices" in str(e), f"phase 11 (c): the CONFIG guard raised {e}")
+        say(f"phase 11 (c): CONFIG on the 1 x 1 mesh raises: {e}")
+    else:
+        check(False, "phase 11 (c): CONFIG on a 1 x 1 mesh did not raise the int32 guard")
+    torch.cuda.synchronize()
+    say(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def lm_phase() -> None:
+    """Phase 12: dense LM serving at published widths (see the module
+    docstring)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.lm import LMDataConfig, lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_lm_cell
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import params_from_numpy
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "phase 12: f32 matmuls must run at full f32, no TF32")
+    say(f"phase 12: {torch.cuda.memory_allocated() / 2**30:.2f} GiB held by earlier phases")
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+
+    # the SMOKE configs at f32 compute: card == CPU (the same weights)
+    for name in LM_ARCHS:
+        cfg = dataclasses.replace(get_arch(name).smoke_config, compute_dtype=torch.float32)
+        p_cpu = cfg.init(LM_SEED, "cpu")
+
+        def arrays(tree):
+            return {k: arrays(v) if isinstance(v, dict) else v.numpy() for k, v in tree.items()}
+
+        p_dev = params_from_numpy(cfg.param_defs(), arrays(p_cpu), dev)
+        b = lm_batch(LMDataConfig(cfg.vocab, 32, 2, LM_SEED), 0, "cpu")
+        errs = {"forward": card_close(tf.forward(cfg, p_dev, b["tokens"].to(dev))[0],
+                                      tf.forward(cfg, p_cpu, b["tokens"])[0], f"{name} forward")}
+        caches = {d: tf.make_cache(cfg, 2, 48, d) for d in ("cpu", dev)}
+        pre = {d: tf.prefill(cfg, p, b["tokens"].to(d), caches[d])[0]
+               for d, p in (("cpu", p_cpu), (dev, p_dev))}
+        errs["prefill"] = card_close(pre[dev], pre["cpu"], f"{name} prefill logits")
+        nxt = b["labels"][:, -2]
+        dec = {d: tf.decode_step(cfg, p, caches[d], nxt.to(d), 32)[0]
+               for d, p in (("cpu", p_cpu), (dev, p_dev))}
+        errs["decode"] = card_close(dec[dev], dec["cpu"], f"{name} decode logits")
+        for k in ("k", "v"):
+            errs[f"cache {k}"] = card_close(caches[dev][k], caches["cpu"][k], f"{name} cache {k}")
+        say(f"phase 12: {name} smoke (f32 compute): card == CPU within rtol 1e-4 / atol 1e-5 "
+            "(forward, 32-token prefill, decode at 32); max abs " + json.dumps(errs))
+        del p_dev, caches
+
+    report = []
+    for name in LM_ARCHS:
+        spec = get_arch(name)
+        cfg = spec.config
+        t = time.perf_counter()
+        params = cfg.init(LM_SEED, dev)
+        torch.cuda.synchronize()
+        param_bytes = cfg.n_params() * 4
+        kv_token = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.d_head * 2
+        say(f"phase 12: {name}: f32 parameters {param_bytes / 1e9:.3f} GB initialised in "
+            f"{time.perf_counter() - t:.1f} s; KV cache {kv_token} bytes per token "
+            f"(layers {cfg.n_layers} x 2 x kv heads {cfg.n_kv_heads} x d_head {cfg.d_head} x 2)")
+
+        # full width: decode of token S after an S-token prefill == the
+        # (S+1)-token prefill's last position, within LM_BF16_TOL
+        S = LM_CHECK_S
+        toks = lm_batch(LMDataConfig(cfg.vocab, S + 1, 1, LM_SEED), 0, dev)["tokens"]
+        cache = tf.make_cache(cfg, 1, 2 * S, dev)
+        tf.prefill(cfg, params, toks[:, :S], cache)
+        dec = tf.decode_step(cfg, params, cache, toks[:, S], S)[0]
+        one = dataclasses.replace(cfg, attn_chunk=S + 1)
+        full = tf.prefill(one, params, toks, tf.make_cache(one, 1, S + 1, dev))[0]
+        d, v = dec[:, :cfg.vocab].float(), full[:, :cfg.vocab].float()
+        check(bool(torch.isfinite(d).all() and torch.isfinite(v).all()),
+              f"phase 12: {name}: non-finite logits in the decode check")
+        rel = float((d - v).abs().max() / v.abs().max())
+        check(rel <= LM_BF16_TOL, f"phase 12: {name}: decode at {S} vs the {S + 1}-token "
+              f"prefill differ by {rel:.4g} of the largest logit (> {LM_BF16_TOL})")
+        say(f"phase 12: {name}: decode of token {S} after a {S}-token prefill == the "
+            f"{S + 1}-token prefill's last logits within {rel:.4g} of the largest |logit| "
+            f"(tolerance {LM_BF16_TOL}); argmax equal: {bool(d.argmax() == v.argmax())}")
+        del cache, dec, full, d, v, toks
+
+        for shape in spec.shapes:
+            if shape.skip:
+                say(f"phase 12: {name} {shape.name} not run (skip): {shape.skip}")
+                continue
+            if (name, shape.name) not in LM_CUTS:
+                if shape.kind == "lm_train":
+                    say(f"phase 12: {name} {shape.name} not run: LM training is ROADMAP Queue 1 "
+                        "item 3")
+                else:
+                    say(f"phase 12: {name} {shape.name} not run (the window variant runs on "
+                        "SmolLM-135M only, for time)")
+                continue
+            B0, S0 = shape.params["global_batch"], shape.params["seq_len"]
+            B, S = LM_CUTS[(name, shape.name)]
+            if (B, S) == (B0, S0):
+                why = "run as published"
+            elif B0 * S0 * kv_token + param_bytes > card_bytes:
+                why = "does not fit the card"
+            else:
+                why = "fits the card; cut for the time limit"
+            say(f"phase 12: {name} {shape.name}: published {B0} x {S0} = KV "
+                f"{B0 * S0 * kv_token / 1e9:.2f} GB beside {param_bytes / 1e9:.2f} GB of "
+                f"parameters ({why}: the card holds {card_bytes / 1e9:.2f} GB); run at "
+                f"{B} x {S} = KV {B * S * kv_token / 1e9:.2f} GB")
+            cut = dataclasses.replace(shape, params={**shape.params, "global_batch": B,
+                                                     "seq_len": S})
+            torch.cuda.reset_peak_memory_stats()
+            cell = build_lm_cell(spec, cut, dev, LM_SEED, params=params)
+            warm, runs = LM_LONG if S > 32768 else (LM_WARMUP, LM_RUNS)
+            reset_launch_counts()
+            times = []
+            for i in range(warm + runs):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                logits = cell.fn(*cell.args)[0]  # (the cache it returns is the cell's)
+                ev[1].record()
+                ev[1].synchronize()
+                if i >= warm:
+                    times.append(ev[0].elapsed_time(ev[1]))
+            counts = launch_counts()
+            check(not any(counts.values()), f"phase 12: {name} {shape.name} launched {counts}")
+            check(logits.shape == (B, cfg.padded_vocab)
+                  and bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
+                  f"phase 12: {name} {shape.name}: logits not finite or of shape "
+                  f"{tuple(logits.shape)}")
+            ms = statistics.median(times)
+            n_tok = B * S if shape.kind == "lm_prefill" else B
+            row = {"model": name, "shape": shape.name, "kind": shape.kind, "batch": B,
+                   "seq_len": S, "ms": ms, "runs_ms": times, "tokens_per_s": n_tok / ms * 1e3,
+                   "model_flops": cell.model_flops,
+                   "bf16_share": cell.model_flops / ms * 1e3 / BF16_FLOPS_PER_S,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            if "attn_window" in shape.params:
+                row["attn_window"] = shape.params["attn_window"]
+            report.append(row)
+            say(f"phase 12: {name} {shape.name} at {B} x {S}: {ms:.3f} ms per "
+                f"{'prefill' if shape.kind == 'lm_prefill' else 'decode step'} (median of "
+                f"{runs} after {warm} warm-up), {row['tokens_per_s']:.1f} tokens/s, {cell.model_flops:.4g} model FLOP "
+                f"-> {row['bf16_share']:.5f} of {BF16_FLOPS_PER_S / 1e12:g}e12; logits finite; "
+                f"peak {row['peak_gib']:.2f} GiB")
+            del cell, logits
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    say("phase 12: " + json.dumps(report))
+    say(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+
 def recsys_geo(n: int, side: float, q_rects, device):
     """Phase 9's geo dict: candidate footprints drawn as
     examples/recsys_retrieval.py draws them (``GEO_RECTS`` square rects of
@@ -1971,6 +2342,35 @@ def recsys_profiles():
         cell.fn(*cell.args)  # warm-up outside the profiler
         yield f"{arch} {shape_name}", profile_batch(lambda: cell.fn(*cell.args), torch, ())
         del cell, geo
+        torch.cuda.empty_cache()
+
+
+def lm_profiles():
+    """Phase 5 for phase 12's LMs: one profiler pass over a prefill of
+    ``LM_PROFILE_CUT[0]`` tokens and one over a decode step at
+    ``LM_PROFILE_CUT[1]`` cached tokens (batch 1) of each published
+    config, built anew and freed after.  Yields (name, lines)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.steps import build_lm_cell
+
+    dev = torch.device(DEVICE)
+    for name in LM_ARCHS:
+        spec = get_arch(name)
+        params = spec.config.init(LM_SEED, dev)
+        for shape_name, S in zip(("prefill_32k", "decode_32k"), LM_PROFILE_CUT):
+            shape = spec.shape(shape_name)
+            cut = dataclasses.replace(shape, params={**shape.params, "global_batch": 1,
+                                                     "seq_len": S})
+            cell = build_lm_cell(spec, cut, dev, LM_SEED, params=params)
+            cell.fn(*cell.args)  # warm-up outside the profiler
+            yield (f"{name} {shape_name} at 1 x {S}",
+                   profile_batch(lambda: cell.fn(*cell.args), torch, ()))
+            del cell
+        del params
         torch.cuda.empty_cache()
 
 

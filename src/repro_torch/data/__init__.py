@@ -1,3 +1,3 @@
 """Synthetic input pipelines of the port (port of ``repro/data``): the
-recsys batches (``recsys``).  The LM and graph pipelines come with their
-slices."""
+recsys batches (``recsys``) and the LM token batches (``lm``).  The graph
+pipeline comes with its slice."""

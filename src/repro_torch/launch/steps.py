@@ -1,19 +1,25 @@
-"""Cell builders (port of the recsys part of ``repro/launch/steps.py``):
-(arch × shape) → a :class:`Cell` whose ``fn(*args)`` runs the step.
+"""Cell builders (port of ``repro/launch/steps.py``): (arch × shape) → a
+:class:`Cell` whose ``fn(*args)`` runs the step.
 
+* ``lm_prefill``        prefill(params, tokens, cache)
+* ``lm_decode``         decode_step(params, cache, tokens, pos)
 * ``recsys_train``      train_step(params, opt_state, batch): the loss,
                         its gradients and the AdamW update, in place
 * ``recsys_serve``      forward(params, batch) (two-tower: the user tower)
 * ``recsys_retrieval``  candidate scoring and top-k (two-tower: the towers,
                         the dot product, the optional geo blend)
+* ``geo_serve``         the mesh serve step over a stacked index
 
 The reference's cells carry ``ShapeDtypeStruct``s for lowering; the port's
 carry real tensors on the device at the shape's sizes: parameters from
-``cfg.init(seed, device)``, batches from ``repro_torch.data.recsys``.  The
-LM, GNN and geoweb cells wait for their slices.
+``cfg.init(seed, device)``, batches from ``repro_torch.data``, a geoweb
+corpus from ``make_corpus``.  ``lm_train`` (ROADMAP Queue 1 item 3) and
+the GNN cells (item 4) wait for their slices.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable
@@ -23,8 +29,10 @@ import torch
 from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.core.ranking import select_top
 from repro_torch.data import recsys as rec_data
+from repro_torch.data.lm import LMDataConfig, lm_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import recsys as rec_lib
+from repro_torch.models import transformer as tf_lib
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 
@@ -46,6 +54,66 @@ class Cell:
     # analytic "useful" flops for this step (2 per multiply-add), global
     model_flops: float = 0.0
     note: str = ""
+
+
+# ---------------------------------------------------------------------------
+# LM cells
+# ---------------------------------------------------------------------------
+
+def _lm_flops(cfg, n_tokens: int, kind: str, kv_len: int = 0, batch: int = 1) -> float:
+    n_active = cfg.n_active_params()
+    if kind == "train":
+        return 6.0 * n_active * n_tokens
+    if kind == "prefill":
+        return 2.0 * n_active * n_tokens
+    # decode: one token per sequence + attention over the cache
+    attn = 2.0 * 2.0 * batch * cfg.n_heads * cfg.d_head * kv_len
+    return 2.0 * n_active * n_tokens + attn * cfg.n_layers
+
+
+def build_lm_cell(
+    spec: ArchSpec, shape: ShapeSpec, device=None, seed: int = 0, params: dict | None = None,
+) -> Cell:
+    """The (arch, shape) LM serving cell with its inputs on ``device``
+    (CUDA unless given): ``params`` (``cfg.init(seed, device)`` unless
+    given, so two cells can share one model), tokens from ``lm_batch``
+    and a zero cache from ``make_cache`` of the shape's ``global_batch`` ×
+    ``seq_len``.  The decode cell writes at ``pos = seq_len − 1``, so its
+    step attends over the whole cache.  ``attn_window`` comes from the
+    shape."""
+    cfg = spec.config
+    p = shape.params
+    if "attn_window" in p:
+        cfg = dataclasses.replace(cfg, attn_window=p["attn_window"])
+    if shape.kind == "lm_train":
+        raise NotImplementedError(
+            f"{spec.name} {shape.name}: LM training is not ported yet (ROADMAP Queue 1 item 3)")
+    if shape.kind not in ("lm_prefill", "lm_decode"):
+        raise ValueError(shape.kind)
+    dev = resolve_device(device)
+    B, S = p["global_batch"], p["seq_len"]
+    if params is None:
+        params = cfg.init(seed, dev)
+    cache = tf_lib.make_cache(cfg, B, S, dev)
+
+    if shape.kind == "lm_prefill":
+        def fn(params, tokens, cache):
+            return tf_lib.prefill(cfg, params, tokens, cache)
+
+        tokens = lm_batch(LMDataConfig(cfg.vocab, S, B, seed), 0, dev)["tokens"]
+        return Cell(
+            spec.name, shape.name, fn, (params, tokens, cache), donate=(2,),
+            model_flops=_lm_flops(cfg, B * S, "prefill"),
+        )
+
+    def fn(params, cache, tokens, pos):
+        return tf_lib.decode_step(cfg, params, cache, tokens, pos)
+
+    tokens = lm_batch(LMDataConfig(cfg.vocab, 1, B, seed), 0, dev)["tokens"][:, 0]
+    return Cell(
+        spec.name, shape.name, fn, (params, cache, tokens, S - 1), donate=(1,),
+        model_flops=_lm_flops(cfg, B, "decode", kv_len=S, batch=B),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -225,3 +293,93 @@ def build_recsys_cell(
             note="candidate-major scoring (1 user context broadcast into rows)",
         )
     raise ValueError(shape.kind)
+
+
+# ---------------------------------------------------------------------------
+# geoweb cells (the paper's system)
+# ---------------------------------------------------------------------------
+
+I32_SAFE_MAX = 2**30  # see _check_i32_addressable below
+
+
+def _check_i32_addressable(name: str, value: int, n_shards: int) -> int:
+    """Guard the engine's int32 index arithmetic at production scale.
+
+    Every posting/toe-print position in the query pipeline is int32 (CSR
+    offsets, binary-search bounds, sweep starts).  At the paper's full
+    scale (2^26 docs × 128 postings = 2^33 global postings) a shard's
+    store only stays addressable because the mesh provides enough doc
+    shards; with too few shards the offsets' top entries and the search
+    positions would wrap negative.  The bound is 2^30 — not 2^31−1 — so
+    intermediate index sums (``start + budget``, the bisection bounds) keep
+    headroom too.  Fails at cell construction with the minimum shard count.
+    """
+    if value > I32_SAFE_MAX:
+        need = -(-value * n_shards // I32_SAFE_MAX)
+        raise ValueError(
+            f"geoweb cell: per-shard {name} = {value:,} exceeds the int32-"
+            f"addressable bound 2^30; shard the docs over >= {need} devices "
+            f"(mesh provides {n_shards}) or shrink the config"
+        )
+    return value
+
+
+def check_geoweb_shards(cfg, n_shards: int) -> None:
+    """The int32 guard of a geoweb config over ``n_shards`` doc shards: its
+    per-shard toe prints and postings (``build_geoweb_cell`` runs it before
+    anything is drawn or allocated)."""
+    n = cfg.n_docs // n_shards  # docs per shard
+    _check_i32_addressable("toe prints", n * cfg.max_rects, n_shards)
+    _check_i32_addressable("postings", n * cfg.avg_postings_per_doc, n_shards)
+
+
+def build_geoweb_cell(spec: ArchSpec, shape: ShapeSpec, mesh, seed: int = 0) -> Cell:
+    """The geoweb serve cell on ``mesh`` (:func:`repro_torch.core.make_mesh`):
+    ``fn(index, query) -> (ids, scores, stats)``, the mesh serve step with
+    the shape's algorithm over a stacked index of ``make_corpus(n_docs,
+    n_terms, max_rects=doc_major_rects, doc_len=avg_postings_per_doc,
+    seed)`` hash-partitioned over the mesh's doc axes (under
+    ``normalize_compress(cfg.compress)``), and a query batch of
+    ``query_batch`` × ``d_terms`` × ``q_rects`` from ``make_query_trace``.
+    The int32 guard runs first."""
+    from repro_torch.core.distributed import make_serve_fn, shard_corpus_np
+    from repro_torch.core.spatial_index import normalize_compress
+    from repro_torch.corpus import make_corpus, make_query_trace
+
+    cfg = spec.config
+    if mesh is None:
+        raise ValueError("geoweb cells need a mesh")
+    doc_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    S = math.prod(mesh.shape[a] for a in doc_axes)
+    check_geoweb_shards(cfg, S)
+    corpus = make_corpus(cfg.n_docs, cfg.n_terms, max_rects=cfg.doc_major_rects,
+                         doc_len=cfg.avg_postings_per_doc, seed=seed)
+    idx = shard_corpus_np(
+        corpus.doc_terms, corpus.doc_rects, corpus.doc_amps, corpus.pagerank,
+        corpus.n_terms, S, grid=cfg.grid, m_intervals=cfg.m_intervals,
+        compress=normalize_compress(cfg.compress), device=mesh.device,
+    )
+    query = make_query_trace(corpus, n_queries=cfg.query_batch, d_terms=cfg.d_terms,
+                             q_rects=cfg.q_rects, seed=seed + 1).to(mesh.device)
+    serve = make_serve_fn(
+        mesh, cfg.budgets, cfg.weights,
+        doc_axes=doc_axes, query_axis="model", algorithm=shape.params["algorithm"],
+    )
+    # geo-score flops: ~14 flops per (toeprint, query-rect) pair per query
+    kb = cfg.budgets
+    mf = float(cfg.query_batch) * kb.k_sweeps * kb.sweep_budget * cfg.q_rects * 14
+    return Cell(spec.name, shape.name, serve, (idx, query), model_flops=mf)
+
+
+def build_cell(
+    spec: ArchSpec, shape: ShapeSpec, mesh=None, device=None, seed: int = 0,
+) -> Cell:
+    """Dispatch on the arch's family: geoweb cells run on ``mesh``, the
+    others on ``device`` (CUDA unless given)."""
+    if spec.family == "geoweb":
+        return build_geoweb_cell(spec, shape, mesh, seed)
+    if spec.family == "lm":
+        return build_lm_cell(spec, shape, device, seed)
+    if spec.family == "recsys":
+        return build_recsys_cell(spec, shape, device, seed)
+    raise NotImplementedError(f"{spec.name}: the {spec.family} cells are not ported yet")

@@ -53,10 +53,10 @@ def main(argv=None) -> None:
                     help="where the state lives and the steps run (cuda or cpu)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(None if args.device == "cuda" else args.device)
     spec = get_arch(args.arch)
-    if spec.family == "geoweb":
+    if spec.family == "geoweb":  # on any machine, before the device check
         raise SystemExit("geoweb is a serving system: use repro_torch.launch.serve")
+    device = resolve_device(None if args.device == "cuda" else args.device)
     cfg = spec.config if args.full else spec.smoke_config
 
     opt = OptimizerConfig(

@@ -1,8 +1,17 @@
-"""Shared layers (port of ``repro/models/layers.py``): ``rms_norm``, which
-BST uses.  Rope, attention and SwiGLU come with the LM slice."""
+"""Shared layers (port of ``repro/models/layers.py``): RMSNorm, RoPE, GQA
+flash attention, the attention block with its KV cache, and SwiGLU.
+
+Each function computes what the reference's does, op for op, on one
+device: the reference's logical-axis sharding constraints (``shard``) and
+its head-parallel branch only place data on a mesh and are dropped.
+Where the reference's einsum accumulates a low-precision product into f32
+(``preferred_element_type``), the port multiplies the operands upcast to
+f32, which gives the same exact products and an f32 sum.
+"""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -12,3 +21,157 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * weight.float()).to(dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding. x [..., S, H, Dh], positions [..., S] (int); the
+    angles in f32, the result in ``x``'s dtype."""
+    dh = x.shape[-1]
+    half = dh // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exps)
+    ang = positions[..., :, None].float() * freq  # [..., S, half]
+    cos = torch.cos(ang)[..., :, None, :]  # [..., S, 1, half]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Sq, H, Dh]
+    k: torch.Tensor,  # [B, Skv, KVH, Dh]
+    v: torch.Tensor,  # [B, Skv, KVH, Dh]
+    *,
+    causal: bool = True,
+    q_offset: "torch.Tensor | int" = 0,
+    kv_valid_len: "torch.Tensor | int | None" = None,  # [B] or scalar; mask k_pos >= len
+    window: int | None = None,  # sliding-window attention (beyond-paper)
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Chunked-KV attention with a running softmax (flash-style, plain
+    PyTorch), the reference's loop op for op.
+
+    Never materializes the [Sq, Skv] score matrix: each step holds one
+    ``[B, Sq, KVH, G, chunk]`` f32 score block.  GQA by head grouping.
+    ``m``, ``l`` and the accumulator are f32; a row whose keys are all
+    masked gives 0.
+    """
+    B, Sq, H, Dh = q.shape
+    _, Skv, KVH, _ = k.shape
+    assert H % KVH == 0, (H, KVH)
+    G = H // KVH
+    scale = Dh**-0.5
+    dev = q.device
+    qg = q.reshape(B, Sq, KVH, G, Dh).float()
+    chunk = min(chunk, Skv)
+    assert Skv % chunk == 0, (Skv, chunk)
+    n_chunks = Skv // chunk
+    q_pos = torch.as_tensor(q_offset, device=dev) + torch.arange(Sq, dtype=torch.int32, device=dev)
+    vl = None
+    if kv_valid_len is not None:
+        vl = torch.broadcast_to(torch.as_tensor(kv_valid_len, device=dev), (B,))
+
+    m = torch.full((B, Sq, KVH, G), -torch.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Sq, KVH, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Sq, KVH, G, Dh), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        kb = k[:, ci * chunk:(ci + 1) * chunk]  # [B, chunk, KVH, Dh]
+        vb = v[:, ci * chunk:(ci + 1) * chunk]
+        k_pos = ci * chunk + torch.arange(chunk, dtype=torch.int32, device=dev)  # [chunk]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kb.float()) * scale  # [B, Sq, KVH, G, chunk]
+        mask = torch.ones((Sq, chunk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window is not None:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        s = torch.where(mask[None, :, None, None, :], s, -torch.inf)
+        if vl is not None:
+            ok = (k_pos[None, :] < vl[:, None])[:, None, None, None, :]  # [B,1,1,1,chunk]
+            s = torch.where(ok, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard fully-masked rows
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(torch.isneginf(s), 0.0, p)
+        m_inf = torch.isneginf(m)
+        corr = torch.exp(torch.where(m_inf, -torch.inf, m - m_safe))
+        corr = torch.where(m_inf, 0.0, corr)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bqhgk,bkhd->bqhgd", p.to(vb.dtype), vb)
+        acc = acc * corr[..., None] + pv.float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in ``x``'s dtype (the weight cast to it)."""
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def attention_block(
+    x: torch.Tensor,  # [B, S, D]
+    p: dict,
+    cfg,
+    positions: torch.Tensor,
+    *,
+    k_cache: torch.Tensor | None = None,
+    v_cache: torch.Tensor | None = None,
+    cache_pos: "torch.Tensor | int | None" = None,
+    kv_valid_len: "torch.Tensor | int | None" = None,
+):
+    """GQA attention with an optional KV cache (decode).
+
+    With a cache, the new k/v are written into ``k_cache``/``v_cache`` at
+    ``cache_pos`` in place (the reference's ``dynamic_update_slice``
+    returns updated copies) and attention runs over the whole cache.
+    Returns (out [B, S, D], (k, v): the cache, or this call's full k/v).
+    """
+    B, S, D = x.shape
+    H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = q.reshape(B, S, H, Dh)
+    k = k.reshape(B, S, KVH, Dh)
+    v = v.reshape(B, S, KVH, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if k_cache is not None:
+        # decode: insert the new kv at cache_pos (clamped into the cache, as
+        # dynamic_update_slice clamps its start), attend over the cache
+        pos = int(cache_pos)
+        at = min(max(pos, 0), k_cache.shape[1] - S)
+        k_cache[:, at:at + S] = k.to(k_cache.dtype)
+        v_cache[:, at:at + S] = v.to(v_cache.dtype)
+        out = flash_attention(
+            q,
+            k_cache.to(q.dtype),
+            v_cache.to(q.dtype),
+            causal=False,
+            kv_valid_len=kv_valid_len if kv_valid_len is not None else pos + S,
+            window=cfg.attn_window,
+            chunk=cfg.attn_chunk,
+        )
+        new_kv = (k_cache, v_cache)
+    else:
+        out = flash_attention(q, k, v, causal=True, window=cfg.attn_window, chunk=cfg.attn_chunk)
+        new_kv = (k, v)
+    out = _proj(out.reshape(B, S, H * Dh), p["wo"])
+    return out, new_kv
+
+
+def swiglu(x: torch.Tensor, p: dict) -> torch.Tensor:
+    gate = _proj(x, p["wi_gate"])
+    up = _proj(x, p["wi_up"])
+    h = F.silu(gate) * up
+    return _proj(h, p["wo"])

@@ -1,0 +1,257 @@
+"""Decoder-only LM, dense (port of ``repro/models/transformer.py``): GQA,
+RoPE, SwiGLU, layer parameters stacked on a leading ``layers`` dim.
+
+Serving (``prefill``, ``decode_step`` with a KV cache) and the forward
+value of ``loss_fn``.  The reference's ``lax.scan`` over layers is a loop
+over the stacked dim; ``remat`` and ``scan_unroll`` shape the reference's
+compiled program and change nothing here (training through autograd is
+ROADMAP Queue 1 item 3).  The MoE FFN (``n_experts > 0``) is item 2b and
+raises.  Parameters are ``param_dtype`` (f32); activations run in
+``compute_dtype`` (bf16), each weight cast to it where it is used.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.params import ParamDef, init_params, param_count
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    name: str = "lm"
+    n_layers: int = 2
+    d_model: int = 128
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    d_ff: int = 256
+    vocab: int = 1024
+    # MoE (n_experts == 0 → dense)
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    norm_topk_probs: bool = True
+    aux_loss_weight: float = 0.01
+    # attention
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    attn_window: int | None = None  # sliding-window (beyond-paper long_500k)
+    attn_chunk: int = 512
+    tie_embeddings: bool = False
+    # the reference's layer-loop unrolling (its dry-run's HLO cost analysis)
+    scan_unroll: bool = False
+    # numerics
+    compute_dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    z_loss: float = 1e-4
+    remat: str = "full"  # none | full | dots
+
+    @property
+    def d_head(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 256 (Megatron-style); padded logit
+        columns are masked in _unembed."""
+        return (self.vocab + 255) // 256 * 256
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def param_defs(self) -> dict:
+        D, H, KVH, Dh, F, E = (
+            self.d_model, self.n_heads, self.n_kv_heads, self.d_head, self.d_ff,
+            self.n_experts,
+        )
+        Lyr = self.n_layers
+        pd = self.param_dtype
+        layer: dict = {
+            "ln1": ParamDef((Lyr, D), ("layers", "embed"), pd, "ones"),
+            "ln2": ParamDef((Lyr, D), ("layers", "embed"), pd, "ones"),
+            "attn": {
+                "wq": ParamDef((Lyr, D, H * Dh), ("layers", "embed", "qkv_out"), pd),
+                "wk": ParamDef((Lyr, D, KVH * Dh), ("layers", "embed", "kv_out"), pd),
+                "wv": ParamDef((Lyr, D, KVH * Dh), ("layers", "embed", "kv_out"), pd),
+                "wo": ParamDef((Lyr, H * Dh, D), ("layers", "qkv_out", "embed"), pd),
+            },
+        }
+        if self.qkv_bias:
+            layer["attn"]["bq"] = ParamDef((Lyr, H * Dh), ("layers", "qkv_out"), pd, "zeros")
+            layer["attn"]["bk"] = ParamDef((Lyr, KVH * Dh), ("layers", "kv_out"), pd, "zeros")
+            layer["attn"]["bv"] = ParamDef((Lyr, KVH * Dh), ("layers", "kv_out"), pd, "zeros")
+        if self.qk_norm:
+            layer["attn"]["q_norm"] = ParamDef((Lyr, Dh), ("layers", None), pd, "ones")
+            layer["attn"]["k_norm"] = ParamDef((Lyr, Dh), ("layers", None), pd, "ones")
+        if self.is_moe:
+            layer["moe"] = {
+                "router": ParamDef((Lyr, D, E), ("layers", "embed", "experts"), pd),
+                "wi_gate": ParamDef((Lyr, E, D, F), ("layers", "experts", "embed", "expert_ffn"), pd),
+                "wi_up": ParamDef((Lyr, E, D, F), ("layers", "experts", "embed", "expert_ffn"), pd),
+                "wo": ParamDef((Lyr, E, F, D), ("layers", "experts", "expert_ffn", "embed"), pd),
+            }
+        else:
+            layer["mlp"] = {
+                "wi_gate": ParamDef((Lyr, D, F), ("layers", "embed", "ffn"), pd),
+                "wi_up": ParamDef((Lyr, D, F), ("layers", "embed", "ffn"), pd),
+                "wo": ParamDef((Lyr, F, D), ("layers", "ffn", "embed"), pd),
+            }
+        Vp = self.padded_vocab
+        out = {
+            "embed": ParamDef((Vp, D), ("vocab", "embed"), pd, "embed"),
+            "ln_f": ParamDef((D,), ("embed",), pd, "ones"),
+            "layers": layer,
+        }
+        if not self.tie_embeddings:
+            out["unembed"] = ParamDef((D, Vp), ("embed", "vocab"), pd)
+        return out
+
+    def init(self, seed: int = 0, device=None) -> dict:
+        return init_params(self.param_defs(), seed, device)
+
+    def n_params(self) -> int:
+        return param_count(self.param_defs())
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only top_k experts count)."""
+        total = self.n_params()
+        if not self.is_moe:
+            return total
+        expert_p = 3 * self.d_model * self.d_ff * self.n_layers * self.n_experts
+        return int(total - expert_p * (1 - self.top_k / self.n_experts))
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def _embed(cfg: TransformerConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows gathered, then cast: the reference's cast-then-gather values
+    without a compute-dtype copy of the whole table per call."""
+    return params["embed"][tokens.long()].to(cfg.compute_dtype)
+
+
+def _unembed(cfg: TransformerConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits [..., padded_vocab] of ``x`` [..., D]; padded columns −1e9."""
+    w = (params["embed"].T if cfg.tie_embeddings else params["unembed"]).to(cfg.compute_dtype)
+    logits = torch.matmul(x.float(), w.float())
+    if cfg.padded_vocab != cfg.vocab:  # mask padding columns
+        logits[..., cfg.vocab:] = -1e9
+    return logits
+
+
+def _layer(params: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: views ``leaf[i]`` of the stacked tree."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in params.items()}
+
+
+def _check_dense(cfg: TransformerConfig) -> None:
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE FFN is not ported yet (ROADMAP Queue 1 item 2b)")
+
+
+def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
+    """tokens i32[B, S] → (logits f32[B, S, V], aux_loss)."""
+    _check_dense(cfg)
+    B, S = tokens.shape
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h, _ = L.attention_block(L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions)
+        x = x + h
+        x = x + L.swiglu(L.rms_norm(x, lp["ln2"]), lp["mlp"])
+    x = L.rms_norm(x, params["ln_f"])
+    # a dense layer's aux loss is 0; the reference sums one per layer
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _unembed(cfg, params, x), aux
+
+
+def loss_fn(cfg: TransformerConfig, params: dict, batch: dict):
+    """batch: tokens i32[B, S], labels i32[B, S] (−1 = ignore).  The value
+    and metrics of the reference's loss (no gradients here)."""
+    logits, aux = forward(cfg, params, batch["tokens"])
+    labels = batch["labels"].long()
+    mask = labels >= 0
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    n = torch.clamp(mask.sum(), min=1)
+    loss = nll.sum() / n
+    zl = cfg.z_loss * ((lse * mask) ** 2).sum() / n
+    total = loss + zl + cfg.aux_loss_weight * aux
+    return total, {"nll": loss, "z_loss": zl, "aux": aux, "tokens": n.to(torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode with KV cache
+# ---------------------------------------------------------------------------
+
+def make_cache(cfg: TransformerConfig, batch: int, max_len: int, device=None) -> dict:
+    """A zero KV cache ``[layers, batch, max_len, kv_heads, d_head]`` in
+    ``compute_dtype`` on ``device`` (CUDA unless given)."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+        "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+    }
+
+
+def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, cache: dict):
+    """Fill the cache with the prompt; returns (logits_last f32[B, V], cache).
+
+    Each layer's k/v are written into ``cache`` in place and its positions
+    from S on are zeroed: the reference's stacked, zero-padded cache, without
+    holding a second copy of it."""
+    _check_dense(cfg)
+    B, S = tokens.shape
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h, (k, v) = L.attention_block(L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions)
+        cache["k"][i, :, :S] = k.to(cache["k"].dtype)
+        cache["v"][i, :, :S] = v.to(cache["v"].dtype)
+        x = x + h
+        x = x + L.swiglu(L.rms_norm(x, lp["ln2"]), lp["mlp"])
+    cache["k"][:, :, S:] = 0
+    cache["v"][:, :, S:] = 0
+    x = L.rms_norm(x, params["ln_f"])
+    logits = _unembed(cfg, params, x[:, -1:, :])
+    return logits[:, 0], cache
+
+
+def decode_step(
+    cfg: TransformerConfig,
+    params: dict,
+    cache: dict,
+    tokens: torch.Tensor,  # i32[B] last generated token
+    pos: int,  # write position (= current length)
+):
+    """One token of batched decode, writing its k/v into ``cache`` in
+    place.  Returns (logits f32[B, V], cache)."""
+    _check_dense(cfg)
+    B = tokens.shape[0]
+    x = _embed(cfg, params, tokens)[:, None, :]  # [B, 1, D]
+    pos = int(pos)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h, _ = L.attention_block(
+            L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions,
+            k_cache=cache["k"][i], v_cache=cache["v"][i], cache_pos=pos,
+            kv_valid_len=pos + 1,
+        )
+        x = x + h
+        x = x + L.swiglu(L.rms_norm(x, lp["ln2"]), lp["mlp"])
+    x = L.rms_norm(x, params["ln_f"])
+    logits = _unembed(cfg, params, x)
+    return logits[:, 0], cache
