@@ -13,11 +13,13 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    1000, with and without a select floor; bitmap_and_popcount on 2, 4 and
    8 rows of the index's bitmaps — masks, flags and block counts exactly,
    scores bitwise (the kernels are compiled without FMA contraction);
-3. drives K-SWEEP through ``make_executor("single", ...)`` at 2^20
-   documents in batches of 32 — plain, fused, geo-score kernel, each of the
-   three again with early termination, pruned plain and pruned fused — and
-   checks that each kernel launched once per batch and that the kernel
-   variants equal their plain twins in ids, scores and every stats counter
+3. drives K-SWEEP at 2^20 documents in batches of 32 through the executor
+   ``make_executor("single", ...)`` builds and, over its index, the ones
+   its ``fused=`` and ``use_pallas=`` select — plain, fused, geo-score
+   kernel, each of the three again with early termination, pruned plain
+   and pruned fused — and checks that each kernel launched once per batch
+   and that the kernel variants equal their plain twins in ids, scores and
+   every stats counter
    (at serve.py's budgets, without early termination, the unpruned
    kernels' scores select nothing, so only the early-termination and
    pruned variants hold a kernel's scores to the answer); a small corpus
@@ -42,9 +44,10 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
 5. runs one profiler pass per variant (phase 7's sharded executor too):
    each stage's host time and device time, and the device's idle share
    over a batch; and one over each of phase 9's recsys cells (the
-   geo-blended retrieval and every serve shape) and over a prefill (2,048
-   tokens) and a decode step (4,096 cached tokens) of each of phase 12's
-   LMs: the device's busy time, idle share and top device ops;
+   geo-blended retrieval and every serve shape), over a prefill (2,048
+   tokens) and a decode step (4,096 cached tokens) of each of phases
+   12–13's five LMs and over a train step (2,048 tokens) of Granite-MoE:
+   the device's busy time, idle share and top device ops;
 6. serves 2048-query traces through ``GeoServer`` over the phase-3 index,
    at ``launch/serve.py``'s defaults (Landlord cache of 512, deadline
    batcher of 32 × 8 terms × 4 rects, 5 ms deadline open loop):
@@ -173,6 +176,30 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    events, median of 3 after a warm-up; the 524,288-token step once),
    tokens/s, model FLOPs as a share of 989e12, peak memory, finite logits.
    It runs after phase 11 and before phase 5.
+13. runs the MoE LMs (``olmoe-1b-7b``, ``granite-moe-1b-a400m``: the
+   grouped capacity-dispatch FFN) and LM training through autograd: (a)
+   each MoE SMOKE config at f32 compute gives the same forward (and aux
+   loss), prefill, decode and caches on the card as on the CPU (rtol 1e-4
+   / atol 1e-5) and the same routing in every MoE call; (b) each MoE
+   published config serves as phase 12's dense ones do (``lm_serve``: the
+   decode-after-prefill check, run with capacity factor E / K so that
+   nothing is dropped, and the ``prefill_32k`` and ``decode_32k`` cells at
+   their ``LM_CUTS``); (c) ``train_4k`` cut to 1 x 4,096 through
+   ``build_lm_cell``'s ``lm_train`` cell for SmolLM-135M, Qwen1.5-0.5B and
+   Granite-MoE (remat "full"): ms per step (median of 3 after a warm-up),
+   tokens/s, bf16 share of 989e12, the forward + loss / backward / AdamW
+   split, peak memory, finite losses, and SmolLM-135M's step and peak again
+   with remat "none"; OLMoE and Qwen2.5-14B printed as not run, with their
+   train-state bytes; (d) every LM SMOKE config at f32 compute takes 3
+   train steps on the card and on the CPU (losses, grad norms and moments
+   within rtol 1e-4 / atol 1e-5; parameters within ``LM_STEP_TOL`` and
+   ``LM_TRAJ_TOL`` of the distance each leaf travelled), and a
+   failure at step 5 restored and replayed to step 8 equals the run
+   without it bitwise; (e) ``python -m repro_torch.launch.train --arch
+   granite-moe-1b-a400m`` with and without ``--simulate-failure 5`` (equal
+   loss lines) and ``python -m repro_torch.examples.train_lm --steps 60``
+   (``OK: learning``), as subprocesses.  It runs after phase 12 and before
+   phase 5.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -289,6 +316,7 @@ SPIN_CYCLES = 40_000_000  # ~20 ms at 1.98 GHz
 # prefill costs O(S^2) passes: SmolLM-135M at B 1 x 32,768 is ~14 s).
 # (global_batch, seq_len) per (arch, shape)
 LM_ARCHS = ("smollm-135m", "qwen1.5-0.5b", "qwen2.5-14b")
+# (the MoE LMs' cells, phase 13 (b), are the last four)
 LM_CUTS = {
     ("smollm-135m", "prefill_32k"): (1, 8192),
     ("smollm-135m", "decode_32k"): (64, 32768),
@@ -297,6 +325,10 @@ LM_CUTS = {
     ("qwen1.5-0.5b", "decode_32k"): (16, 32768),
     ("qwen2.5-14b", "prefill_32k"): (1, 4096),
     ("qwen2.5-14b", "decode_32k"): (1, 32768),
+    ("olmoe-1b-7b", "prefill_32k"): (1, 8192),
+    ("olmoe-1b-7b", "decode_32k"): (4, 32768),
+    ("granite-moe-1b-a400m", "prefill_32k"): (1, 8192),
+    ("granite-moe-1b-a400m", "decode_32k"): (16, 32768),
 }
 LM_SEED = 0
 LM_WARMUP = 1
@@ -310,8 +342,11 @@ LM_LONG = (0, 1)
 LM_CHECK_S = 512
 # phase 5's LM profiles: a prefill of 2,048 tokens and a decode step over
 # 4,096 cached ones, batch 1 (4 and 8 KV chunks per layer: the flash loop's
-# per-chunk work at a size whose profile stays small)
+# per-chunk work at a size whose profile stays small), and a train step of
+# 2,048 tokens of the MoE train cell only (a train step's profile takes
+# ~30 s to gather; the dense train cells' splits are phase 13 (c)'s)
 LM_PROFILE_CUT = (2048, 4096)
+LM_PROFILE_TRAIN = "granite-moe-1b-a400m"
 # H100 SXM dense bf16 tensor-core peak (NVIDIA H100 data sheet, SXM)
 BF16_FLOPS_PER_S = 989e12
 # bf16 keeps 8 significant bits; the two paths run other GEMM shapes
@@ -320,6 +355,28 @@ BF16_FLOPS_PER_S = 989e12
 # max |diff| within 2^-4 of max |logit| (the CPU tests allow 2^-5 for 2
 # layers of XLA-vs-torch rounding)
 LM_BF16_TOL = 2.0**-4
+# phase 13: the MoE LMs (serving at the LM_CUTS above) and LM training
+MOE_ARCHS = ("olmoe-1b-7b", "granite-moe-1b-a400m")
+# train_4k (published 256 x 4,096) at 1 x 4,096, remat "full", on the LMs
+# whose train state (16 B per parameter: f32 params, grads, m and v) fits
+# one card: a warm-up step, LM_TRAIN_RUNS timed (median), one split
+LM_TRAIN_ARCHS = ("smollm-135m", "qwen1.5-0.5b", "granite-moe-1b-a400m")
+LM_TRAIN_CUT = (1, 4096)
+LM_TRAIN_RUNS = 3
+# every SMOKE LM at f32 compute trains TRAIN_SMOKE_STEPS steps on the card
+# and on the CPU at batch x length LM_SMOKE_BATCH, then replays a fault
+# with REPLAY_*.  Losses, grad norms and moments are held within SMOKE_TOL.
+# Parameters are held as trajectories: AdamW divides each first moment by
+# the root of the second, so a gradient entry near its rounding noise
+# moves its parameter by a step of full size whatever its error (f32
+# rounding alone, against f64 gradients on the CPU, moves these
+# parameters by up to 3.4e-5 after 3 steps, 0.00019 of the distance a
+# leaf travels).  Each leaf's distance between the card and the CPU must
+# stay within LM_TRAJ_TOL of the distance it travelled, and every entry
+# within rtol 1e-4 / atol lr, one step's largest move
+LM_SMOKE_BATCH = (4, 64)
+LM_TRAJ_TOL = 1e-2
+LM_STEP_TOL = dict(rtol=1e-4, atol=TRAIN_SMOKE_OPT["lr"])
 
 
 def check(cond: bool, what: str) -> None:
@@ -623,16 +680,20 @@ def main() -> int:
     # unpruned kernels' partial scores select nothing (the reference's
     # semantics), so the *_et variants are the ones whose answers depend on
     # the sweep_score and geo_score kernels
+    # (budgets, executor kwargs: what make_executor's fused= and use_pallas=
+    # select for K-SWEEP, the kernel it reaches).  Every variant runs over
+    # the plain executor's index: they differ in budgets and kernels only,
+    # and make_executor would build the same index again for each
     et = replace(budgets, early_termination=True)
     variants = {
-        "plain": (dict(budgets=budgets), None),
-        "fused": (dict(budgets=budgets, fused=True), "sweep_score"),
-        "geo_score": (dict(budgets=budgets, use_pallas=True), "geo_score"),
-        "plain_et": (dict(budgets=et), None),
-        "fused_et": (dict(budgets=et, fused=True), "sweep_score"),
-        "geo_score_et": (dict(budgets=et, use_pallas=True), "geo_score"),
-        "pruned_plain": (dict(budgets=pr), None),
-        "pruned": (dict(budgets=pr, fused=True), "sweep_score_pruned"),
+        "plain": (budgets, {}, None),
+        "fused": (budgets, dict(fused=True), "sweep_score"),
+        "geo_score": (budgets, dict(tp_scorer=geo_score_toeprints), "geo_score"),
+        "plain_et": (et, {}, None),
+        "fused_et": (et, dict(fused=True), "sweep_score"),
+        "geo_score_et": (et, dict(tp_scorer=geo_score_toeprints), "geo_score"),
+        "pruned_plain": (pr, {}, None),
+        "pruned": (pr, dict(fused=True), "sweep_score_pruned"),
     }
     main_counts = {name: 0 for name in SOURCES}
     kernel_batches = {name: 0 for name in SOURCES}
@@ -641,7 +702,10 @@ def main() -> int:
     latency: dict[str, list] = {}
     oracle0 = plain_ex.engine.oracle(batches[0])
 
-    def drive(name, ex, kernel, runs, build_s=0.0):
+    def engine(idx, b):
+        return GeoSearchEngine.from_index(idx, b)
+
+    def drive(name, ex, kernel, runs):
         """Warm up, zero the launch counters, run ``runs`` through ``ex``,
         read the counters: ``kernel`` (or none) launched once per batch."""
         ex.run(runs[0])  # warm-up: allocator and first-launch costs
@@ -668,17 +732,17 @@ def main() -> int:
             check(bool(torch.isfinite(scores[ids >= 0]).all()), f"{name}: non-finite score")
         rec = topk_recall_np(oracle0.ids.cpu().numpy(), outs[0].ids.cpu().numpy())
         stats = {k: float(sum(float(r.stats[k].double().sum()) for r in outs)) for k in outs[0].stats}
-        say(f"phase 3: {name}: index {build_s:.1f} s; {len(runs)} batches of {BATCH}; "
-            f"launches {counts}; recall@10 vs oracle (batch 0) {rec:.4f}")
+        say(f"phase 3: {name}: {len(runs)} batches of {BATCH}; launches {counts}; "
+            f"recall@10 vs oracle (batch 0) {rec:.4f}")
         say(f"phase 3: {name}: stats sums " + json.dumps(stats))
         executors[name] = (ex, ex.algorithm)
         outputs[name] = outs
         latency[name] = times
 
-    for name, (kw, kernel) in variants.items():
-        t = time.perf_counter()
-        ex = plain_ex if name == "plain" else make_executor("single", corpus, **kw)
-        drive(name, ex, kernel, batches, time.perf_counter() - t)
+    for name, (b, kw, kernel) in variants.items():
+        ex = (plain_ex if name == "plain"
+              else SingleDeviceExecutor(engine(plain_ex.engine.index, b), "k_sweep", **kw))
+        drive(name, ex, kernel, batches)
     for a, b, note in (
         ("fused", "plain", "; its kernel's scores select nothing without early termination"),
         ("geo_score", "plain", "; its kernel's scores select nothing without early termination"),
@@ -694,9 +758,6 @@ def main() -> int:
 
     # TEXT-FIRST and GEO-FIRST on the three text stores; the impact/int8
     # pruned-kernel variant is the executor make_executor built above
-    def engine(idx, b):
-        return GeoSearchEngine.from_index(idx, b)
-
     tf_variants = {
         "tf_plain": (SingleDeviceExecutor(engine(idx_docid, budgets), "text_first"), None),
         "tf_pruned_plain": (SingleDeviceExecutor(engine(idx_docid, pr), "text_first"), None),
@@ -985,6 +1046,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # ---- phase 12: dense LM serving at published widths -----------------
     lm_phase()
+    torch.cuda.empty_cache()
+    # ---- phase 13: the MoE LMs and LM training ---------------------------
+    moe_train_phase()
     torch.cuda.empty_cache()
     for row in table:
         main_counts[row["name"]] += (serve_counts[row["name"]] + shard_counts[row["name"]]
@@ -1811,8 +1875,8 @@ def recsys_phase() -> dict[str, int]:
     return counts
 
 
-def card_close(got, want, what: str) -> float:
-    """Card vs CPU within SMOKE_TOL, −inf where the CPU has −inf; returns
+def card_close(got, want, what: str, tol: dict = SMOKE_TOL) -> float:
+    """Card vs CPU within ``tol``, −inf where the CPU has −inf; returns
     the max abs difference."""
     import torch
 
@@ -1822,8 +1886,9 @@ def card_close(got, want, what: str) -> float:
     check(torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], want[~fin]),
           f"{what}: non-finite entries differ between the card and the CPU")
     err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
-    check(bool(torch.allclose(got[fin], want[fin], **SMOKE_TOL)),
-          f"{what}: card vs CPU beyond rtol 1e-4 / atol 1e-5 (max abs {err:.3g})")
+    check(bool(torch.allclose(got[fin], want[fin], **tol)),
+          f"{what}: card vs CPU beyond rtol {tol['rtol']:g} / atol {tol['atol']:g} "
+          f"(max abs {err:.3g})")
     return err
 
 
@@ -2159,150 +2224,453 @@ def examples_phase() -> dict[str, int]:
 def lm_phase() -> None:
     """Phase 12: dense LM serving at published widths (see the module
     docstring)."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+
+    t_phase = time.perf_counter()
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "phase 12: f32 matmuls must run at full f32, no TF32")
+    say(f"phase 12: {torch.cuda.memory_allocated() / 2**30:.2f} GiB held by earlier phases")
+
+    # the SMOKE configs at f32 compute: card == CPU (the same weights)
+    for name in LM_ARCHS:
+        lm_smoke_parity(name, "phase 12")
+
+    report = []
+    for name in LM_ARCHS:
+        lm_serve(get_arch(name), "phase 12", report)
+    say("phase 12: " + json.dumps(report))
+    say(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+
+def moe_train_phase() -> None:
+    """Phase 13: the MoE LMs and LM training (see the module docstring)."""
     import dataclasses
+    import os
+    import re
+    import tempfile
 
     import torch
 
     from repro_torch.configs.base import get_arch
     from repro_torch.data.lm import LMDataConfig, lm_batch
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.steps import build_lm_cell
+    from repro_torch.launch.steps import TRAIN_OPT, build_lm_cell
     from repro_torch.models import transformer as tf
     from repro_torch.models.params import params_from_numpy
+    from repro_torch.train.loop import LoopConfig, make_train_step, run, value_and_grad
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_update, init_opt_state
+    from repro_torch.train.tree import leaves
 
     dev = torch.device(DEVICE)
     t_phase = time.perf_counter()
     check(torch.get_float32_matmul_precision() == "highest"
           and not torch.backends.cuda.matmul.allow_tf32,
-          "phase 12: f32 matmuls must run at full f32, no TF32")
-    say(f"phase 12: {torch.cuda.memory_allocated() / 2**30:.2f} GiB held by earlier phases")
+          "phase 13: f32 matmuls must run at full f32, no TF32")
     card_bytes = torch.cuda.get_device_properties(dev).total_memory
 
-    # the SMOKE configs at f32 compute: card == CPU (the same weights)
-    for name in LM_ARCHS:
-        cfg = dataclasses.replace(get_arch(name).smoke_config, compute_dtype=torch.float32)
-        p_cpu = cfg.init(LM_SEED, "cpu")
+    # (a) the MoE SMOKE configs, card == CPU, the routing identical
+    for name in MOE_ARCHS:
+        lm_smoke_parity(name, "phase 13 (a)")
 
-        def arrays(tree):
-            return {k: arrays(v) if isinstance(v, dict) else v.numpy() for k, v in tree.items()}
-
-        p_dev = params_from_numpy(cfg.param_defs(), arrays(p_cpu), dev)
-        b = lm_batch(LMDataConfig(cfg.vocab, 32, 2, LM_SEED), 0, "cpu")
-        errs = {"forward": card_close(tf.forward(cfg, p_dev, b["tokens"].to(dev))[0],
-                                      tf.forward(cfg, p_cpu, b["tokens"])[0], f"{name} forward")}
-        caches = {d: tf.make_cache(cfg, 2, 48, d) for d in ("cpu", dev)}
-        pre = {d: tf.prefill(cfg, p, b["tokens"].to(d), caches[d])[0]
-               for d, p in (("cpu", p_cpu), (dev, p_dev))}
-        errs["prefill"] = card_close(pre[dev], pre["cpu"], f"{name} prefill logits")
-        nxt = b["labels"][:, -2]
-        dec = {d: tf.decode_step(cfg, p, caches[d], nxt.to(d), 32)[0]
-               for d, p in (("cpu", p_cpu), (dev, p_dev))}
-        errs["decode"] = card_close(dec[dev], dec["cpu"], f"{name} decode logits")
-        for k in ("k", "v"):
-            errs[f"cache {k}"] = card_close(caches[dev][k], caches["cpu"][k], f"{name} cache {k}")
-        say(f"phase 12: {name} smoke (f32 compute): card == CPU within rtol 1e-4 / atol 1e-5 "
-            "(forward, 32-token prefill, decode at 32); max abs " + json.dumps(errs))
-        del p_dev, caches
-
+    # (b) MoE serving at published widths.  The decode check runs with no
+    # assignment dropped: at the published capacity factor an S-token and
+    # an (S+1)-token prefill drop different assignments, so they compute
+    # different functions (moe.py's own oracle holds moe_ffn only when
+    # nothing is dropped)
+    t = time.perf_counter()
     report = []
-    for name in LM_ARCHS:
+    for name in MOE_ARCHS:
         spec = get_arch(name)
         cfg = spec.config
-        t = time.perf_counter()
-        params = cfg.init(LM_SEED, dev)
-        torch.cuda.synchronize()
-        param_bytes = cfg.n_params() * 4
-        kv_token = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.d_head * 2
-        say(f"phase 12: {name}: f32 parameters {param_bytes / 1e9:.3f} GB initialised in "
-            f"{time.perf_counter() - t:.1f} s; KV cache {kv_token} bytes per token "
-            f"(layers {cfg.n_layers} x 2 x kv heads {cfg.n_kv_heads} x d_head {cfg.d_head} x 2)")
+        E, K = cfg.n_experts, cfg.top_k
+        say(f"phase 13 (b): {name}: {E} experts, top-{K}, capacity factor "
+            f"{cfg.capacity_factor}; {cfg.n_active_params():,} of {cfg.n_params():,} parameters "
+            f"active per token; the decode check at capacity factor E / K = {E / K:g} (C = S, "
+            f"nothing dropped): at {cfg.capacity_factor} the {LM_CHECK_S}- and "
+            f"{LM_CHECK_S + 1}-token prefills drop different assignments and would compute "
+            "different functions")
+        lm_serve(spec, "phase 13 (b)", report, check_overrides=dict(capacity_factor=E / K))
+    say("phase 13 (b): " + json.dumps(report))
+    say(f"phase 13 (b): {time.perf_counter() - t:.1f} s")
 
-        # full width: decode of token S after an S-token prefill == the
-        # (S+1)-token prefill's last position, within LM_BF16_TOL
-        S = LM_CHECK_S
-        toks = lm_batch(LMDataConfig(cfg.vocab, S + 1, 1, LM_SEED), 0, dev)["tokens"]
-        cache = tf.make_cache(cfg, 1, 2 * S, dev)
-        tf.prefill(cfg, params, toks[:, :S], cache)
-        dec = tf.decode_step(cfg, params, cache, toks[:, S], S)[0]
-        one = dataclasses.replace(cfg, attn_chunk=S + 1)
-        full = tf.prefill(one, params, toks, tf.make_cache(one, 1, S + 1, dev))[0]
-        d, v = dec[:, :cfg.vocab].float(), full[:, :cfg.vocab].float()
-        check(bool(torch.isfinite(d).all() and torch.isfinite(v).all()),
-              f"phase 12: {name}: non-finite logits in the decode check")
-        rel = float((d - v).abs().max() / v.abs().max())
-        check(rel <= LM_BF16_TOL, f"phase 12: {name}: decode at {S} vs the {S + 1}-token "
-              f"prefill differ by {rel:.4g} of the largest logit (> {LM_BF16_TOL})")
-        say(f"phase 12: {name}: decode of token {S} after a {S}-token prefill == the "
-            f"{S + 1}-token prefill's last logits within {rel:.4g} of the largest |logit| "
-            f"(tolerance {LM_BF16_TOL}); argmax equal: {bool(d.argmax() == v.argmax())}")
-        del cache, dec, full, d, v, toks
-
-        for shape in spec.shapes:
-            if shape.skip:
-                say(f"phase 12: {name} {shape.name} not run (skip): {shape.skip}")
-                continue
-            if (name, shape.name) not in LM_CUTS:
-                if shape.kind == "lm_train":
-                    say(f"phase 12: {name} {shape.name} not run: LM training is ROADMAP Queue 1 "
-                        "item 3")
-                else:
-                    say(f"phase 12: {name} {shape.name} not run (the window variant runs on "
-                        "SmolLM-135M only, for time)")
-                continue
-            B0, S0 = shape.params["global_batch"], shape.params["seq_len"]
-            B, S = LM_CUTS[(name, shape.name)]
-            if (B, S) == (B0, S0):
-                why = "run as published"
-            elif B0 * S0 * kv_token + param_bytes > card_bytes:
-                why = "does not fit the card"
-            else:
-                why = "fits the card; cut for the time limit"
-            say(f"phase 12: {name} {shape.name}: published {B0} x {S0} = KV "
-                f"{B0 * S0 * kv_token / 1e9:.2f} GB beside {param_bytes / 1e9:.2f} GB of "
-                f"parameters ({why}: the card holds {card_bytes / 1e9:.2f} GB); run at "
-                f"{B} x {S} = KV {B * S * kv_token / 1e9:.2f} GB")
-            cut = dataclasses.replace(shape, params={**shape.params, "global_batch": B,
-                                                     "seq_len": S})
+    # (c) LM training at published widths: train_4k cut to LM_TRAIN_CUT
+    t = time.perf_counter()
+    report = []
+    B, S = LM_TRAIN_CUT
+    for name in LM_ARCHS + MOE_ARCHS:
+        spec = get_arch(name)
+        cfg = spec.config
+        state_bytes = 16 * cfg.n_params()
+        shape = spec.shape("train_4k")
+        B0, S0 = shape.params["global_batch"], shape.params["seq_len"]
+        if name not in LM_TRAIN_ARCHS:
+            say(f"phase 13 (c): {name} train_4k not run: its train state (f32 params, grads, m "
+                f"and v: 16 B x {cfg.n_params():,} parameters) is {state_bytes / 1e9:.1f} GB "
+                f"of the card's {card_bytes / 1e9:.2f} GB; it needs ZeRO-1 across cards "
+                "(ROADMAP Queue 1 item 6)")
+            continue
+        cut = dataclasses.replace(shape, params={**shape.params, "global_batch": B,
+                                                 "seq_len": S})
+        row = {"model": name, "shape": "train_4k", "batch": B, "seq_len": S,
+               "published": [B0, S0], "remat": cfg.remat, "train_state_gb": state_bytes / 1e9}
+        for remat in ("full", "none") if name == "smollm-135m" else ("full",):
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            cell = build_lm_cell(spec, cut, dev, LM_SEED, params=params)
-            warm, runs = LM_LONG if S > 32768 else (LM_WARMUP, LM_RUNS)
+            rspec = dataclasses.replace(spec, config=dataclasses.replace(cfg, remat=remat))
+            cell = build_lm_cell(rspec, cut, dev, LM_SEED)
+            params, state, batch = cell.args
+            metrics, times = [], []
             reset_launch_counts()
-            times = []
-            for i in range(warm + runs):
+            n_runs = LM_TRAIN_RUNS if remat == "full" else 1
+            for i in range(LM_WARMUP + n_runs):
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()
-                logits = cell.fn(*cell.args)[0]  # (the cache it returns is the cell's)
+                metrics.append(cell.fn(*cell.args)[2])
                 ev[1].record()
                 ev[1].synchronize()
-                if i >= warm:
+                if i >= LM_WARMUP:
                     times.append(ev[0].elapsed_time(ev[1]))
             counts = launch_counts()
-            check(not any(counts.values()), f"phase 12: {name} {shape.name} launched {counts}")
-            check(logits.shape == (B, cfg.padded_vocab)
-                  and bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
-                  f"phase 12: {name} {shape.name}: logits not finite or of shape "
-                  f"{tuple(logits.shape)}")
+            check(not any(counts.values()), f"phase 13 (c): {name} launched {counts}")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            vals = torch.stack([torch.stack([m["loss"], m["grad_norm"]]) for m in metrics])
+            check(bool(torch.isfinite(vals).all()),
+                  f"phase 13 (c): {name} (remat {remat}): non-finite loss or grad_norm")
+            check(int(state["step"]) == LM_WARMUP + n_runs,
+                  f"phase 13 (c): {name}: step {int(state['step'])}")
+            if remat == "none":
+                row.update(ms_remat_none=statistics.median(times), peak_gib_remat_none=peak)
+                say(f"phase 13 (c): {name} train_4k at {B} x {S}, remat none: "
+                    f"{row['ms_remat_none']:.3f} ms per step, peak {peak:.2f} GiB (remat full "
+                    f"{row['peak_gib']:.2f} GiB)")
+                del cell, params, state, batch, metrics
+                continue
+            # one step split by CUDA events: forward + loss, backward, AdamW
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            lcfg = rspec.config
+
+            def timed_loss(prm, b, lcfg=lcfg, ev=ev):
+                out = tf.loss_fn(lcfg, prm, b)
+                ev[1].record()
+                return out
+
+            ev[0].record()
+            loss, _, grads = value_and_grad(timed_loss, params, batch)
+            ev[2].record()
+            adamw_update(TRAIN_OPT, grads, params, state)
+            ev[3].record()
+            ev[3].synchronize()
+            check(bool(torch.isfinite(loss)), f"phase 13 (c): {name}: non-finite loss")
+            del grads
             ms = statistics.median(times)
-            n_tok = B * S if shape.kind == "lm_prefill" else B
-            row = {"model": name, "shape": shape.name, "kind": shape.kind, "batch": B,
-                   "seq_len": S, "ms": ms, "runs_ms": times, "tokens_per_s": n_tok / ms * 1e3,
-                   "model_flops": cell.model_flops,
-                   "bf16_share": cell.model_flops / ms * 1e3 / BF16_FLOPS_PER_S,
-                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-            if "attn_window" in shape.params:
-                row["attn_window"] = shape.params["attn_window"]
-            report.append(row)
-            say(f"phase 12: {name} {shape.name} at {B} x {S}: {ms:.3f} ms per "
-                f"{'prefill' if shape.kind == 'lm_prefill' else 'decode step'} (median of "
-                f"{runs} after {warm} warm-up), {row['tokens_per_s']:.1f} tokens/s, {cell.model_flops:.4g} model FLOP "
-                f"-> {row['bf16_share']:.5f} of {BF16_FLOPS_PER_S / 1e12:g}e12; logits finite; "
-                f"peak {row['peak_gib']:.2f} GiB")
-            del cell, logits
-            torch.cuda.empty_cache()
-        del params
+            row.update(
+                ms=ms, runs_ms=times, tokens_per_s=B * S / ms * 1e3, model_flops=cell.model_flops,
+                bf16_share=cell.model_flops / ms * 1e3 / BF16_FLOPS_PER_S, peak_gib=peak,
+                split_ms={"forward_loss": ev[0].elapsed_time(ev[1]),
+                          "backward": ev[1].elapsed_time(ev[2]),
+                          "adamw": ev[2].elapsed_time(ev[3])},
+                loss_first_last=[float(vals[0, 0]), float(loss)])
+            say(f"phase 13 (c): {name} train_4k: published {B0} x {S0}, run at {B} x {S} "
+                f"(remat {remat}): {ms:.3f} ms per step (median of {n_runs} after {LM_WARMUP} "
+                f"warm-up), {row['tokens_per_s']:.1f} tokens/s, {cell.model_flops:.4g} model "
+                f"FLOP -> {row['bf16_share']:.5f} of {BF16_FLOPS_PER_S / 1e12:g}e12; train state "
+                f"{state_bytes / 1e9:.2f} GB; peak {peak:.2f} GiB; split (ms) "
+                + json.dumps(row["split_ms"]) + f"; losses finite ({row['loss_first_last']})")
+            del cell, params, state, batch, metrics, loss
+        report.append(row)
         torch.cuda.empty_cache()
-    say("phase 12: " + json.dumps(report))
-    say(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    say("phase 13 (c): " + json.dumps(report))
+    say(f"phase 13 (c): {time.perf_counter() - t:.1f} s")
+
+    # (d) every SMOKE LM trained on the card and on the CPU, then a fault
+    # replayed on the card
+    t = time.perf_counter()
+    sb, ss = LM_SMOKE_BATCH
+    for name in LM_ARCHS + MOE_ARCHS:
+        cfg = dataclasses.replace(get_arch(name).smoke_config, compute_dtype=torch.float32)
+        opt = OptimizerConfig(**TRAIN_SMOKE_OPT)
+        step = make_train_step(lambda p, b, cfg=cfg: tf.loss_fn(cfg, p, b), opt)
+        p_cpu = cfg.init(LM_SEED, "cpu")
+        p_dev = params_from_numpy(cfg.param_defs(), numpy_tree(p_cpu), dev)
+        p_init = [t.clone() for t in leaves(p_cpu)]
+        s_cpu, s_dev = init_opt_state(opt, p_cpu), init_opt_state(opt, p_dev)
+        errs = {"loss": 0.0, "grad_norm": 0.0, "params": 0.0, "params_traj": 0.0,
+                "moments": 0.0}
+        for s in range(TRAIN_SMOKE_STEPS):
+            b_cpu = lm_batch(LMDataConfig(cfg.vocab, ss, sb, LM_SEED), s, "cpu")
+            _, _, m_cpu = step(p_cpu, s_cpu, b_cpu)
+            _, _, m_dev = step(p_dev, s_dev, {k: v.to(dev) for k, v in b_cpu.items()})
+            for k in ("loss", "grad_norm"):
+                errs[k] = max(errs[k], card_close(m_dev[k], m_cpu[k],
+                                                  f"(d) {name} smoke step {s} {k}"))
+        for a, c, c0 in zip(leaves(p_dev), leaves(p_cpu), p_init):
+            errs["params"] = max(errs["params"], card_close(a, c, f"(d) {name} smoke params",
+                                                            LM_STEP_TOL))
+            moved = float((c - c0).norm())
+            traj = float((a.cpu() - c).norm()) / moved if moved else float((a.cpu() - c).norm())
+            check(traj <= LM_TRAJ_TOL, f"(d) {name} smoke params: card and CPU {traj:.3g} of "
+                  f"the distance travelled apart (> {LM_TRAJ_TOL})")
+            errs["params_traj"] = max(errs["params_traj"], traj)
+        for a, c in zip(leaves((s_dev["m"], s_dev["v"])), leaves((s_cpu["m"], s_cpu["v"]))):
+            errs["moments"] = max(errs["moments"], card_close(a, c, f"(d) {name} smoke moments"))
+        del p_dev, s_dev
+
+        ropt = OptimizerConfig(**REPLAY_OPT)
+        rstep = make_train_step(lambda p, b, cfg=cfg: tf.loss_fn(cfg, p, b), ropt)
+
+        def init_state(cfg=cfg, ropt=ropt):
+            params = cfg.init(LM_SEED, dev)
+            return params, init_opt_state(ropt, params)
+
+        def batch_fn(s, cfg=cfg):
+            return lm_batch(LMDataConfig(cfg.vocab, ss, sb, LM_SEED), s, dev)
+
+        logs = []
+        with tempfile.TemporaryDirectory() as d:
+            faulty = run(LoopConfig(total_steps=REPLAY_STEPS, ckpt_every=REPLAY_CKPT_EVERY,
+                                    ckpt_dir=d, log_every=1, simulate_failure_at=REPLAY_FAILURE),
+                         rstep, init_state, batch_fn, log=logs.append)
+        clean = run(LoopConfig(total_steps=REPLAY_STEPS, log_every=1), rstep, init_state,
+                    batch_fn, log=lambda line: None)
+        restored = REPLAY_FAILURE // REPLAY_CKPT_EVERY * REPLAY_CKPT_EVERY
+        check(f"[fault] restoring step {restored}" in logs, f"(d) {name}: no restore in {logs}")
+        check(dict(faulty[2]) == dict(clean[2]), f"(d) {name}: replayed losses differ")
+        n_leaves = 0
+        for a, c in zip(leaves(faulty[:2]), leaves(clean[:2])):
+            exact(a, c, f"(d) {name}: state after the replay", torch)
+            n_leaves += 1
+        say(f"phase 13 (d): {name} smoke (f32 compute, {sb} x {ss} tokens): "
+            f"{TRAIN_SMOKE_STEPS} train steps, card == CPU (losses, grad norms and moments "
+            f"within rtol 1e-4 / atol 1e-5; params within rtol 1e-4 / atol "
+            f"{LM_STEP_TOL['atol']:g} and each leaf within {LM_TRAJ_TOL:g} of the distance it "
+            "travelled); max abs (params_traj: the largest such share) " + json.dumps(errs)
+            + f"; failure at step "
+            f"{REPLAY_FAILURE}, restored step {restored}, replayed to {REPLAY_STEPS}: params, "
+            f"moments and step bitwise equal to the run without the failure ({n_leaves} leaves)")
+        del faulty, clean
+    say(f"phase 13 (d): {time.perf_counter() - t:.1f} s")
+
+    # (e) the entry points as users start them, in subprocesses
+    t = time.perf_counter()
+    pat = re.compile(r"^step +(\d+) +loss (\S+) ")
+    with tempfile.TemporaryDirectory() as d:
+        opt_in = [] if DEVICE == "cuda" else ["--device", DEVICE]  # a CPU rehearsal
+        cli = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "granite-moe-1b-a400m", "--steps", str(REPLAY_STEPS), "--ckpt-every",
+               str(REPLAY_CKPT_EVERY)] + opt_in
+        cmds = {"fault": cli + ["--ckpt-dir", str(Path(d) / "fault"), "--simulate-failure",
+                                str(REPLAY_FAILURE)],
+                "clean": cli + ["--ckpt-dir", str(Path(d) / "clean")],
+                "train_lm": [sys.executable, "-m", "repro_torch.examples.train_lm",
+                             "--steps", "60"] + opt_in}
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        for tag, c in cmds.items():
+            say(f"phase 13 (e): {tag}: " + " ".join(c[1:]))
+        procs = {tag: subprocess.Popen(c, cwd=d, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+                 for tag, c in cmds.items()}
+        outs = {}
+        for tag, proc in procs.items():
+            out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+            check(proc.returncode == 0, f"(e) {tag} exited {proc.returncode}: {err[-2000:]}")
+            outs[tag] = out.splitlines()
+    for tag in ("fault", "train_lm"):
+        for line in outs[tag]:
+            say(f"phase 13 (e): {tag}: {line}")
+    losses = {tag: [pat.match(x).groups() for x in outs[tag] if pat.match(x)]
+              for tag in ("fault", "clean")}
+    check([int(s) for s, _ in losses["clean"]] == list(range(REPLAY_STEPS)),
+          f"(e) the train CLI without the failure logged {losses['clean']}")
+    check(f"[fault] restoring step {restored}" in outs["fault"],
+          "(e) the train CLI printed no [fault] restore")
+    check(set(losses["fault"]) == set(losses["clean"])
+          and sorted({int(s) for s, _ in losses["fault"]}) == list(range(REPLAY_STEPS)),
+          f"(e) the train CLI's loss lines differ: {losses}")
+    check(bool(outs["train_lm"]) and outs["train_lm"][-1].endswith("(OK: learning)"),
+          f"(e) train_lm did not end learning: {outs['train_lm'][-1:]}")
+    say(f"phase 13 (e): the train CLI (granite-moe-1b-a400m smoke) with and without the failure "
+        f"exits 0, the {len(losses['fault'])} loss lines of the failing run equal the "
+        f"{len(losses['clean'])} of the other; train_lm exits 0: {outs['train_lm'][-1]}; "
+        f"{time.perf_counter() - t:.1f} s")
+    say(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
+def numpy_tree(tree):
+    """A nested dict of tensors as numpy arrays (for ``params_from_numpy``)."""
+    return {k: numpy_tree(v) if isinstance(v, dict) else v.cpu().numpy() for k, v in tree.items()}
+
+
+def lm_smoke_parity(name: str, tag: str) -> None:
+    """A SMOKE LM at f32 compute, card vs CPU from the same weights (phase
+    12, phase 13 (a)): ``forward`` (logits and aux loss), a 32-token
+    ``prefill`` into a 48-slot cache, a ``decode_step`` at 32 and both
+    caches within ``SMOKE_TOL``; for an MoE config also the routing (each
+    MoE call's top-k experts), identical."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.lm import LMDataConfig, lm_batch
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import params_from_numpy
+
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(get_arch(name).smoke_config, compute_dtype=torch.float32)
+    p_cpu = cfg.init(LM_SEED, "cpu")
+    params = {"cpu": p_cpu, "card": params_from_numpy(cfg.param_defs(), numpy_tree(p_cpu), dev)}
+    b = lm_batch(LMDataConfig(cfg.vocab, 32, 2, LM_SEED), 0, "cpu")
+    route = moe_lib._route
+    outs, routes = {}, {}
+    for where, d in (("cpu", "cpu"), ("card", dev)):
+        record = routes[where] = []
+
+        def recording(x, p, c, record=record):
+            out = route(x, p, c)
+            record.append(out[2].cpu())
+            return out
+
+        moe_lib._route = recording
+        try:
+            logits, aux = tf.forward(cfg, params[where], b["tokens"].to(d))
+            cache = tf.make_cache(cfg, 2, 48, d)
+            pre = tf.prefill(cfg, params[where], b["tokens"].to(d), cache)[0]
+            dec = tf.decode_step(cfg, params[where], cache, b["labels"][:, -2].to(d), 32)[0]
+        finally:
+            moe_lib._route = route
+        outs[where] = {"forward": logits, "aux": aux, "prefill": pre, "decode": dec,
+                       "cache k": cache["k"], "cache v": cache["v"]}
+    errs = {k: card_close(outs["card"][k], outs["cpu"][k], f"{tag}: {name} {k}")
+            for k in outs["cpu"]}
+    line = (f"{tag}: {name} smoke (f32 compute): card == CPU within rtol 1e-4 / atol 1e-5 "
+            "(forward, 32-token prefill, decode at 32)")
+    if cfg.is_moe:
+        n = 3 * cfg.n_layers  # forward, prefill and decode, per layer
+        check(len(routes["card"]) == len(routes["cpu"]) == n
+              and all(torch.equal(a, c) for a, c in zip(routes["card"], routes["cpu"])),
+              f"{tag}: {name}: the routing differs between the card and the CPU")
+        line += (f"; routing identical in all {n} MoE calls (top-{cfg.top_k} of "
+                 f"{cfg.n_experts} experts); aux {float(outs['card']['aux']):.6f}")
+    say(line + "; max abs " + json.dumps(errs))
+
+
+def lm_serve(spec, tag: str, report: list, check_overrides: dict | None = None) -> None:
+    """One published LM's serving (phase 12, phase 13 (b)): f32 parameters
+    at ``spec.config``, bf16 compute; the decode-after-prefill check (under
+    ``check_overrides``); each serving cell at its ``LM_CUTS`` cut, timed
+    and checked; a row per cell appended to ``report``.  The parameters
+    and caches are freed before it returns."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.lm import LMDataConfig, lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_lm_cell
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device(DEVICE)
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    name = spec.name
+    cfg = spec.config
+    t = time.perf_counter()
+    params = cfg.init(LM_SEED, dev)
+    torch.cuda.synchronize()
+    param_bytes = cfg.n_params() * 4
+    kv_token = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.d_head * 2
+    say(f"{tag}: {name}: f32 parameters {param_bytes / 1e9:.3f} GB initialised in "
+        f"{time.perf_counter() - t:.1f} s; KV cache {kv_token} bytes per token "
+        f"(layers {cfg.n_layers} x 2 x kv heads {cfg.n_kv_heads} x d_head {cfg.d_head} x 2)")
+
+    # full width: decode of token S after an S-token prefill == the
+    # (S+1)-token prefill's last position, within LM_BF16_TOL
+    S = LM_CHECK_S
+    ccfg = dataclasses.replace(cfg, **(check_overrides or {}))
+    toks = lm_batch(LMDataConfig(cfg.vocab, S + 1, 1, LM_SEED), 0, dev)["tokens"]
+    cache = tf.make_cache(ccfg, 1, 2 * S, dev)
+    tf.prefill(ccfg, params, toks[:, :S], cache)
+    dec = tf.decode_step(ccfg, params, cache, toks[:, S], S)[0]
+    one = dataclasses.replace(ccfg, attn_chunk=S + 1)
+    full = tf.prefill(one, params, toks, tf.make_cache(one, 1, S + 1, dev))[0]
+    d, v = dec[:, :cfg.vocab].float(), full[:, :cfg.vocab].float()
+    check(bool(torch.isfinite(d).all() and torch.isfinite(v).all()),
+          f"{tag}: {name}: non-finite logits in the decode check")
+    rel = float((d - v).abs().max() / v.abs().max())
+    check(rel <= LM_BF16_TOL, f"{tag}: {name}: decode at {S} vs the {S + 1}-token "
+          f"prefill differ by {rel:.4g} of the largest logit (> {LM_BF16_TOL})")
+    say(f"{tag}: {name}: decode of token {S} after a {S}-token prefill == the "
+        f"{S + 1}-token prefill's last logits within {rel:.4g} of the largest |logit| "
+        f"(tolerance {LM_BF16_TOL}); argmax equal: {bool(d.argmax() == v.argmax())}")
+    del cache, dec, full, d, v, toks
+
+    for shape in spec.shapes:
+        if shape.skip:
+            say(f"{tag}: {name} {shape.name} not run (skip): {shape.skip}")
+            continue
+        if (name, shape.name) not in LM_CUTS:
+            if shape.kind == "lm_train":
+                say(f"{tag}: {name} {shape.name}: training, phase 13 (c)")
+            else:
+                say(f"{tag}: {name} {shape.name} not run (the window variant runs on "
+                    "SmolLM-135M only, for time)")
+            continue
+        B0, S0 = shape.params["global_batch"], shape.params["seq_len"]
+        B, S = LM_CUTS[(name, shape.name)]
+        if (B, S) == (B0, S0):
+            why = "run as published"
+        elif B0 * S0 * kv_token + param_bytes > card_bytes:
+            why = "does not fit the card"
+        else:
+            why = "fits the card; cut for the time limit"
+        say(f"{tag}: {name} {shape.name}: published {B0} x {S0} = KV "
+            f"{B0 * S0 * kv_token / 1e9:.2f} GB beside {param_bytes / 1e9:.2f} GB of "
+            f"parameters ({why}: the card holds {card_bytes / 1e9:.2f} GB); run at "
+            f"{B} x {S} = KV {B * S * kv_token / 1e9:.2f} GB")
+        cut = dataclasses.replace(shape, params={**shape.params, "global_batch": B,
+                                                 "seq_len": S})
+        torch.cuda.reset_peak_memory_stats()
+        cell = build_lm_cell(spec, cut, dev, LM_SEED, params=params)
+        warm, runs = LM_LONG if S > 32768 else (LM_WARMUP, LM_RUNS)
+        reset_launch_counts()
+        times = []
+        for i in range(warm + runs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            logits = cell.fn(*cell.args)[0]  # (the cache it returns is the cell's)
+            ev[1].record()
+            ev[1].synchronize()
+            if i >= warm:
+                times.append(ev[0].elapsed_time(ev[1]))
+        counts = launch_counts()
+        check(not any(counts.values()), f"{tag}: {name} {shape.name} launched {counts}")
+        check(logits.shape == (B, cfg.padded_vocab)
+              and bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
+              f"{tag}: {name} {shape.name}: logits not finite or of shape "
+              f"{tuple(logits.shape)}")
+        ms = statistics.median(times)
+        n_tok = B * S if shape.kind == "lm_prefill" else B
+        row = {"model": name, "shape": shape.name, "kind": shape.kind, "batch": B,
+               "seq_len": S, "ms": ms, "runs_ms": times, "tokens_per_s": n_tok / ms * 1e3,
+               "model_flops": cell.model_flops,
+               "bf16_share": cell.model_flops / ms * 1e3 / BF16_FLOPS_PER_S,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if "attn_window" in shape.params:
+            row["attn_window"] = shape.params["attn_window"]
+        report.append(row)
+        say(f"{tag}: {name} {shape.name} at {B} x {S}: {ms:.3f} ms per "
+            f"{'prefill' if shape.kind == 'lm_prefill' else 'decode step'} (median of "
+            f"{runs} after {warm} warm-up), {row['tokens_per_s']:.1f} tokens/s, "
+            f"{cell.model_flops:.4g} model FLOP -> {row['bf16_share']:.5f} of "
+            f"{BF16_FLOPS_PER_S / 1e12:g}e12; logits finite; "
+            f"peak {row['peak_gib']:.2f} GiB")
+        del cell, logits
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
 
 
 def recsys_geo(n: int, side: float, q_rects, device):
@@ -2346,10 +2714,12 @@ def recsys_profiles():
 
 
 def lm_profiles():
-    """Phase 5 for phase 12's LMs: one profiler pass over a prefill of
+    """Phase 5 for phases 12–13's LMs: one profiler pass over a prefill of
     ``LM_PROFILE_CUT[0]`` tokens and one over a decode step at
     ``LM_PROFILE_CUT[1]`` cached tokens (batch 1) of each published
-    config, built anew and freed after.  Yields (name, lines)."""
+    config, and one over a train step of ``LM_PROFILE_CUT[0]`` tokens of
+    ``LM_PROFILE_TRAIN``, each model built anew and freed after.
+    Yields (name, lines)."""
     import dataclasses
 
     import torch
@@ -2358,18 +2728,24 @@ def lm_profiles():
     from repro_torch.launch.steps import build_lm_cell
 
     dev = torch.device(DEVICE)
-    for name in LM_ARCHS:
+    for name in LM_ARCHS + MOE_ARCHS:
         spec = get_arch(name)
         params = spec.config.init(LM_SEED, dev)
-        for shape_name, S in zip(("prefill_32k", "decode_32k"), LM_PROFILE_CUT):
+        shapes = [("prefill_32k", LM_PROFILE_CUT[0]), ("decode_32k", LM_PROFILE_CUT[1])]
+        if name == LM_PROFILE_TRAIN:
+            shapes.append(("train_4k", LM_PROFILE_CUT[0]))
+        for shape_name, S in shapes:
             shape = spec.shape(shape_name)
             cut = dataclasses.replace(shape, params={**shape.params, "global_batch": 1,
                                                      "seq_len": S})
-            cell = build_lm_cell(spec, cut, dev, LM_SEED, params=params)
+            # the train step writes its parameters in place: its own copy
+            cell = build_lm_cell(spec, cut, dev, LM_SEED,
+                                 params=None if shape.kind == "lm_train" else params)
             cell.fn(*cell.args)  # warm-up outside the profiler
             yield (f"{name} {shape_name} at 1 x {S}",
                    profile_batch(lambda: cell.fn(*cell.args), torch, ()))
             del cell
+            torch.cuda.empty_cache()
         del params
         torch.cuda.empty_cache()
 

@@ -4,7 +4,7 @@ Each ``configs/<id>.py`` registers ``make() -> ArchSpec`` with the exact
 published configuration, a reduced smoke configuration (same family) and
 its shape set; ``launch/steps.py`` turns (arch, shape) into a cell with
 real inputs on the device.  Only the archs the port has are registered:
-the four recsys ones, the three dense LMs and ``geoweb``.
+the four recsys ones, the five LMs and ``geoweb``.
 """
 from __future__ import annotations
 
@@ -13,10 +13,10 @@ from dataclasses import dataclass
 from typing import Any
 
 # the modules that register the port's archs (the reference's all_archs
-# lists the MoE LM and GNN ones too)
+# lists the GNN one too)
 _ARCH_MODULES = (
-    "autoint", "bst", "dcn_v2", "geoweb", "qwen1_5_0_5b", "qwen2_5_14b", "smollm_135m",
-    "two_tower_retrieval",
+    "autoint", "bst", "dcn_v2", "geoweb", "granite_moe_1b_a400m", "olmoe_1b_7b",
+    "qwen1_5_0_5b", "qwen2_5_14b", "smollm_135m", "two_tower_retrieval",
 )
 
 

@@ -1,6 +1,9 @@
 """Cell builders (port of ``repro/launch/steps.py``): (arch × shape) → a
 :class:`Cell` whose ``fn(*args)`` runs the step.
 
+* ``lm_train``          train_step(params, opt_state, batch): the LM loss
+                        (MoE aux included), its gradients by autograd and
+                        the AdamW update, in place
 * ``lm_prefill``        prefill(params, tokens, cache)
 * ``lm_decode``         decode_step(params, cache, tokens, pos)
 * ``recsys_train``      train_step(params, opt_state, batch): the loss,
@@ -13,8 +16,8 @@
 The reference's cells carry ``ShapeDtypeStruct``s for lowering; the port's
 carry real tensors on the device at the shape's sizes: parameters from
 ``cfg.init(seed, device)``, batches from ``repro_torch.data``, a geoweb
-corpus from ``make_corpus``.  ``lm_train`` (ROADMAP Queue 1 item 3) and
-the GNN cells (item 4) wait for their slices.
+corpus from ``make_corpus``.  The GNN cells (ROADMAP Queue 1 item 4) wait
+for their slice.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from repro_torch.train.loop import make_train_step
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 
 
-# the recsys_train cell's optimizer, the reference's
+# the lm_train and recsys_train cells' optimizer, the reference's
 TRAIN_OPT = OptimizerConfig(zero1=True)
 
 
@@ -74,26 +77,33 @@ def _lm_flops(cfg, n_tokens: int, kind: str, kv_len: int = 0, batch: int = 1) ->
 def build_lm_cell(
     spec: ArchSpec, shape: ShapeSpec, device=None, seed: int = 0, params: dict | None = None,
 ) -> Cell:
-    """The (arch, shape) LM serving cell with its inputs on ``device``
-    (CUDA unless given): ``params`` (``cfg.init(seed, device)`` unless
-    given, so two cells can share one model), tokens from ``lm_batch``
-    and a zero cache from ``make_cache`` of the shape's ``global_batch`` ×
-    ``seq_len``.  The decode cell writes at ``pos = seq_len − 1``, so its
-    step attends over the whole cache.  ``attn_window`` comes from the
-    shape."""
+    """The (arch, shape) LM cell with its inputs on ``device`` (CUDA
+    unless given): ``params`` (``cfg.init(seed, device)`` unless given, so
+    two cells can share one model) and tokens from ``lm_batch`` of the
+    shape's ``global_batch`` × ``seq_len``.  The train cell steps with
+    :data:`TRAIN_OPT` from a zero optimizer state on the batch of step 0;
+    the serving cells take a zero cache from ``make_cache``, and the decode
+    cell writes at ``pos = seq_len − 1``, so its step attends over the
+    whole cache.  ``attn_window`` comes from the shape."""
     cfg = spec.config
     p = shape.params
     if "attn_window" in p:
         cfg = dataclasses.replace(cfg, attn_window=p["attn_window"])
-    if shape.kind == "lm_train":
-        raise NotImplementedError(
-            f"{spec.name} {shape.name}: LM training is not ported yet (ROADMAP Queue 1 item 3)")
-    if shape.kind not in ("lm_prefill", "lm_decode"):
+    if shape.kind not in ("lm_train", "lm_prefill", "lm_decode"):
         raise ValueError(shape.kind)
     dev = resolve_device(device)
     B, S = p["global_batch"], p["seq_len"]
     if params is None:
         params = cfg.init(seed, dev)
+
+    if shape.kind == "lm_train":
+        step = make_train_step(lambda prm, b: tf_lib.loss_fn(cfg, prm, b), TRAIN_OPT)
+        batch = lm_batch(LMDataConfig(cfg.vocab, S, B, seed), 0, dev)
+        return Cell(
+            spec.name, shape.name, step, (params, init_opt_state(TRAIN_OPT, params), batch),
+            donate=(0, 1), model_flops=_lm_flops(cfg, B * S, "train"),
+        )
+
     cache = tf_lib.make_cache(cfg, B, S, dev)
 
     if shape.kind == "lm_prefill":
@@ -382,4 +392,5 @@ def build_cell(
         return build_lm_cell(spec, shape, device, seed)
     if spec.family == "recsys":
         return build_recsys_cell(spec, shape, device, seed)
-    raise NotImplementedError(f"{spec.name}: the {spec.family} cells are not ported yet")
+    raise NotImplementedError(
+        f"{spec.name}: the {spec.family} cells are not ported yet (ROADMAP Queue 1 item 4)")

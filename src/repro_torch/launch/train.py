@@ -9,16 +9,18 @@ default; ``--full`` for the published one), with checkpointing
 replays, bit-identically) and deterministic data keyed by (seed, step).
 ``--device`` (default ``cuda``) is where the state lives and the steps
 run; without CUDA the default raises and names the opt-in ``--device
-cpu``.  The port trains the recsys family; the LM and GNN families wait
-for their slices.
+cpu``.  The port trains the LM and recsys families; the GNN family waits
+for its slice (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
 import argparse
 
 from repro_torch.configs.base import get_arch
+from repro_torch.data.lm import LMDataConfig, lm_batch
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import recsys_batch, recsys_loss
+from repro_torch.models import transformer as tf_lib
 from repro_torch.train.loop import LoopConfig, make_train_step, run
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 
@@ -26,10 +28,14 @@ from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 def loss_and_batch_fns(spec, cfg, batch_size: int, seq_len: int, seed: int, device):
     """(loss(params, batch), batch_fn(step)) for ``spec``'s family, the
     batches on ``device``.  ``seq_len`` is the LM family's."""
-    if spec.family in ("lm", "gnn"):
+    if spec.family == "lm":
+        dc = LMDataConfig(vocab=cfg.vocab, seq_len=seq_len, global_batch=batch_size, seed=seed)
+        return (lambda p, b: tf_lib.loss_fn(cfg, p, b),
+                lambda step: lm_batch(dc, step, device))
+    if spec.family == "gnn":
         raise NotImplementedError(
-            f"{spec.name}: {spec.family} training is not ported yet (the port trains the "
-            "recsys family)")
+            f"{spec.name}: gnn training is not ported yet (ROADMAP Queue 1 item 4; the port "
+            "trains the lm and recsys families)")
     if spec.family == "recsys":
         return (recsys_loss(cfg),
                 lambda step: recsys_batch(cfg, batch_size, device, seed, step))

@@ -1,23 +1,40 @@
-"""Decoder-only LM, dense (port of ``repro/models/transformer.py``): GQA,
-RoPE, SwiGLU, layer parameters stacked on a leading ``layers`` dim.
+"""Decoder-only LM (port of ``repro/models/transformer.py``): a dense
+SwiGLU or a Mixture-of-Experts FFN (:mod:`repro_torch.models.moe`), GQA,
+RoPE, layer parameters stacked on a leading ``layers`` dim.
 
-Serving (``prefill``, ``decode_step`` with a KV cache) and the forward
-value of ``loss_fn``.  The reference's ``lax.scan`` over layers is a loop
-over the stacked dim; ``remat`` and ``scan_unroll`` shape the reference's
-compiled program and change nothing here (training through autograd is
-ROADMAP Queue 1 item 3).  The MoE FFN (``n_experts > 0``) is item 2b and
-raises.  Parameters are ``param_dtype`` (f32); activations run in
-``compute_dtype`` (bf16), each weight cast to it where it is used.
+``forward`` and ``loss_fn`` (differentiable: training goes through
+``torch.autograd``), and serving: ``prefill`` and ``decode_step`` with a
+KV cache.  The reference's ``lax.scan`` over layers is a loop over the
+stacked dim, and ``forward`` sums the per-layer MoE aux losses as the
+scan stacks them.  ``remat`` is the reference's ``jax.checkpoint`` of the
+layer body, as ``torch.utils.checkpoint`` of each layer in ``forward``
+while autograd records: ``"full"`` keeps each layer's input and
+recomputes the rest in the backward; ``"dots"`` also keeps the outputs of
+the products without batch dims (``aten.mm``: the projections; not the
+attention's or the experts' batched products), the counterpart of
+``checkpoint_dots_with_no_batch_dims``; ``"none"`` keeps everything.
+Remat changes memory, never values.  ``scan_unroll`` shapes only the
+reference's compiled program.  Parameters are ``param_dtype`` (f32);
+activations run in ``compute_dtype`` (bf16), each weight cast to it where
+it is used.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.params import ParamDef, init_params, param_count
 
 
@@ -133,8 +150,9 @@ class TransformerConfig:
 
 def _embed(cfg: TransformerConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """Rows gathered, then cast: the reference's cast-then-gather values
-    without a compute-dtype copy of the whole table per call."""
-    return params["embed"][tokens.long()].to(cfg.compute_dtype)
+    without a compute-dtype copy of the whole table per call.  (The
+    lookup's backward sums repeated rows in a fixed order on the card.)"""
+    return F.embedding(tokens.long(), params["embed"]).to(cfg.compute_dtype)
 
 
 def _unembed(cfg: TransformerConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -151,32 +169,59 @@ def _layer(params: dict, i: int) -> dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in params.items()}
 
 
-def _check_dense(cfg: TransformerConfig) -> None:
+def _ffn(cfg: TransformerConfig, x: torch.Tensor, lp: dict):
+    """The FFN half of a layer: (x + FFN(norm(x)), aux)."""
+    y = L.rms_norm(x, lp["ln2"])
     if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported yet (ROADMAP Queue 1 item 2b)")
+        f, aux = moe_lib.moe_ffn(y, lp["moe"], cfg)
+    else:  # a dense layer's aux loss is 0
+        f, aux = L.swiglu(y, lp["mlp"]), torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + f, aux
+
+
+def _layer_body(cfg: TransformerConfig, x: torch.Tensor, lp: dict, positions: torch.Tensor):
+    h, _ = L.attention_block(L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions)
+    return _ffn(cfg, x + h, lp)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Remat "dots": keep the products without batch dims."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: TransformerConfig, body):
+    """``body`` under the config's checkpointing, while autograd records."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return body
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat {cfg.remat!r}: none | full | dots")
 
 
 def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
-    """tokens i32[B, S] → (logits f32[B, S, V], aux_loss)."""
-    _check_dense(cfg)
+    """tokens i32[B, S] → (logits f32[B, S, V], aux_loss: the sum over
+    layers)."""
     B, S = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    body = _remat(cfg, functools.partial(_layer_body, cfg))
+    auxs = []
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        h, _ = L.attention_block(L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions)
-        x = x + h
-        x = x + L.swiglu(L.rms_norm(x, lp["ln2"]), lp["mlp"])
+        x, a = body(x, _layer(params["layers"], i), positions)
+        auxs.append(a)
     x = L.rms_norm(x, params["ln_f"])
-    # a dense layer's aux loss is 0; the reference sums one per layer
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _unembed(cfg, params, x), aux
+    return _unembed(cfg, params, x), torch.stack(auxs).sum()
 
 
 def loss_fn(cfg: TransformerConfig, params: dict, batch: dict):
-    """batch: tokens i32[B, S], labels i32[B, S] (−1 = ignore).  The value
-    and metrics of the reference's loss (no gradients here)."""
+    """batch: tokens i32[B, S], labels i32[B, S] (−1 = ignore).  Returns
+    (total, metrics): the reference's loss, z-loss and weighted aux loss."""
     logits, aux = forward(cfg, params, batch["tokens"])
     labels = batch["labels"].long()
     mask = labels >= 0
@@ -211,7 +256,6 @@ def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, cache: d
     Each layer's k/v are written into ``cache`` in place and its positions
     from S on are zeroed: the reference's stacked, zero-padded cache, without
     holding a second copy of it."""
-    _check_dense(cfg)
     B, S = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
@@ -220,8 +264,7 @@ def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, cache: d
         h, (k, v) = L.attention_block(L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions)
         cache["k"][i, :, :S] = k.to(cache["k"].dtype)
         cache["v"][i, :, :S] = v.to(cache["v"].dtype)
-        x = x + h
-        x = x + L.swiglu(L.rms_norm(x, lp["ln2"]), lp["mlp"])
+        x, _ = _ffn(cfg, x + h, lp)
     cache["k"][:, :, S:] = 0
     cache["v"][:, :, S:] = 0
     x = L.rms_norm(x, params["ln_f"])
@@ -238,7 +281,6 @@ def decode_step(
 ):
     """One token of batched decode, writing its k/v into ``cache`` in
     place.  Returns (logits f32[B, V], cache)."""
-    _check_dense(cfg)
     B = tokens.shape[0]
     x = _embed(cfg, params, tokens)[:, None, :]  # [B, 1, D]
     pos = int(pos)
@@ -250,8 +292,7 @@ def decode_step(
             k_cache=cache["k"][i], v_cache=cache["v"][i], cache_pos=pos,
             kv_valid_len=pos + 1,
         )
-        x = x + h
-        x = x + L.swiglu(L.rms_norm(x, lp["ln2"]), lp["mlp"])
+        x, _ = _ffn(cfg, x + h, lp)
     x = L.rms_norm(x, params["ln_f"])
     logits = _unembed(cfg, params, x)
     return logits[:, 0], cache

@@ -1,9 +1,9 @@
 """PyTorch port: dense LM serving against the reference on the CPU at the
 three dense archs' SMOKE configs — the registry (every config field, the
-shape set, ``_lm_flops``), ``forward``, ``loss_fn``, ``prefill`` and
-``decode_step`` (logits and caches), the sliding window, the layers alone
-(``flash_attention``'s masks, ``rope``, ``swiglu``), the LM cells and the
-token pipeline.  The reference's ``cfg.init(jax.random.key(0))`` weights
+shape set, ``_lm_flops``; the MoE archs' too), ``forward``, ``loss_fn``,
+``prefill`` and ``decode_step`` (logits and caches), the sliding window,
+the layers alone (``flash_attention``'s masks, ``rope``, ``swiglu``), the
+LM cells and the token pipeline.  The reference's ``cfg.init(jax.random.key(0))`` weights
 come across by ``params_from_numpy``; its tokens as numpy.
 
 Tolerances: with ``compute_dtype`` f32, rtol 1e-4 / atol 1e-5 (the recsys
@@ -39,6 +39,7 @@ from repro_torch.models import transformer as pt  # noqa: E402
 from repro_torch.models.params import params_from_numpy  # noqa: E402
 
 ARCHS = ["smollm-135m", "qwen1.5-0.5b", "qwen2.5-14b"]
+MOE_ARCHS = ["olmoe-1b-7b", "granite-moe-1b-a400m"]  # their parity: test_torch_moe.py
 TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_LOGIT_TOL = 2.0**-5
 
@@ -94,7 +95,7 @@ def _fields(cfg):
             for f in dataclasses.fields(cfg) for v in [getattr(cfg, f.name)]}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_lm_registry_equals_reference(arch):
     want, got = ref_get_arch(arch), get_arch(arch)
     assert (got.name, got.family, got.source) == (want.name, want.family, want.source)
@@ -279,13 +280,28 @@ def test_lm_cells_equal_direct_calls(kind):
 
 
 def test_lm_train_cell_and_moe_raise():
+    """The gaps this test once pinned are closed: the ``lm_train`` cell
+    builds and the MoE FFN runs (their parity: ``test_torch_lm_train.py``,
+    ``test_torch_moe.py``).  What still raises is the GNN family, naming
+    ROADMAP Queue 1 item 4: its cells and its training."""
+    from repro_torch.launch import train as p_train
+
     spec = get_arch("qwen1.5-0.5b")
-    smoke = dataclasses.replace(spec, config=spec.smoke_config)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        steps.build_cell(smoke, spec.shape("train_4k"), device="cpu")
+    shape = spec.shape("train_4k")
+    shape = dataclasses.replace(shape, params={"global_batch": 1, "seq_len": 16})
+    cell = steps.build_cell(dataclasses.replace(spec, config=spec.smoke_config), shape,
+                            device="cpu")
+    assert cell.donate == (0, 1) and len(cell.args) == 3
     moe = dataclasses.replace(spec.smoke_config, n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        pt.forward(moe, moe.init(0, "cpu"), torch.zeros((1, 4), dtype=torch.int32))
+    logits, aux = pt.forward(moe, moe.init(0, "cpu"), torch.zeros((1, 4), dtype=torch.int32))
+    assert logits.shape == (1, 4, moe.padded_vocab) and float(aux) > 0
+    gnn = dataclasses.replace(spec, name="egnn", family="gnn")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        steps.build_cell(gnn, shape, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        p_train.loss_and_batch_fns(gnn, None, 8, 16, 0, "cpu")
+    with pytest.raises(KeyError, match="not ported yet"):
+        get_arch("egnn")
 
 
 @pytest.mark.parametrize("seed", [0, 7])
@@ -310,13 +326,16 @@ def test_lm_batch_shapes_ranges_and_replay(seed):
 
 def test_lm_entry_points_default_to_cuda(monkeypatch):
     """Without ``device=`` the LM entry points run on CUDA; on a host
-    without it they raise and name ``device="cpu"``, before allocating."""
+    without it they raise and name ``device="cpu"``, before allocating
+    (every LM arch, its serving and training cells)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    spec = get_arch("smollm-135m")
-    cfg = spec.smoke_config
-    smoke = dataclasses.replace(spec, config=cfg)
-    for call in (lambda: cfg.init(0), lambda: pt.make_cache(cfg, 1, 16),
-                 lambda: lm_batch(LMDataConfig(512, 8, 1), 0),
-                 lambda: steps.build_cell(smoke, spec.shape("decode_32k"))):
-        with pytest.raises(RuntimeError, match='device="cpu"'):
-            call()
+    for arch in ARCHS[:1] + MOE_ARCHS:
+        spec = get_arch(arch)
+        cfg = spec.smoke_config
+        smoke = dataclasses.replace(spec, config=cfg)
+        for call in (lambda: cfg.init(0), lambda: pt.make_cache(cfg, 1, 16),
+                     lambda: lm_batch(LMDataConfig(512, 8, 1), 0),
+                     lambda: steps.build_cell(smoke, spec.shape("decode_32k")),
+                     lambda: steps.build_cell(smoke, spec.shape("train_4k"))):
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                call()

@@ -506,11 +506,19 @@ def test_train_cli_on_cpu_replays_after_failure(tmp_path, capsys):
 
 
 def test_train_cli_families(monkeypatch):
+    """The gnn family raises (ROADMAP Queue 1 item 4); the lm family gives
+    the LM loss and ``lm_batch`` on the device (its runs:
+    ``test_torch_lm_train.py``); geoweb is a serving system."""
     spec = get_arch("dcn-v2")
-    for family in ("lm", "gnn"):
-        with pytest.raises(NotImplementedError, match=f"{family} training is not ported yet"):
-            p_train.loss_and_batch_fns(type(spec)(spec.name, family, None, None, ()), None,
-                                       8, 16, 0, CPU)
+    with pytest.raises(NotImplementedError, match="gnn training is not ported yet"):
+        p_train.loss_and_batch_fns(type(spec)(spec.name, "gnn", None, None, ()), None,
+                                   8, 16, 0, CPU)
+    lm = get_arch("granite-moe-1b-a400m")
+    loss, batch_fn = p_train.loss_and_batch_fns(lm, lm.smoke_config, 2, 16, 0, CPU)
+    b = batch_fn(3)
+    assert b["tokens"].shape == (2, 16) and b["tokens"].device.type == CPU
+    total, metrics = loss(lm.smoke_config.init(0, CPU), b)
+    assert bool(torch.isfinite(total)) and float(metrics["aux"]) > 0
     geoweb = type(spec)("geoweb", "geoweb", None, None, ())
     monkeypatch.setattr(p_train, "get_arch", lambda name: geoweb)
     with pytest.raises(SystemExit, match="geoweb is a serving system"):
