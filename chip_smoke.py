@@ -46,7 +46,8 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    over a batch; and one over each of phase 9's recsys cells (the
    geo-blended retrieval and every serve shape), over a prefill (2,048
    tokens) and a decode step (4,096 cached tokens) of each of phases
-   12–13's five LMs and over a train step (2,048 tokens) of Granite-MoE:
+   12–13's five LMs, over a train step (2,048 tokens) of Granite-MoE and
+   over a train step of each of phase 14's EGNN cells:
    the device's busy time, idle share and top device ops;
 6. serves 2048-query traces through ``GeoServer`` over the phase-3 index,
    at ``launch/serve.py``'s defaults (Landlord cache of 512, deadline
@@ -200,6 +201,29 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    loss lines) and ``python -m repro_torch.examples.train_lm --steps 60``
    (``OK: learning``), as subprocesses.  It runs after phase 12 and before
    phase 5.
+14. trains EGNN (the E(n)-equivariant GNN over ordered segment sums):
+   (a) the SMOKE config at f32 compute on each cell kind's graph (a full
+   power-law graph, a fanout-sampled subgraph, a molecule batch under
+   graph regression) gives the same outputs, coordinates and loss on the
+   card as on the CPU (rtol 1e-4 / atol 1e-5), 3 train steps too (losses
+   and gradient norms within that tolerance, parameters as phase 13 (d)
+   holds them), passes the reference's equivariance check on the card
+   (rotation by 1.1 rad plus a translation, atol 2e-4), repeats bit for
+   bit (twice the same 3 steps, at f32 and at bf16 compute), and a failure
+   at step 5 restored and replayed to step 8 equals the run without it
+   bitwise; (b) the published ``CONFIG`` (f32 parameters, bf16 compute)
+   through ``build_gnn_cell`` at ``full_graph_sm``, ``molecule`` and
+   ``minibatch_lg`` (its 232,965-node / 114,615,892-edge graph built once,
+   then a (1024, (15, 10)) sample; the host seconds of each printed): ms
+   per train step (CUDA events, median of 3 after a warm-up), nodes/s and
+   edges/s, model FLOPs as a share of 989e12, peak memory, a finite loss,
+   and the bytes autograd saves per edge and per node of a layer; (c)
+   ``ogb_products`` printed as not run, with that count scaled to its
+   61,859,140 edges against the card's memory; (d) ``python -m
+   repro_torch.launch.train --arch egnn`` with and without
+   ``--simulate-failure 5`` as subprocesses (equal loss lines).  It
+   launches no kernel, and runs after phase 13 and before phase 5, which
+   profiles one train step of each (b) cell.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -377,6 +401,14 @@ LM_TRAIN_RUNS = 3
 LM_SMOKE_BATCH = (4, 64)
 LM_TRAJ_TOL = 1e-2
 LM_STEP_TOL = dict(rtol=1e-4, atol=TRAIN_SMOKE_OPT["lr"])
+# phase 14: EGNN.  (a) the SMOKE graphs of tests/test_arch_smoke.py, seed
+# 0 weights; (b) the published CONFIG at the shapes that fit one card,
+# LM_WARMUP + LM_RUNS steps each; (c) ogb_products (2,449,029 nodes,
+# 61,859,140 edges) waits for make_sharded_loss over several cards
+EGNN_SEED = 0
+EGNN_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")
+EGNN_NOT_RUN = "ogb_products"
+EGNN_EQUIV_ATOL = 2e-4
 
 
 def check(cond: bool, what: str) -> None:
@@ -1050,6 +1082,9 @@ def main() -> int:
     # ---- phase 13: the MoE LMs and LM training ---------------------------
     moe_train_phase()
     torch.cuda.empty_cache()
+    # ---- phase 14: EGNN --------------------------------------------------
+    egnn_phase()
+    torch.cuda.empty_cache()
     for row in table:
         main_counts[row["name"]] += (serve_counts[row["name"]] + shard_counts[row["name"]]
                                      + tel_counts[row["name"]] + rec_counts[row["name"]]
@@ -1064,6 +1099,9 @@ def main() -> int:
         for line in lines:
             say(f"phase 5: {name}: profile: {line}")
     for name, lines in lm_profiles():
+        for line in lines:
+            say(f"phase 5: {name}: profile: {line}")
+    for name, lines in egnn_profiles():
         for line in lines:
             say(f"phase 5: {name}: profile: {line}")
     say(f"peak device memory of phases 1-8 {peak / 2**30:.2f} GiB; "
@@ -2498,6 +2536,332 @@ def moe_train_phase() -> None:
     say(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
+def egnn_smoke(kind: str, device):
+    """(cfg, batch) of a phase-14 (a) SMOKE case at f32 compute on
+    ``device``: the graphs of tests/test_arch_smoke.py."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data import graph
+
+    cfg = dataclasses.replace(get_arch("egnn").smoke_config, compute_dtype=torch.float32)
+    if kind == "molecule":
+        cfg = dataclasses.replace(cfg, n_classes=0)
+        return cfg, graph.molecule_batch(8, 10, 16, cfg.d_feat, seed=0, device=device)
+    if kind == "sampled":
+        g = graph.make_powerlaw_graph(512, 4096, cfg.d_feat, cfg.n_classes, seed=1,
+                                      device=device)
+        return cfg, graph.sample_subgraph(g, graph.SampledShape(16, (4, 3)), seed=0, step=0,
+                                          device=device)
+    g = graph.make_powerlaw_graph(128, 512, cfg.d_feat, cfg.n_classes, seed=0, device=device)
+    return cfg, graph.full_graph_batch(g, edge_multiple=8, device=device)
+
+
+def saved_bytes(run, rows: dict) -> dict:
+    """Bytes autograd saves while ``run()`` records, each storage counted
+    once, summed by the leading dim of the tensor saved: under the name in
+    ``rows`` (name → row count) it matches, else under "other"."""
+    import torch
+
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        seen.setdefault(st.data_ptr(), (st.nbytes(), t.shape[0] if t.dim() else None))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = run()
+    del out
+    by = {name: 0 for name in (*rows, "other")}
+    for nbytes, lead in seen.values():
+        name = next((k for k, n in rows.items() if n == lead), "other")
+        by[name] += nbytes
+    return by
+
+
+def egnn_phase() -> None:
+    """Phase 14: EGNN (see the module docstring)."""
+    import dataclasses
+    import math
+    import os
+    import re
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data import graph
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps
+    from repro_torch.models import egnn
+    from repro_torch.models.params import params_from_numpy
+    from repro_torch.train.loop import LoopConfig, make_train_step, run
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.tree import leaves, tree_map
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "phase 14: f32 matmuls must run at full f32, no TF32")
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    reset_launch_counts()
+
+    # (a) SMOKE, card vs CPU, on each cell kind's graph
+    opt = OptimizerConfig(**TRAIN_SMOKE_OPT)
+    ropt = OptimizerConfig(**REPLAY_OPT)
+    for kind in ("full", "sampled", "molecule"):
+        t = time.perf_counter()
+        cfg, b_cpu = egnn_smoke(kind, "cpu")
+        b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+        p_cpu = cfg.init(EGNN_SEED, "cpu")
+        p0 = numpy_tree(cfg.init(EGNN_SEED, "cpu"))  # the initial weights, kept
+        p_dev = params_from_numpy(cfg.param_defs(), p0, dev)
+        errs = {}
+        outs = {w: egnn.forward(cfg, p, b) for w, p, b in (("cpu", p_cpu, b_cpu),
+                                                          ("card", p_dev, b_dev))}
+        errs["out"] = card_close(outs["card"][0], outs["cpu"][0], f"(a) {kind} out")
+        errs["x"] = card_close(outs["card"][1], outs["cpu"][1], f"(a) {kind} x")
+        errs["loss"] = card_close(egnn.loss_fn(cfg, p_dev, b_dev)[0],
+                                  egnn.loss_fn(cfg, p_cpu, b_cpu)[0], f"(a) {kind} loss")
+
+        # the reference's equivariance check, on the card
+        th = 1.1
+        R = torch.tensor([[math.cos(th), -math.sin(th), 0], [math.sin(th), math.cos(th), 0],
+                          [0, 0, 1.0]], device=dev)
+        shift = torch.tensor([0.5, -1.0, 2.0], device=dev)
+        h2, x2 = egnn.forward(cfg, p_dev, {**b_dev, "coords": b_dev["coords"] @ R.T + shift})
+        h1, x1 = outs["card"]
+        equiv = (float((h1 - h2).abs().max()), float((x1 @ R.T + shift - x2).abs().max()))
+        check(max(equiv) <= EGNN_EQUIV_ATOL, f"(a) {kind}: equivariance off by {equiv}")
+
+        # TRAIN_SMOKE_STEPS steps, card vs CPU; the card's twice, bitwise
+        step = make_train_step(lambda p, b, cfg=cfg: egnn.loss_fn(cfg, p, b), opt)
+        p_init = [x.clone() for x in leaves(p_cpu)]
+        s_cpu = init_opt_state(opt, p_cpu)
+        twice = []
+        for _ in range(2):
+            p2 = params_from_numpy(cfg.param_defs(), p0, dev)
+            s2 = init_opt_state(opt, p2)
+            ms = [step(p2, s2, b_dev)[2] for _ in range(TRAIN_SMOKE_STEPS)]
+            twice.append((ms, p2, s2))
+        for s in range(TRAIN_SMOKE_STEPS):
+            m_cpu = step(p_cpu, s_cpu, b_cpu)[2]
+            for k in ("loss", "grad_norm"):
+                errs[k] = max(errs.get(k, 0.0), card_close(
+                    twice[0][0][s][k], m_cpu[k], f"(a) {kind} step {s} {k}"))
+        (ms1, pa, sa), (ms2, pb, sb) = twice
+        for a, c, c0 in zip(leaves(pa), leaves(p_cpu), p_init):
+            errs["params"] = max(errs.get("params", 0.0), card_close(
+                a, c, f"(a) {kind} params", LM_STEP_TOL))
+            moved = float((c - c0).norm())
+            traj = float((a.cpu() - c).norm()) / (moved or 1.0)
+            check(traj <= LM_TRAJ_TOL, f"(a) {kind} params: card and CPU {traj:.3g} of the "
+                  f"distance travelled apart (> {LM_TRAJ_TOL})")
+            errs["params_traj"] = max(errs.get("params_traj", 0.0), traj)
+        for a, c in zip(leaves((sa["m"], sa["v"])), leaves((s_cpu["m"], s_cpu["v"]))):
+            errs["moments"] = max(errs.get("moments", 0.0), card_close(
+                a, c, f"(a) {kind} moments"))
+        for m1, m2 in zip(ms1, ms2):
+            for k in ("loss", "grad_norm"):
+                exact(m1[k], m2[k], f"(a) {kind} repeated {k}", torch)
+        n_leaves = 0
+        for a, c in zip(leaves((pa, sa)), leaves((pb, sb))):
+            exact(a, c, f"(a) {kind} repeated state", torch)
+            n_leaves += 1
+        # the same twice at bf16 compute
+        bcfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+        bstep = make_train_step(lambda p, b, cfg=bcfg: egnn.loss_fn(cfg, p, b), opt)
+        bf = []
+        for _ in range(2):
+            p2 = params_from_numpy(cfg.param_defs(), p0, dev)
+            s2 = init_opt_state(opt, p2)
+            for _ in range(TRAIN_SMOKE_STEPS):
+                bstep(p2, s2, b_dev)
+            bf.append(leaves((p2, s2)))
+        for a, c in zip(*bf):
+            exact(a, c, f"(a) {kind} repeated state at bf16", torch)
+
+        # a failure at REPLAY_FAILURE, restored and replayed
+        rstep = make_train_step(lambda p, b, cfg=cfg: egnn.loss_fn(cfg, p, b), ropt)
+
+        def init_state(cfg=cfg):
+            params = cfg.init(EGNN_SEED, dev)
+            return params, init_opt_state(ropt, params)
+
+        logs = []
+        with tempfile.TemporaryDirectory() as d:
+            faulty = run(LoopConfig(total_steps=REPLAY_STEPS, ckpt_every=REPLAY_CKPT_EVERY,
+                                    ckpt_dir=d, log_every=1, simulate_failure_at=REPLAY_FAILURE),
+                         rstep, init_state, lambda s, b=b_dev: b, log=logs.append)
+        clean = run(LoopConfig(total_steps=REPLAY_STEPS, log_every=1), rstep, init_state,
+                    lambda s, b=b_dev: b, log=lambda line: None)
+        restored = REPLAY_FAILURE // REPLAY_CKPT_EVERY * REPLAY_CKPT_EVERY
+        check(f"[fault] restoring step {restored}" in logs, f"(a) {kind}: no restore in {logs}")
+        check(dict(faulty[2]) == dict(clean[2]), f"(a) {kind}: replayed losses differ")
+        for a, c in zip(leaves(faulty[:2]), leaves(clean[:2])):
+            exact(a, c, f"(a) {kind}: state after the replay", torch)
+        n_edges = int(b_cpu["edge_mask"].sum())
+        say(f"phase 14 (a): {kind} smoke (f32 compute, {b_cpu['feats'].shape[0]} nodes, "
+            f"{n_edges} real of {b_cpu['senders'].shape[0]} edges, largest in-degree "
+            f"{int(torch.bincount(b_cpu['receivers'][b_cpu['edge_mask']]).max())}): "
+            f"forward, loss and {TRAIN_SMOKE_STEPS} train steps card == CPU (within rtol 1e-4 "
+            f"/ atol 1e-5; params within rtol 1e-4 / atol {LM_STEP_TOL['atol']:g} and each "
+            f"leaf within {LM_TRAJ_TOL:g} of the distance it travelled); max abs "
+            + json.dumps(errs) + f"; equivariance on the card: |h - h'| {equiv[0]:.3g}, "
+            f"|xR + t - x'| {equiv[1]:.3g} (atol {EGNN_EQUIV_ATOL:g}); two runs of the "
+            f"{TRAIN_SMOKE_STEPS} steps bitwise equal at f32 ({n_leaves} leaves) and at bf16 "
+            f"compute; failure at step {REPLAY_FAILURE}, restored step {restored}, replayed to "
+            f"{REPLAY_STEPS}: bitwise equal to the run without it; "
+            f"{time.perf_counter() - t:.1f} s")
+
+    # (b) the published CONFIG at each shape that fits one card
+    spec = get_arch("egnn")
+    report = []
+    per = {}
+    for name in EGNN_SHAPES:
+        shape = spec.shape(name)
+        cfg = steps.gnn_cell_config(spec, shape)
+        p = shape.params
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        row = {"shape": name, "kind": shape.kind}
+        if shape.kind == "gnn_minibatch":
+            g = graph.make_powerlaw_graph(p["n_nodes"], p["n_edges"], cfg.d_feat,
+                                          n_classes=p["n_classes"], seed=EGNN_SEED, device=dev)
+            row["graph_build_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            batch = steps.gnn_batch(cfg, shape, dev, EGNN_SEED, graph=g)
+            torch.cuda.synchronize()
+            row["sample_s"] = time.perf_counter() - t
+            check(len(g.indices) == p["n_edges"] and g.n_nodes == p["n_nodes"],
+                  f"(b) {name}: the graph has {g.n_nodes} nodes, {len(g.indices)} edges")
+            del g
+            say(f"phase 14 (b): {name}: the published graph ({p['n_nodes']:,} nodes, "
+                f"{p['n_edges']:,} edges, {p['d_feat']} features) built in "
+                f"{row['graph_build_s']:.2f} s on the host (its endpoint search and sort on "
+                f"the card); one sample_subgraph ({p['batch_nodes']}, {tuple(p['fanouts'])}) "
+                f"in {row['sample_s']:.2f} s (the input pipeline's cost per step)")
+        else:
+            batch = steps.gnn_batch(cfg, shape, dev, EGNN_SEED)
+            row["batch_s"] = time.perf_counter() - t
+        cell = steps.build_gnn_cell(spec, shape, dev, EGNN_SEED, batch=batch)
+        params, state, batch = cell.args
+        N, E = batch["feats"].shape[0], batch["senders"].shape[0]
+        real_e = int(batch["edge_mask"].sum())
+        real_n = int((batch["labels"] >= 0).sum()) if "labels" in batch else N
+        if shape.kind == "gnn_minibatch":  # every node of the sample carries features
+            real_n = int(torch.unique(torch.cat([batch["senders"][batch["edge_mask"]],
+                                                 batch["receivers"][batch["edge_mask"]]])).numel())
+        deg = torch.bincount(batch["receivers"][batch["edge_mask"]].long())
+        reset_launch_counts()
+        times = []
+        for i in range(LM_WARMUP + LM_RUNS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            _, _, metrics = cell.fn(*cell.args)
+            ev[1].record()
+            ev[1].synchronize()
+            if i >= LM_WARMUP:
+                times.append(ev[0].elapsed_time(ev[1]))
+        counts = launch_counts()
+        check(not any(counts.values()), f"(b) {name} launched {counts}")
+        check(all(bool(torch.isfinite(metrics[k])) for k in ("loss", "grad_norm")),
+              f"(b) {name}: non-finite loss or grad_norm")
+        check(int(state["step"]) == LM_WARMUP + LM_RUNS, f"(b) {name}: step {int(state['step'])}")
+        ms = statistics.median(times)
+        # what autograd keeps for the backward, by leading dim
+        live = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            sb = saved_bytes(lambda: egnn.loss_fn(cfg, live, batch)[0], {"edges": E, "nodes": N})
+        del live
+        L = cfg.n_layers
+        per[name] = (sb["edges"] / (E * L), sb["nodes"] / (N * L))
+        row.update({
+            "nodes": N, "real_nodes": real_n, "edges": E, "real_edges": real_e,
+            "max_in_degree": int(deg.max()), "ms": ms, "runs_ms": times,
+            "nodes_per_s": N / ms * 1e3, "edges_per_s": E / ms * 1e3,
+            "model_flops": cell.model_flops,
+            "bf16_share": cell.model_flops / ms * 1e3 / BF16_FLOPS_PER_S,
+            "loss": float(metrics["loss"]), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "saved_bytes_per_edge_layer": per[name][0],
+            "saved_bytes_per_node_layer": per[name][1]})
+        report.append(row)
+        say(f"phase 14 (b): {name} ({shape.kind}): {N:,} nodes ({real_n:,} real), {E:,} edges "
+            f"({real_e:,} real, largest in-degree {row['max_in_degree']}), published CONFIG "
+            f"(d_hidden {cfg.d_hidden}, {L} layers, {cfg.n_params():,} f32 parameters, bf16 "
+            f"compute): {ms:.3f} ms per train step (median of {LM_RUNS} after {LM_WARMUP} "
+            f"warm-up; {', '.join(f'{x:.3f}' for x in times)}), {row['nodes_per_s']:,.0f} "
+            f"nodes/s, {row['edges_per_s']:,.0f} edges/s, {cell.model_flops:.4g} model FLOP -> "
+            f"{row['bf16_share']:.6f} of {BF16_FLOPS_PER_S / 1e12:g}e12; loss "
+            f"{row['loss']:.5f} (finite); peak {row['peak_gib']:.2f} GiB; autograd saves "
+            f"{per[name][0]:.1f} B per edge and {per[name][1]:.1f} B per node of a layer")
+        del cell, params, state, batch, metrics
+        torch.cuda.empty_cache()
+    say("phase 14 (b): " + json.dumps(report))
+
+    # (c) ogb_products: the saved bytes scaled to its size
+    shape = spec.shape(EGNN_NOT_RUN)
+    p = shape.params
+    N, E = egnn.pad_nodes(p["n_nodes"]), graph.pad_edges(p["n_edges"])
+    cfg = steps.gnn_cell_config(spec, shape)
+    e_b, n_b = per["full_graph_sm"]
+    saved = (e_b * E + n_b * N) * cfg.n_layers
+    inputs = N * (cfg.d_feat + cfg.coord_dim + 1) * 4 + E * (4 + 4 + 1)
+    H = cfg.d_hidden
+    estimate = (2 * H + 1) * 2 + 6 * H * 2  # m_in, and six [E, H] bf16 tensors
+    say(f"phase 14 (c): {EGNN_NOT_RUN} not run: {p['n_nodes']:,} nodes ({N:,} padded), "
+        f"{p['n_edges']:,} edges ({E:,} padded); autograd saves {e_b:.1f} B per edge and "
+        f"{n_b:.1f} B per node of a layer (measured in (b) at full_graph_sm; the count "
+        f"(2 H + 1) x 2 B of m_in + six [E, {H}] bf16 tensors = {estimate} B per edge), so "
+        f"{e_b * E / 1e9:.1f} GB per layer of edges and {saved / 1e9:.1f} GB for "
+        f"{cfg.n_layers} layers, beside {inputs / 1e9:.2f} GB of inputs, against the card's "
+        f"{card_bytes / 1e9:.2f} GB: it waits for make_sharded_loss over several cards "
+        "(ROADMAP Queue 1 item 6)")
+    check(saved > card_bytes, f"(c) {EGNN_NOT_RUN}: {saved / 1e9:.1f} GB would fit the card")
+
+    # (d) the train CLI as users start it, in subprocesses
+    t = time.perf_counter()
+    pat = re.compile(r"^step +(\d+) +loss (\S+) ")
+    with tempfile.TemporaryDirectory() as d:
+        opt_in = [] if DEVICE == "cuda" else ["--device", DEVICE]  # a CPU rehearsal
+        cli = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "egnn", "--steps",
+               str(REPLAY_STEPS), "--ckpt-every", str(REPLAY_CKPT_EVERY)] + opt_in
+        cmds = {"fault": cli + ["--ckpt-dir", str(Path(d) / "fault"), "--simulate-failure",
+                                str(REPLAY_FAILURE)],
+                "clean": cli + ["--ckpt-dir", str(Path(d) / "clean")]}
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        for tag, c in cmds.items():
+            say(f"phase 14 (d): {tag}: " + " ".join(c[1:]))
+        procs = {tag: subprocess.Popen(c, cwd=d, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+                 for tag, c in cmds.items()}
+        outs = {}
+        for tag, proc in procs.items():
+            out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+            check(proc.returncode == 0, f"(d) {tag} exited {proc.returncode}: {err[-2000:]}")
+            outs[tag] = out.splitlines()
+    for line in outs["fault"]:
+        say(f"phase 14 (d): fault: {line}")
+    losses = {tag: [pat.match(x).groups() for x in outs[tag] if pat.match(x)]
+              for tag in ("fault", "clean")}
+    restored = REPLAY_FAILURE // REPLAY_CKPT_EVERY * REPLAY_CKPT_EVERY
+    check([int(s) for s, _ in losses["clean"]] == list(range(REPLAY_STEPS)),
+          f"(d) the train CLI without the failure logged {losses['clean']}")
+    check(f"[fault] restoring step {restored}" in outs["fault"],
+          "(d) the train CLI printed no [fault] restore")
+    check(set(losses["fault"]) == set(losses["clean"])
+          and sorted({int(s) for s, _ in losses["fault"]}) == list(range(REPLAY_STEPS)),
+          f"(d) the train CLI's loss lines differ: {losses}")
+    say(f"phase 14 (d): the train CLI (egnn smoke) with and without the failure exits 0, the "
+        f"{len(losses['fault'])} loss lines of the failing run equal the "
+        f"{len(losses['clean'])} of the other; {time.perf_counter() - t:.1f} s")
+    say(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+
+
 def numpy_tree(tree):
     """A nested dict of tensors as numpy arrays (for ``params_from_numpy``)."""
     return {k: numpy_tree(v) if isinstance(v, dict) else v.cpu().numpy() for k, v in tree.items()}
@@ -2747,6 +3111,25 @@ def lm_profiles():
             del cell
             torch.cuda.empty_cache()
         del params
+        torch.cuda.empty_cache()
+
+
+def egnn_profiles():
+    """Phase 5 for phase 14's cells: one profiler pass over one train step
+    of the published EGNN at each of ``EGNN_SHAPES``, each cell built anew
+    (``minibatch_lg``'s graph too) and freed after.  Yields (name, lines)."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.steps import build_gnn_cell
+
+    dev = torch.device(DEVICE)
+    spec = get_arch("egnn")
+    for name in EGNN_SHAPES:
+        cell = build_gnn_cell(spec, spec.shape(name), dev, EGNN_SEED)
+        cell.fn(*cell.args)  # warm-up outside the profiler
+        yield f"egnn {name} train step", profile_batch(lambda: cell.fn(*cell.args), torch, ())
+        del cell
         torch.cuda.empty_cache()
 
 

@@ -3,8 +3,8 @@
 Each ``configs/<id>.py`` registers ``make() -> ArchSpec`` with the exact
 published configuration, a reduced smoke configuration (same family) and
 its shape set; ``launch/steps.py`` turns (arch, shape) into a cell with
-real inputs on the device.  Only the archs the port has are registered:
-the four recsys ones, the five LMs and ``geoweb``.
+real inputs on the device.  Every arch of the reference is registered:
+the four recsys ones, the five LMs, ``egnn`` and ``geoweb``.
 """
 from __future__ import annotations
 
@@ -12,10 +12,9 @@ import importlib
 from dataclasses import dataclass
 from typing import Any
 
-# the modules that register the port's archs (the reference's all_archs
-# lists the GNN one too)
+# the modules that register the port's archs (the reference's all_archs)
 _ARCH_MODULES = (
-    "autoint", "bst", "dcn_v2", "geoweb", "granite_moe_1b_a400m", "olmoe_1b_7b",
+    "autoint", "bst", "dcn_v2", "egnn", "geoweb", "granite_moe_1b_a400m", "olmoe_1b_7b",
     "qwen1_5_0_5b", "qwen2_5_14b", "smollm_135m", "two_tower_retrieval",
 )
 
@@ -23,8 +22,8 @@ _ARCH_MODULES = (
 @dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str  # lm_train | lm_prefill | lm_decode | recsys_train | recsys_serve |
-    #            recsys_retrieval | geo_serve (the port's kinds)
+    kind: str  # lm_train | lm_prefill | lm_decode | gnn_full | gnn_minibatch |
+    #            gnn_molecule | recsys_train | recsys_serve | recsys_retrieval | geo_serve
     params: dict
     skip: str | None = None  # reason if this cell is inapplicable
     variant_of: str | None = None  # beyond-paper variant rows
@@ -33,7 +32,7 @@ class ShapeSpec:
 @dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str  # lm | recsys | geoweb
+    family: str  # lm | gnn | recsys | geoweb
     config: Any
     smoke_config: Any
     shapes: tuple[ShapeSpec, ...]
@@ -107,7 +106,7 @@ def get_arch(name: str) -> ArchSpec:
     _load()
     if name not in _REGISTRY:
         raise KeyError(
-            f"arch {name!r} is not ported yet; the port has {sorted(_REGISTRY)}"
+            f"unknown arch {name!r}; the port has {sorted(_REGISTRY)}"
         )
     return _REGISTRY[name]()
 

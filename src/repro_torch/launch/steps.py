@@ -6,6 +6,9 @@
                         the AdamW update, in place
 * ``lm_prefill``        prefill(params, tokens, cache)
 * ``lm_decode``         decode_step(params, cache, tokens, pos)
+* ``gnn_*``             train_step(params, opt_state, graph): the EGNN loss
+                        (node classification, or graph regression for
+                        molecules), its gradients and the AdamW update
 * ``recsys_train``      train_step(params, opt_state, batch): the loss,
                         its gradients and the AdamW update, in place
 * ``recsys_serve``      forward(params, batch) (two-tower: the user tower)
@@ -16,8 +19,7 @@
 The reference's cells carry ``ShapeDtypeStruct``s for lowering; the port's
 carry real tensors on the device at the shape's sizes: parameters from
 ``cfg.init(seed, device)``, batches from ``repro_torch.data``, a geoweb
-corpus from ``make_corpus``.  The GNN cells (ROADMAP Queue 1 item 4) wait
-for their slice.
+corpus from ``make_corpus``.
 """
 from __future__ import annotations
 
@@ -31,16 +33,18 @@ import torch
 
 from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.core.ranking import select_top
+from repro_torch.data import graph as graph_data
 from repro_torch.data import recsys as rec_data
 from repro_torch.data.lm import LMDataConfig, lm_batch
 from repro_torch.device import resolve_device
+from repro_torch.models import egnn as egnn_lib
 from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 
 
-# the lm_train and recsys_train cells' optimizer, the reference's
+# the train cells' optimizer (lm, gnn, recsys), the reference's
 TRAIN_OPT = OptimizerConfig(zero1=True)
 
 
@@ -123,6 +127,99 @@ def build_lm_cell(
     return Cell(
         spec.name, shape.name, fn, (params, cache, tokens, S - 1), donate=(1,),
         model_flops=_lm_flops(cfg, B, "decode", kv_len=S, batch=B),
+    )
+
+
+# ---------------------------------------------------------------------------
+# GNN cells
+# ---------------------------------------------------------------------------
+
+def _egnn_flops(cfg, n_edges: int, n_nodes: int, train: bool = True) -> float:
+    H = cfg.d_hidden
+    per_edge = 2 * ((2 * H + 1) * H + H * H) + 2 * (H * H + H)  # φ_e + φ_x
+    per_node = 2 * (2 * H * H + H * H)  # φ_h
+    fwd = cfg.n_layers * (per_edge * n_edges + per_node * n_nodes)
+    return (3.0 if train else 1.0) * fwd
+
+
+def _pad_rows(batch: dict, n: int, keys: tuple, fill: dict) -> dict:
+    """``keys`` of ``batch`` padded along dim 0 to ``n`` rows of ``fill``
+    (0 unless named)."""
+    out = dict(batch)
+    for k in keys:
+        t = batch[k]
+        pad = t.new_full((n - t.shape[0], *t.shape[1:]), fill.get(k, 0))
+        out[k] = torch.cat([t, pad])
+    return out
+
+
+def gnn_cell_config(spec: ArchSpec, shape: ShapeSpec):
+    """``spec.config`` with the shape's ``d_feat`` and ``n_classes`` (0 for
+    molecules: graph regression), as the reference's cell."""
+    p = shape.params
+    n_classes = 0 if shape.kind == "gnn_molecule" else p.get("n_classes", 8)
+    return dataclasses.replace(spec.config, d_feat=p["d_feat"], n_classes=n_classes)
+
+
+def gnn_batch(cfg, shape: ShapeSpec, device, seed: int = 0,
+              graph: graph_data.CSRGraph | None = None) -> dict:
+    """The cell's graph (step 0) in the reference's shapes and dtypes, on
+    ``device`` (``graph``, where given, is the full graph of the first two
+    kinds):
+
+    * ``gnn_full``: ``make_powerlaw_graph`` of the shape's sizes through
+      ``full_graph_batch`` (edges padded to ``pad_edges``), nodes padded to
+      ``pad_nodes`` with zero features and coordinates and label −1;
+    * ``gnn_minibatch``: ``sample_subgraph(g, shape, seed, 0)`` of that
+      full graph (``max_nodes`` nodes), its edges padded to
+      ``pad_edges(max_edges)``;
+    * ``gnn_molecule``: ``molecule_batch`` of ``batch`` graphs, its edges
+      padded to ``pad_edges``.
+    """
+    p = shape.params
+    edges = ("senders", "receivers", "edge_mask")
+    if shape.kind == "gnn_molecule":
+        G, npg, epg = p["batch"], p["n_nodes"], p["n_edges"]
+        b = graph_data.molecule_batch(G, npg, epg, cfg.d_feat, seed, 0, device=device)
+        return _pad_rows(b, graph_data.pad_edges(G * epg), edges, {})
+    g = graph
+    if g is None:
+        g = graph_data.make_powerlaw_graph(p["n_nodes"], p["n_edges"], cfg.d_feat,
+                                           n_classes=p.get("n_classes", 8), seed=seed,
+                                           device=device)
+    if shape.kind == "gnn_full":
+        b = graph_data.full_graph_batch(g, device=device)
+        return _pad_rows(b, egnn_lib.pad_nodes(g.n_nodes), ("feats", "coords", "labels"),
+                         {"labels": -1})
+    if shape.kind == "gnn_minibatch":
+        ss = graph_data.SampledShape(p["batch_nodes"], tuple(p["fanouts"]))
+        b = graph_data.sample_subgraph(g, ss, seed, 0, device=device)
+        return _pad_rows(b, graph_data.pad_edges(ss.max_edges), edges, {})
+    raise ValueError(shape.kind)
+
+
+def build_gnn_cell(
+    spec: ArchSpec, shape: ShapeSpec, device=None, seed: int = 0, batch: dict | None = None,
+) -> Cell:
+    """The (egnn, shape) train cell with its inputs on ``device`` (CUDA
+    unless given): :func:`gnn_cell_config`'s model from ``cfg.init(seed,
+    device)``, a zero :data:`TRAIN_OPT` state and ``batch``
+    (:func:`gnn_batch`'s unless given).  With no mesh the
+    step runs the plain ``loss_fn``, as the reference's one-device cell;
+    its shard_map loss waits for the mesh across cards (ROADMAP Queue 1
+    item 6)."""
+    if shape.kind not in ("gnn_full", "gnn_minibatch", "gnn_molecule"):
+        raise ValueError(shape.kind)
+    dev = resolve_device(device)
+    cfg = gnn_cell_config(spec, shape)
+    params = cfg.init(seed, dev)
+    step = make_train_step(lambda prm, b: egnn_lib.loss_fn(cfg, prm, b), TRAIN_OPT)
+    if batch is None:
+        batch = gnn_batch(cfg, shape, dev, seed)
+    N, E = batch["feats"].shape[0], batch["senders"].shape[0]
+    return Cell(
+        spec.name, shape.name, step, (params, init_opt_state(TRAIN_OPT, params), batch),
+        donate=(0, 1), model_flops=_egnn_flops(cfg, E, N),
     )
 
 
@@ -390,7 +487,8 @@ def build_cell(
         return build_geoweb_cell(spec, shape, mesh, seed)
     if spec.family == "lm":
         return build_lm_cell(spec, shape, device, seed)
+    if spec.family == "gnn":
+        return build_gnn_cell(spec, shape, device, seed)
     if spec.family == "recsys":
         return build_recsys_cell(spec, shape, device, seed)
-    raise NotImplementedError(
-        f"{spec.name}: the {spec.family} cells are not ported yet (ROADMAP Queue 1 item 4)")
+    raise ValueError(spec.family)

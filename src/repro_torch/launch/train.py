@@ -9,17 +9,18 @@ default; ``--full`` for the published one), with checkpointing
 replays, bit-identically) and deterministic data keyed by (seed, step).
 ``--device`` (default ``cuda``) is where the state lives and the steps
 run; without CUDA the default raises and names the opt-in ``--device
-cpu``.  The port trains the LM and recsys families; the GNN family waits
-for its slice (ROADMAP Queue 1 item 4).
+cpu``.  The port trains the LM, GNN and recsys families.
 """
 from __future__ import annotations
 
 import argparse
 
 from repro_torch.configs.base import get_arch
+from repro_torch.data.graph import full_graph_batch, make_powerlaw_graph
 from repro_torch.data.lm import LMDataConfig, lm_batch
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import recsys_batch, recsys_loss
+from repro_torch.models import egnn as egnn_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.train.loop import LoopConfig, make_train_step, run
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
@@ -32,10 +33,11 @@ def loss_and_batch_fns(spec, cfg, batch_size: int, seq_len: int, seed: int, devi
         dc = LMDataConfig(vocab=cfg.vocab, seq_len=seq_len, global_batch=batch_size, seed=seed)
         return (lambda p, b: tf_lib.loss_fn(cfg, p, b),
                 lambda step: lm_batch(dc, step, device))
-    if spec.family == "gnn":
-        raise NotImplementedError(
-            f"{spec.name}: gnn training is not ported yet (ROADMAP Queue 1 item 4; the port "
-            "trains the lm and recsys families)")
+    if spec.family == "gnn":  # one 512-node power-law graph, every step
+        g = make_powerlaw_graph(512, 2048, cfg.d_feat, n_classes=max(cfg.n_classes, 1),
+                                seed=seed, device=device)
+        batch = full_graph_batch(g, edge_multiple=8, device=device)
+        return (lambda p, b: egnn_lib.loss_fn(cfg, p, b), lambda step: batch)
     if spec.family == "recsys":
         return (recsys_loss(cfg),
                 lambda step: recsys_batch(cfg, batch_size, device, seed, step))

@@ -282,8 +282,9 @@ def test_lm_cells_equal_direct_calls(kind):
 def test_lm_train_cell_and_moe_raise():
     """The gaps this test once pinned are closed: the ``lm_train`` cell
     builds and the MoE FFN runs (their parity: ``test_torch_lm_train.py``,
-    ``test_torch_moe.py``).  What still raises is the GNN family, naming
-    ROADMAP Queue 1 item 4: its cells and its training."""
+    ``test_torch_moe.py``), and so do the GNN family's cells and training
+    (their parity: ``test_torch_egnn.py``): ``build_cell`` gives an
+    ``egnn`` cell and ``loss_and_batch_fns`` a finite EGNN loss."""
     from repro_torch.launch import train as p_train
 
     spec = get_arch("qwen1.5-0.5b")
@@ -295,13 +296,13 @@ def test_lm_train_cell_and_moe_raise():
     moe = dataclasses.replace(spec.smoke_config, n_experts=4, top_k=2)
     logits, aux = pt.forward(moe, moe.init(0, "cpu"), torch.zeros((1, 4), dtype=torch.int32))
     assert logits.shape == (1, 4, moe.padded_vocab) and float(aux) > 0
-    gnn = dataclasses.replace(spec, name="egnn", family="gnn")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        steps.build_cell(gnn, shape, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        p_train.loss_and_batch_fns(gnn, None, 8, 16, 0, "cpu")
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_arch("egnn")
+    gnn = get_arch("egnn")
+    gnn = dataclasses.replace(gnn, config=gnn.smoke_config)
+    cell = steps.build_cell(gnn, gnn.shape("molecule"), device="cpu")
+    assert cell.donate == (0, 1) and len(cell.args) == 3 and cell.model_flops > 0
+    loss, batch_fn = p_train.loss_and_batch_fns(gnn, gnn.config, 8, 16, 0, "cpu")
+    total, metrics = loss(gnn.config.init(0, "cpu"), batch_fn(0))
+    assert torch.isfinite(total) and set(metrics) == {"nll", "acc"}
 
 
 @pytest.mark.parametrize("seed", [0, 7])

@@ -337,11 +337,14 @@ def test_configs_match_reference(name):
 
 
 def test_registry_lists_only_ported_archs():
+    """Every arch of the reference is ported, ``egnn`` the last; an
+    unknown name raises."""
     assert list_archs() == sorted(
-        [*ARCHS, "geoweb", "granite-moe-1b-a400m", "olmoe-1b-7b", "qwen1.5-0.5b",
+        [*ARCHS, "egnn", "geoweb", "granite-moe-1b-a400m", "olmoe-1b-7b", "qwen1.5-0.5b",
          "qwen2.5-14b", "smollm-135m"])
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_arch("egnn")
+    assert get_arch("egnn").family == "gnn"
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("gcn")
 
 
 @pytest.mark.parametrize("kind", ["ctr_dense", "ctr", "bst", "two_tower"])

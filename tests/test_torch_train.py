@@ -506,13 +506,18 @@ def test_train_cli_on_cpu_replays_after_failure(tmp_path, capsys):
 
 
 def test_train_cli_families(monkeypatch):
-    """The gnn family raises (ROADMAP Queue 1 item 4); the lm family gives
-    the LM loss and ``lm_batch`` on the device (its runs:
-    ``test_torch_lm_train.py``); geoweb is a serving system."""
+    """The gnn family gives the EGNN loss and one 512-node power-law graph
+    on the device, every step (its runs: ``test_torch_egnn.py``); the lm
+    family the LM loss and ``lm_batch`` (``test_torch_lm_train.py``);
+    geoweb is a serving system."""
     spec = get_arch("dcn-v2")
-    with pytest.raises(NotImplementedError, match="gnn training is not ported yet"):
-        p_train.loss_and_batch_fns(type(spec)(spec.name, "gnn", None, None, ()), None,
-                                   8, 16, 0, CPU)
+    gnn = get_arch("egnn")
+    loss, batch_fn = p_train.loss_and_batch_fns(gnn, gnn.smoke_config, 8, 16, 0, CPU)
+    b = batch_fn(0)
+    assert b["feats"].shape == (512, gnn.smoke_config.d_feat) and b["feats"].device.type == CPU
+    assert b["senders"].shape == (2048,) and b["edge_mask"].all() and batch_fn(5) is b
+    total, metrics = loss(gnn.smoke_config.init(0, CPU), b)
+    assert bool(torch.isfinite(total)) and 0 <= float(metrics["acc"]) <= 1
     lm = get_arch("granite-moe-1b-a400m")
     loss, batch_fn = p_train.loss_and_batch_fns(lm, lm.smoke_config, 2, 16, 0, CPU)
     b = batch_fn(3)
