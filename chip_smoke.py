@@ -174,7 +174,7 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    ``prefill_32k`` and ``decode_32k`` cells (and SmolLM-135M's
    ``long_500k_sliding``) at the batch and sequence of ``LM_CUTS``, each
    cut printed with its KV arithmetic: ms per prefill or decode step (CUDA
-   events, median of 3 after a warm-up; the 524,288-token step once),
+   events, median of 3 after a warm-up; the 131,072-token step once),
    tokens/s, model FLOPs as a share of 989e12, peak memory, finite logits.
    It runs after phase 11 and before phase 5.
 13. runs the MoE LMs (``olmoe-1b-7b``, ``granite-moe-1b-a400m``: the
@@ -224,6 +224,30 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    ``--simulate-failure 5`` as subprocesses (equal loss lines).  It
    launches no kernel, and runs after phase 13 and before phase 5, which
    profiles one train step of each (b) cell.
+15. checks the dry-run and roofline tooling (``repro_torch.launch.dryrun``,
+   ``launch/roofline``): (a) ``python -m repro_torch.launch.dryrun --mesh
+   single`` over every arch × shape at published widths, as one subprocess
+   per arch, all started together before phase 1 with no card visible and
+   at the lowest CPU priority (they trace on ``meta``, on the host's cores,
+   beside phase 1 and the set-up, which waits for them: no timed phase runs
+   beside them), read after (b): each exits 0, no
+   ``error`` row, one row per shape that is not skipped; each row's
+   ``hbm_per_dev_GB``, ``bottleneck`` and ``roofline_fraction`` printed (a
+   model from the H100 data sheet); (b) the roofline against the card on the (1, 1) host mesh,
+   at sizes earlier phases run (DCN-v2 ``train_batch``, SmolLM-135M
+   ``train_4k`` at ``LM_TRAIN_CUT``, Qwen2.5-14B ``prefill_32k`` at its
+   ``LM_CUTS``, EGNN ``molecule``): (i) the dry-run's FLOPs (summed over
+   dtypes) equal ``FlopCounterMode`` over the real CUDA step exactly; (ii) its
+   argument bytes equal the real arguments' ``nbytes`` exactly; (iii) its
+   predicted peak printed beside ``torch.cuda.max_memory_allocated()`` (the
+   step's own, above what was allocated before its cell) with their ratio,
+   held within ``PEAK_RATIO`` for cells above 1 GiB; (iv) the step's ms
+   (CUDA events, median of ``LM_RUNS`` after the counted run) at least
+   each strict bound within ``BOUND_SLACK``: FLOPs over each dtype's peak,
+   and the arguments read once plus the donated ones written once over the
+   HBM bandwidth; the traced-bytes ``roofline_fraction`` printed, not
+   checked.  It launches no kernel, and runs after phase 14 and before
+   phase 5.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -344,7 +368,7 @@ LM_ARCHS = ("smollm-135m", "qwen1.5-0.5b", "qwen2.5-14b")
 LM_CUTS = {
     ("smollm-135m", "prefill_32k"): (1, 8192),
     ("smollm-135m", "decode_32k"): (64, 32768),
-    ("smollm-135m", "long_500k_sliding"): (1, 524288),
+    ("smollm-135m", "long_500k_sliding"): (1, 131072),
     ("qwen1.5-0.5b", "prefill_32k"): (1, 8192),
     ("qwen1.5-0.5b", "decode_32k"): (16, 32768),
     ("qwen2.5-14b", "prefill_32k"): (1, 4096),
@@ -357,8 +381,9 @@ LM_CUTS = {
 LM_SEED = 0
 LM_WARMUP = 1
 LM_RUNS = 3
-# long_500k_sliding: one step, no warm-up (1,024 KV chunks per layer per
-# step: ~22 s on the card, host-bound in the flash loop)
+# long_500k_sliding: one step, no warm-up (cut from the published 524,288
+# keys, 1,024 KV chunks per layer, 14-26 s on the card, host-bound in the
+# flash loop, to 131,072: the script's time limit)
 LM_LONG = (0, 1)
 # decode of token S after an S-token prefill vs an (S+1)-token prefill's
 # last position, at full width in bf16.  The 513-token prefill runs as one
@@ -409,6 +434,23 @@ EGNN_SEED = 0
 EGNN_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")
 EGNN_NOT_RUN = "ogb_products"
 EGNN_EQUIV_ATOL = 2e-4
+# phase 15: the dry-run CLI on the single-pod mesh (one subprocess per
+# arch), and the roofline against the card at sizes earlier phases run:
+# (arch, shape, (global_batch, seq_len) cut or None)
+DRYRUN_TIMEOUT_S = 300
+ROOFLINE_CELLS = (
+    ("dcn-v2", "train_batch", None),
+    ("smollm-135m", "train_4k", LM_TRAIN_CUT),
+    ("qwen2.5-14b", "prefill_32k", LM_CUTS[("qwen2.5-14b", "prefill_32k")]),
+    ("egnn", "molecule", None),
+)
+# the measured step may beat a strict lower bound only by timing noise
+BOUND_SLACK = 1.05
+# measured peak / predicted peak, held for cells above 1 GiB: the trace
+# counts the step's tensors; the card adds the caching allocator's 512-B
+# rounding and the library workspaces (sorts, cuBLAS) no tensor shows
+PEAK_RATIO = (0.8, 1.25)
+PEAK_CHECK_BYTES = 2**30
 
 
 def check(cond: bool, what: str) -> None:
@@ -506,7 +548,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
+    # phase 15 (a) starts first: its CPU-only dry-run runs beside phase 1
+    # and the set-up, which time nothing
+    dry = start_dryrun_cli()
+    try:
+        return run_phases(dry)
+    finally:
+        stop_dryrun_cli(dry)
+
+
+def run_phases(dry: dict) -> int:
+    """Phases 1 to 15 and 5 (see the module docstring)."""
     import numpy as np
+
+    import torch
 
     from repro_torch.core import GeoIndex, GeoSearchEngine, QueryBudgets, RankWeights
     from repro_torch.core import spatial_index as sidx
@@ -582,6 +637,7 @@ def main() -> int:
             f"max_term_blocks {tx.max_term_blocks}, max_term_segments {tx.max_term_segments}, "
             f"{tx.posting_bytes:.4f} B/posting, impacts {tx.impacts.dtype}")
 
+    wait_dryrun_cli(dry)  # before anything is timed
     # ---- phase 2: each kernel against its plain version ------------------
     b0 = batches[0].to(dev)
     S = plain_ex.engine.budgets.sweep_budget
@@ -1084,6 +1140,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # ---- phase 14: EGNN --------------------------------------------------
     egnn_phase()
+    torch.cuda.empty_cache()
+    # ---- phase 15: the dry-run and roofline tooling ----------------------
+    roofline_phase(dry)
     torch.cuda.empty_cache()
     for row in table:
         main_counts[row["name"]] += (serve_counts[row["name"]] + shard_counts[row["name"]]
@@ -2860,6 +2919,184 @@ def egnn_phase() -> None:
         f"{len(losses['fault'])} loss lines of the failing run equal the "
         f"{len(losses['clean'])} of the other; {time.perf_counter() - t:.1f} s")
     say(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+
+
+def start_dryrun_cli() -> dict:
+    """Phase 15 (a), started before phase 1: the dry-run CLI over every
+    arch × shape on the single-pod mesh, one subprocess per arch, all
+    started together, each writing its rows and its log into a temporary
+    directory.  They trace on ``meta`` on the host's cores, so they run
+    with no card visible and at the lowest CPU priority."""
+    import os
+    import tempfile
+
+    from repro_torch.configs.base import list_archs
+
+    out_dir = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for name in list_archs():
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", name,
+               "--mesh", "single", "--out", str(out_dir / f"{name}.jsonl")]
+        with open(out_dir / f"{name}.log", "w") as log:
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                           stderr=subprocess.STDOUT,
+                                           preexec_fn=lambda: os.nice(19))
+    return {"dir": out_dir, "procs": procs, "t0": time.perf_counter()}
+
+
+def wait_dryrun_cli(dry: dict) -> None:
+    """Wait for phase 15 (a)'s subprocesses to end (at the end of the
+    set-up, so that none runs beside a timed phase)."""
+    t = time.perf_counter()
+    for proc in dry["procs"].values():
+        proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    dry["wall_s"] = time.perf_counter() - dry["t0"]
+    dry["waited_s"] = time.perf_counter() - t
+
+
+def stop_dryrun_cli(dry: dict) -> None:
+    """Kill what is left of phase 15 (a)'s subprocesses and remove their files."""
+    import shutil
+
+    for proc in dry["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(dry["dir"], ignore_errors=True)
+
+
+def dryrun_cli_phase(dry: dict) -> None:
+    """Phase 15 (a), checked: every subprocess of :func:`start_dryrun_cli`
+    exited 0 with one row per shape and no ``error`` row."""
+    from repro_torch.configs.base import get_arch
+
+    n_rows = 0
+    for name, proc in dry["procs"].items():
+        log = (dry["dir"] / f"{name}.log").read_text()
+        check(proc.returncode == 0, f"(a) dryrun --arch {name} exited {proc.returncode}: "
+              f"{log[-2000:]}")
+        rows = [json.loads(x) for x in (dry["dir"] / f"{name}.jsonl").read_text().splitlines()]
+        check(not any("error" in r for r in rows), f"(a) {name}: error rows {rows}")
+        want = [(s.name, bool(s.skip)) for s in get_arch(name).shapes]
+        check([(r["shape"], "skipped" in r) for r in rows] == want,
+              f"(a) {name}: rows {[r['shape'] for r in rows]} for shapes {want}")
+        for r in rows:
+            if "skipped" in r:
+                say(f"phase 15 (a): {name} x {r['shape']}: skipped ({r['skipped'][:60]}...)")
+                continue
+            say(f"phase 15 (a): {name} x {r['shape']} on 256 H100s (model, data-sheet "
+                f"constants): hbm_per_dev_GB {r['hbm_per_dev_GB']:.3f}, bottleneck "
+                f"{r['bottleneck']}, roofline_fraction {r['roofline_fraction']:.4f} "
+                f"({r['method']}; traced in {r['t_trace_s']} s)")
+            n_rows += 1
+    say(f"phase 15 (a): python -m repro_torch.launch.dryrun --mesh single: {len(dry['procs'])} "
+        f"processes exit 0, {n_rows} rows, no error row; they ended {dry['wall_s']:.1f} s after "
+        f"their start before phase 1, the set-up waited {dry['waited_s']:.1f} s for them")
+
+
+def roofline_phase(dry: dict) -> None:
+    """Phase 15 (see the module docstring); (a) ran before phase 2."""
+    import dataclasses
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell
+
+    t_phase = time.perf_counter()
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "phase 15: f32 matmuls must run at full f32, no TF32 (the f32 bound's peak)")
+    dev = torch.device(DEVICE)
+    mesh = make_host_mesh(device=dev)
+    check(mesh.axis_sizes == (1, 1), f"(b) the host mesh is {mesh.axis_sizes}, not (1, 1)")
+    report = []
+    reset_launch_counts()
+    for arch, shape_name, cut in ROOFLINE_CELLS:
+        t = time.perf_counter()
+        spec = get_arch(arch)
+        shape = spec.shape(shape_name)
+        if cut is not None:
+            shape = dataclasses.replace(shape, params={**shape.params, "global_batch": cut[0],
+                                                       "seq_len": cut[1]})
+        row = dryrun.run_cell(spec, shape, mesh, "host_1x1")
+        g = row["global"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        cell = build_cell(spec, shape, mesh, device=dev, seed=LM_SEED)
+        real_args = sum(x.nbytes for x in rf.tensor_leaves(cell.args))
+        # (i)-(iii): one counted run, which is also the warm-up
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as fc:
+            cell.fn(*cell.args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        flops_total = fc.get_total_flops()
+        times = []
+        for _ in range(LM_RUNS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            cell.fn(*cell.args)
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        ms = statistics.median(times)
+        check(flops_total == sum(g["flops_by_dtype"].values()),
+              f"(b)(i) {arch} {shape_name}: the dry-run counts "
+              f"{g['flops_by_dtype']} FLOPs, FlopCounterMode {flops_total} on the card")
+        check(g["argument_bytes"] == real_args,
+              f"(b)(ii) {arch} {shape_name}: the dry-run's arguments {g['argument_bytes']} B, "
+              f"the cell's {real_args} B")
+        pred = g["peak_bytes"]
+        ratio = peak / pred
+        if pred > PEAK_CHECK_BYTES:
+            check(PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1],
+                  f"(b)(iii) {arch} {shape_name}: measured peak {peak} B is {ratio:.4f} of the "
+                  f"predicted {pred} B (outside {PEAK_RATIO})")
+        t_flops = sum(f / rf.peak_flops(getattr(torch, d))
+                      for d, f in g["flops_by_dtype"].items()) * 1e3
+        t_io = g["io_bytes"] / rf.HBM_BW * 1e3
+        for what, bound in (("FLOPs", t_flops), ("bytes", t_io)):
+            check(ms * BOUND_SLACK >= bound,
+                  f"(b)(iv) {arch} {shape_name}: {ms:.3f} ms beats the {what} bound "
+                  f"{bound:.3f} ms")
+        entry = {"arch": arch, "shape": shape_name, "params": shape.params, "ms": ms,
+                 "runs_ms": times, "flops_by_dtype": g["flops_by_dtype"],
+                 "argument_bytes": real_args, "io_bytes": g["io_bytes"],
+                 "traced_bytes": g["bytes"], "bound_flops_ms": t_flops, "bound_io_ms": t_io,
+                 "model_t_compute_ms": row["t_compute_s"] * 1e3,
+                 "model_t_memory_ms": row["t_memory_s"] * 1e3,
+                 "predicted_peak_bytes": pred, "measured_peak_bytes": peak,
+                 "peak_ratio": ratio, "roofline_fraction": row["roofline_fraction"],
+                 "measured_fraction_of_model": max(row["t_compute_s"], row["t_memory_s"])
+                 * 1e3 / ms}
+        report.append(entry)
+        say(f"phase 15 (b): {arch} {shape_name} {dict(shape.params)} on the (1, 1) host mesh: "
+            f"(i) FLOPs {g['flops_by_dtype']} = FlopCounterMode over the CUDA step "
+            f"({flops_total}); (ii) arguments {real_args} B = the cell's nbytes; (iii) peak "
+            f"predicted {pred / 2**30:.3f} GiB, measured {peak / 2**30:.3f} GiB (ratio "
+            f"{ratio:.4f}{', held to ' + str(PEAK_RATIO) if pred > PEAK_CHECK_BYTES else ''}); "
+            f"(iv) {ms:.3f} ms per step (median of {LM_RUNS}; {', '.join(f'{x:.3f}' for x in times)}) "
+            f">= the bounds {t_flops:.3f} ms (FLOPs at each dtype's peak) and {t_io:.3f} ms "
+            f"(arguments read once + donated written once at 3.35e12 B/s); the model's traced "
+            f"terms: compute {entry['model_t_compute_ms']:.3f} ms, memory "
+            f"{entry['model_t_memory_ms']:.3f} ms (unfused eager bytes {g['bytes']:.4g}), "
+            f"roofline_fraction {row['roofline_fraction']:.4f} (not checked); "
+            f"{time.perf_counter() - t:.1f} s")
+        del cell
+        torch.cuda.empty_cache()
+    counts = launch_counts()
+    check(not any(counts.values()), f"phase 15 launched {counts}")
+    say("phase 15 (b): " + json.dumps(report))
+    dryrun_cli_phase(dry)
+    say(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
 
 
 def numpy_tree(tree):

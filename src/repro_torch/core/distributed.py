@@ -18,7 +18,9 @@ view ``field[s]`` of each stacked tensor of :class:`ShardedGeoIndex`
 stack and the psums a sum in shard order.  The reference's
 ``sharded_index_specs`` (a table of ``PartitionSpec``s saying "every
 field's leading dimension goes over the doc axes") has no counterpart:
-:class:`Mesh` and :data:`SHARDING_RULES` carry that meaning.
+:class:`Mesh` and the rules table
+(:data:`repro_torch.sharding.specs.DEFAULT_RULES`, read by
+:func:`mesh_axes`) carry that meaning.
 
 Partitioners
 ------------
@@ -61,18 +63,11 @@ from repro_torch.core.spatial_index import (
 )
 from repro_torch.core.text_index import TextIndex, build_text_arrays_np, global_idf_np
 from repro_torch.device import resolve_device
+from repro_torch.sharding.specs import DEFAULT_RULES
 
 #: Side length of the per-shard coverage bbox grid (the planner's tp_span
 #: grid resolution).
 COVERAGE_GRID = 16
-
-#: The two logical-axis rules the geo engine uses (the reference's
-#: ``sharding/specs.py``): document shards over ("pod", "data"), query
-#: slices over ("model",).
-SHARDING_RULES: dict[str, tuple[str, ...]] = {
-    "docs": ("pod", "data"),
-    "queries": ("model",),
-}
 
 
 # ---------------------------------------------------------------------------
@@ -491,9 +486,9 @@ def shard_corpus_np(
 class Mesh:
     """A logical mesh on one device: named axes and their sizes.
 
-    The doc axes (:data:`SHARDING_RULES` ``"docs"``) multiply to the shard
-    count, and the query axis (``"queries"``) to the number of query
-    slices; every shard and slice runs on ``device``.
+    The doc axes (the rules' ``"docs"``, :func:`mesh_axes`) multiply to
+    the shard count, and the query axis (``"queries"``) to the number of
+    query slices; every shard and slice runs on ``device``.
     """
 
     axis_names: tuple[str, ...]
@@ -504,6 +499,11 @@ class Mesh:
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.axis_sizes))
 
+    @property
+    def size(self) -> int:
+        """The number of devices the mesh describes."""
+        return math.prod(self.axis_sizes)
+
 
 def make_mesh(
     shape: tuple[int, ...],
@@ -511,7 +511,9 @@ def make_mesh(
     device: "str | torch.device | None" = None,
 ) -> Mesh:
     """A :class:`Mesh` of ``shape`` over ``axis_names`` on ``device``
-    (default CUDA; raises without it)."""
+    (default CUDA; raises without it).  On ``"meta"`` it is an abstract
+    mesh that holds no data: the dry-run's production meshes
+    (:mod:`repro_torch.launch.mesh`)."""
     sizes, names = tuple(int(n) for n in shape), tuple(axis_names)
     if len(sizes) != len(names):
         raise ValueError(f"mesh shape {sizes} does not match axis names {names}")
@@ -521,11 +523,13 @@ def make_mesh(
 
 
 def mesh_axes(mesh: Mesh) -> tuple[tuple[str, ...], str]:
-    """The mesh's doc axes and query axis, resolved by :data:`SHARDING_RULES`."""
-    doc_axes = tuple(a for a in SHARDING_RULES["docs"] if a in mesh.axis_names)
-    query = [a for a in SHARDING_RULES["queries"] if a in mesh.axis_names]
+    """The mesh's doc axes (outermost first) and query axis, resolved by the
+    rules table's ``"docs"`` and ``"queries"``
+    (:data:`repro_torch.sharding.specs.DEFAULT_RULES`)."""
+    doc_axes = tuple(a for a in DEFAULT_RULES["docs"] if a in mesh.axis_names)
+    query = [a for a in DEFAULT_RULES["queries"] if a in mesh.axis_names]
     if not query:
-        raise ValueError(f"mesh {mesh.axis_names} has no query axis {SHARDING_RULES['queries']}")
+        raise ValueError(f"mesh {mesh.axis_names} has no query axis {DEFAULT_RULES['queries']}")
     return doc_axes, query[0]
 
 

@@ -49,6 +49,27 @@ def geo_score(
     return lanes[0]
 
 
+def geo_score_upper_bound(
+    doc_mbr: torch.Tensor,
+    doc_mass: torch.Tensor,
+    query_rects: torch.Tensor,
+    query_amps: torch.Tensor,
+) -> torch.Tensor:
+    """Cheap upper bound on :func:`geo_score` from the footprint MBR only:
+    ``Σ_q min(area(mbr ∩ q), mass_D) · amp_q``, where ``doc_mass = Σ_r
+    area(r)·amp(r)`` is precomputed (the reference's lossy-footprint
+    early-termination bound; no caller in either package).
+
+    doc_mbr f32[..., 4], doc_mass f32[...], query_rects f32[Q, 4],
+    query_amps f32[Q] → f32[...].
+    """
+    inter = geometry.rect_intersection_area(
+        doc_mbr[..., None, :], query_rects[None, :, :]
+    )  # [..., Q]
+    bound = torch.minimum(inter, doc_mass[..., None]) * query_amps[None, :]
+    return torch.sum(bound, dim=-1)
+
+
 def query_mass(query_rects: torch.Tensor, query_amps: torch.Tensor) -> torch.Tensor:
     """Σ area·amp of the query footprint (normalizer)."""
     return torch.sum(geometry.rect_area(query_rects) * query_amps, dim=-1)

@@ -502,6 +502,17 @@ def _with_impacts(index: TextIndex, impacts: np.ndarray) -> TextIndex:
     )
 
 
+def quantize_impacts(index: TextIndex, dtype=torch.float16) -> TextIndex:
+    """Deprecated shim: quantize impacts post-build (the reference's, which
+    no caller uses).
+
+    Prefer ``build_text_index_np(..., impact_dtype=...)``, the one
+    compression entry point.  Kept for callers holding an already-built
+    index; it refreshes ``blk_max_impact`` so pruning bounds stay safe.
+    """
+    return _with_impacts(index, to_numpy(index.impacts.to(dtype)))
+
+
 def rescale_impacts_to_global(index: TextIndex, idf_global: np.ndarray) -> TextIndex:
     """Swap a shard-local index's IDF for the corpus-global one: each
     posting's impact times ``idf_global / idf_local`` of its term (the

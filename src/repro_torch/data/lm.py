@@ -40,3 +40,11 @@ def lm_batch(cfg: LMDataConfig, step: int, device=None) -> dict:
     labels = torch.cat(
         [tokens[:, 1:], torch.full((B, 1), -1, dtype=torch.int32, device=dev)], dim=1)
     return {"tokens": tokens, "labels": labels}
+
+
+def lm_input_specs(cfg: LMDataConfig) -> dict:
+    """The batch's shapes and dtypes as ``meta`` tensors (the dry-run's
+    inputs): tokens and labels i32[B, S]."""
+    shape = (cfg.global_batch, cfg.seq_len)
+    return {"tokens": torch.empty(shape, dtype=torch.int32, device="meta"),
+            "labels": torch.empty(shape, dtype=torch.int32, device="meta")}

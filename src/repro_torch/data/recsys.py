@@ -55,6 +55,18 @@ def ctr_batch(
     return out
 
 
+def _spec(shape, dtype=torch.int32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def ctr_input_specs(batch: int, n_dense: int, n_sparse: int) -> dict:
+    """:func:`ctr_batch`'s shapes and dtypes as ``meta`` tensors."""
+    out = {"sparse": _spec((batch, n_sparse)), "label": _spec((batch,), torch.float32)}
+    if n_dense > 0:
+        out["dense"] = _spec((batch, n_dense), torch.float32)
+    return out
+
+
 def bst_batch(
     batch: int, n_items: int, seq_len: int, n_other: int, field_vocab: int,
     seed: int = 0, step: int = 0, device=None,
@@ -66,6 +78,16 @@ def bst_batch(
         "target": _randint(g, (batch,), 0, n_items, dev),
         "other": _randint(g, (batch, n_other), 0, field_vocab, dev),
         "label": _label(g, batch, dev),
+    }
+
+
+def bst_input_specs(batch: int, seq_len: int, n_other: int) -> dict:
+    """:func:`bst_batch`'s shapes and dtypes as ``meta`` tensors."""
+    return {
+        "history": _spec((batch, seq_len)),
+        "target": _spec((batch,)),
+        "other": _spec((batch, n_other)),
+        "label": _spec((batch,), torch.float32),
     }
 
 
@@ -83,6 +105,19 @@ def two_tower_batch(
         "target": _randint(g, (batch,), 0, n_items, dev),
         "item_fields": _randint(g, (batch, n_item_fields), 0, field_vocab, dev),
         "logq": torch.log(_uniform(g, (batch,), dev, 1e-6, 1e-3)),
+    }
+
+
+def two_tower_input_specs(batch: int, n_user_fields: int, n_item_fields: int,
+                          hist_len: int) -> dict:
+    """:func:`two_tower_batch`'s shapes and dtypes as ``meta`` tensors."""
+    return {
+        "user_id": _spec((batch,)),
+        "user_fields": _spec((batch, n_user_fields)),
+        "history": _spec((batch, hist_len)),
+        "target": _spec((batch,)),
+        "item_fields": _spec((batch, n_item_fields)),
+        "logq": _spec((batch,), torch.float32),
     }
 
 

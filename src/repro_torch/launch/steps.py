@@ -16,10 +16,16 @@
                         the dot product, the optional geo blend)
 * ``geo_serve``         the mesh serve step over a stacked index
 
-The reference's cells carry ``ShapeDtypeStruct``s for lowering; the port's
-carry real tensors on the device at the shape's sizes: parameters from
-``cfg.init(seed, device)``, batches from ``repro_torch.data``, a geoweb
-corpus from ``make_corpus``.
+On a real device a cell carries real tensors at the shape's sizes:
+parameters from ``cfg.init(seed, device)``, batches from
+``repro_torch.data``, a geoweb corpus from ``make_corpus``.  With
+``device="meta"`` (``build_cell(spec, shape, mesh, device="meta")``) it is
+shapes-only, as the reference's cells of ``ShapeDtypeStruct``s: parameters
+from ``param_shapes``, the optimizer state beside them, batches from the
+``*_input_specs`` helpers, KV caches of ``make_cache``'s shapes, and the
+geoweb index of the reference's per-shard shapes; each tensor carries its
+``sharding`` on ``mesh`` (the production sharding config), and nothing is
+allocated.  The dry-run (:mod:`repro_torch.launch.dryrun`) traces them.
 """
 from __future__ import annotations
 
@@ -35,13 +41,16 @@ from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.core.ranking import select_top
 from repro_torch.data import graph as graph_data
 from repro_torch.data import recsys as rec_data
-from repro_torch.data.lm import LMDataConfig, lm_batch
+from repro_torch.data.lm import LMDataConfig, lm_batch, lm_input_specs
 from repro_torch.device import resolve_device
 from repro_torch.models import egnn as egnn_lib
 from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tf_lib
+from repro_torch.models.params import meta_tensor, param_shapes
+from repro_torch.sharding.specs import named_sharding
 from repro_torch.train.loop import make_train_step
-from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+from repro_torch.train.optimizer import OptimizerConfig, init_opt_state, zero1_sharding
+from repro_torch.train.tree import leaves, unflatten
 
 
 # the train cells' optimizer (lm, gnn, recsys), the reference's
@@ -55,12 +64,44 @@ class Cell:
     fn: Callable
     args: tuple
     # positions in ``args`` that ``fn`` updates in place (the reference's
-    # donated arguments); for the dry-run/mesh tooling of the multi-card
-    # slice, which reads the reference's ``donate`` there
+    # donated arguments).  Read by launch/roofline.count_step: the step may
+    # write no other argument, and a donated one is counted once in memory
+    # (its update allocates nothing, as the reference subtracts
+    # alias_size_in_bytes) and written once in the step's byte bound
     donate: tuple = ()
     # analytic "useful" flops for this step (2 per multiply-add), global
     model_flops: float = 0.0
     note: str = ""
+
+
+def _is_meta(dev: torch.device) -> bool:
+    return dev.type == "meta"
+
+
+def _shard_inputs(batch: dict, mesh, logical: dict) -> dict:
+    """``batch``'s meta tensors, each given the sharding of its logical axes
+    on ``mesh`` (none without a mesh)."""
+    if mesh is not None:
+        for k, t in batch.items():
+            t.sharding = named_sharding(mesh, logical[k], shape=tuple(t.shape))
+    return batch
+
+
+def _opt_shapes(pshapes: dict, mesh) -> dict:
+    """The :data:`TRAIN_OPT` state of meta ``pshapes``: ``step`` and the
+    moments, which carry their ZeRO-1 shardings (:func:`zero1_sharding`)
+    when ``TRAIN_OPT.zero1``, else their leaves'."""
+    def moments():
+        out = []
+        for p in leaves(pshapes):
+            m = torch.empty(p.shape, dtype=p.dtype, device="meta")
+            if mesh is not None:
+                m.sharding = (zero1_sharding(mesh, p.sharding.spec, tuple(p.shape))
+                              if TRAIN_OPT.zero1 else p.sharding)
+            out.append(m)
+        return unflatten(pshapes, out)
+
+    return {"step": meta_tensor((), torch.int32, mesh, ()), "m": moments(), "v": moments()}
 
 
 # ---------------------------------------------------------------------------
@@ -80,6 +121,7 @@ def _lm_flops(cfg, n_tokens: int, kind: str, kv_len: int = 0, batch: int = 1) ->
 
 def build_lm_cell(
     spec: ArchSpec, shape: ShapeSpec, device=None, seed: int = 0, params: dict | None = None,
+    mesh=None, overrides: dict | None = None,
 ) -> Cell:
     """The (arch, shape) LM cell with its inputs on ``device`` (CUDA
     unless given): ``params`` (``cfg.init(seed, device)`` unless given, so
@@ -88,33 +130,47 @@ def build_lm_cell(
     :data:`TRAIN_OPT` from a zero optimizer state on the batch of step 0;
     the serving cells take a zero cache from ``make_cache``, and the decode
     cell writes at ``pos = seq_len − 1``, so its step attends over the
-    whole cache.  ``attn_window`` comes from the shape."""
+    whole cache.  ``attn_window`` comes from the shape; ``overrides``
+    replace config fields (the dry-run's ``n_layers`` and ``attn_chunk``).
+    On ``meta`` the cell is shapes-only, sharded on ``mesh``."""
     cfg = spec.config
     p = shape.params
     if "attn_window" in p:
         cfg = dataclasses.replace(cfg, attn_window=p["attn_window"])
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
     if shape.kind not in ("lm_train", "lm_prefill", "lm_decode"):
         raise ValueError(shape.kind)
     dev = resolve_device(device)
+    meta = _is_meta(dev)
     B, S = p["global_batch"], p["seq_len"]
     if params is None:
-        params = cfg.init(seed, dev)
+        params = param_shapes(cfg.param_defs(), mesh) if meta else cfg.init(seed, dev)
+
+    def tokens_of(seq_len: int) -> dict:
+        if meta:
+            return _shard_inputs(lm_input_specs(LMDataConfig(cfg.vocab, seq_len, B)), mesh,
+                                 {"tokens": ("batch", None), "labels": ("batch", None)})
+        return lm_batch(LMDataConfig(cfg.vocab, seq_len, B, seed), 0, dev)
 
     if shape.kind == "lm_train":
         step = make_train_step(lambda prm, b: tf_lib.loss_fn(cfg, prm, b), TRAIN_OPT)
-        batch = lm_batch(LMDataConfig(cfg.vocab, S, B, seed), 0, dev)
+        opt = _opt_shapes(params, mesh) if meta else init_opt_state(TRAIN_OPT, params)
         return Cell(
-            spec.name, shape.name, step, (params, init_opt_state(TRAIN_OPT, params), batch),
+            spec.name, shape.name, step, (params, opt, tokens_of(S)),
             donate=(0, 1), model_flops=_lm_flops(cfg, B * S, "train"),
         )
 
-    cache = tf_lib.make_cache(cfg, B, S, dev)
+    if meta:
+        cache = param_shapes(tf_lib.cache_defs(cfg, B, S), mesh)
+    else:
+        cache = tf_lib.make_cache(cfg, B, S, dev)
 
     if shape.kind == "lm_prefill":
         def fn(params, tokens, cache):
             return tf_lib.prefill(cfg, params, tokens, cache)
 
-        tokens = lm_batch(LMDataConfig(cfg.vocab, S, B, seed), 0, dev)["tokens"]
+        tokens = tokens_of(S)["tokens"]
         return Cell(
             spec.name, shape.name, fn, (params, tokens, cache), donate=(2,),
             model_flops=_lm_flops(cfg, B * S, "prefill"),
@@ -123,7 +179,10 @@ def build_lm_cell(
     def fn(params, cache, tokens, pos):
         return tf_lib.decode_step(cfg, params, cache, tokens, pos)
 
-    tokens = lm_batch(LMDataConfig(cfg.vocab, 1, B, seed), 0, dev)["tokens"][:, 0]
+    if meta:
+        tokens = meta_tensor((B,), torch.int32, mesh, ("batch",))
+    else:
+        tokens = lm_batch(LMDataConfig(cfg.vocab, 1, B, seed), 0, dev)["tokens"][:, 0]
     return Cell(
         spec.name, shape.name, fn, (params, cache, tokens, S - 1), donate=(1,),
         model_flops=_lm_flops(cfg, B, "decode", kv_len=S, batch=B),
@@ -198,28 +257,70 @@ def gnn_batch(cfg, shape: ShapeSpec, device, seed: int = 0,
     raise ValueError(shape.kind)
 
 
+def gnn_input_specs(cfg, shape: ShapeSpec, mesh=None) -> dict:
+    """:func:`gnn_batch`'s shapes and dtypes as meta tensors, sharded on
+    ``mesh`` as the reference's cells: edges over ``"edges"``, a full
+    graph's nodes over ``"nodes"``."""
+    p = shape.params
+    if shape.kind == "gnn_full":
+        N, E = egnn_lib.pad_nodes(p["n_nodes"]), graph_data.pad_edges(p["n_edges"])
+    elif shape.kind == "gnn_minibatch":
+        ss = graph_data.SampledShape(p["batch_nodes"], tuple(p["fanouts"]))
+        N, E = ss.max_nodes, graph_data.pad_edges(ss.max_edges)
+    elif shape.kind == "gnn_molecule":
+        N, E = p["batch"] * p["n_nodes"], graph_data.pad_edges(p["batch"] * p["n_edges"])
+    else:
+        raise ValueError(shape.kind)
+    node = "nodes" if shape.kind == "gnn_full" else None
+    spec = {
+        "feats": ((N, cfg.d_feat), torch.float32, (node, None)),
+        "coords": ((N, cfg.coord_dim), torch.float32, (node, None)),
+        "senders": ((E,), torch.int32, ("edges",)),
+        "receivers": ((E,), torch.int32, ("edges",)),
+        "edge_mask": ((E,), torch.bool, ("edges",)),
+    }
+    if shape.kind == "gnn_molecule":
+        spec["graph_ids"] = ((N,), torch.int32, (None,))
+        spec["targets"] = ((p["batch"],), torch.float32, (None,))
+    else:
+        spec["labels"] = ((N,), torch.int32, (node,))
+    return {k: meta_tensor(sh, dt, mesh, lg) for k, (sh, dt, lg) in spec.items()}
+
+
 def build_gnn_cell(
     spec: ArchSpec, shape: ShapeSpec, device=None, seed: int = 0, batch: dict | None = None,
+    mesh=None,
 ) -> Cell:
     """The (egnn, shape) train cell with its inputs on ``device`` (CUDA
     unless given): :func:`gnn_cell_config`'s model from ``cfg.init(seed,
     device)``, a zero :data:`TRAIN_OPT` state and ``batch``
-    (:func:`gnn_batch`'s unless given).  With no mesh the
-    step runs the plain ``loss_fn``, as the reference's one-device cell;
-    its shard_map loss waits for the mesh across cards (ROADMAP Queue 1
-    item 6)."""
+    (:func:`gnn_batch`'s unless given).  The step runs the plain
+    ``loss_fn``, as the reference's one-device cell; its shard_map loss
+    waits for the mesh across cards (ROADMAP Queue 1 item 6).  On ``meta``
+    the cell is shapes-only, sharded on ``mesh``, and its sums run through
+    ``static_plan`` (the ordered plan reads counts on the host)."""
     if shape.kind not in ("gnn_full", "gnn_minibatch", "gnn_molecule"):
         raise ValueError(shape.kind)
     dev = resolve_device(device)
     cfg = gnn_cell_config(spec, shape)
-    params = cfg.init(seed, dev)
-    step = make_train_step(lambda prm, b: egnn_lib.loss_fn(cfg, prm, b), TRAIN_OPT)
-    if batch is None:
-        batch = gnn_batch(cfg, shape, dev, seed)
+    note = ""
+    if _is_meta(dev):
+        params = param_shapes(cfg.param_defs(), mesh)
+        opt = _opt_shapes(params, mesh)
+        batch = gnn_input_specs(cfg, shape, mesh)
+        step = make_train_step(
+            lambda prm, b: egnn_lib.loss_fn(cfg, prm, b, plan=egnn_lib.static_plan), TRAIN_OPT)
+        note = "segment sums as index_add (static_plan)"
+    else:
+        params = cfg.init(seed, dev)
+        opt = init_opt_state(TRAIN_OPT, params)
+        step = make_train_step(lambda prm, b: egnn_lib.loss_fn(cfg, prm, b), TRAIN_OPT)
+        if batch is None:
+            batch = gnn_batch(cfg, shape, dev, seed)
     N, E = batch["feats"].shape[0], batch["senders"].shape[0]
     return Cell(
-        spec.name, shape.name, step, (params, init_opt_state(TRAIN_OPT, params), batch),
-        donate=(0, 1), model_flops=_egnn_flops(cfg, E, N),
+        spec.name, shape.name, step, (params, opt, batch),
+        donate=(0, 1), model_flops=_egnn_flops(cfg, E, N), note=note,
     )
 
 
@@ -242,6 +343,24 @@ def recsys_batch(cfg, B: int, device, seed: int, step: int = 0) -> dict:
             B, cfg.n_users, cfg.n_items, cfg.n_user_fields, cfg.n_item_fields,
             cfg.field_vocab, cfg.hist_len, seed=seed, step=step, device=device)
     raise ValueError(name)
+
+
+def recsys_input_specs(cfg, B: int, mesh=None) -> dict:
+    """:func:`recsys_batch`'s shapes and dtypes as meta tensors, each row
+    dimension over ``"batch"`` on ``mesh``."""
+    name = type(cfg).__name__
+    if name in ("DCNv2Config", "AutoIntConfig"):
+        n_dense = cfg.n_dense if name == "DCNv2Config" else 0
+        batch = rec_data.ctr_input_specs(B, n_dense, cfg.n_sparse)
+    elif name == "BSTConfig":
+        batch = rec_data.bst_input_specs(B, cfg.seq_len, cfg.n_other_fields)
+    elif name == "TwoTowerConfig":
+        batch = rec_data.two_tower_input_specs(B, cfg.n_user_fields, cfg.n_item_fields,
+                                               cfg.hist_len)
+    else:
+        raise ValueError(name)
+    return _shard_inputs(batch, mesh, {k: ("batch",) + (None,) * (t.dim() - 1)
+                                       for k, t in batch.items()})
 
 
 def recsys_loss(cfg):
@@ -330,27 +449,33 @@ def _two_tower_retrieval_flops(cfg, B: int, Nc: int) -> float:
 
 def build_recsys_cell(
     spec: ArchSpec, shape: ShapeSpec, device=None, seed: int = 0, geo: dict | None = None,
+    mesh=None,
 ) -> Cell:
     """The (arch, shape) cell with its inputs on ``device`` (CUDA unless
     given).  ``geo`` (two-tower ``recsys_retrieval`` only) is the
     reference's geo dict: ``cand_rects [Nc,R,4]``, ``cand_amps [Nc,R]``,
     ``q_rects [Q,4]``, ``q_amps [Q]``, ``weight``.  ``recsys_train``
-    steps with :data:`TRAIN_OPT`."""
+    steps with :data:`TRAIN_OPT`.  On ``meta`` the cell is shapes-only,
+    sharded on ``mesh``."""
     cfg = spec.config
     p = shape.params
     if geo is not None and not (shape.kind == "recsys_retrieval"
                                 and type(cfg).__name__ == "TwoTowerConfig"):
         raise ValueError("geo applies to the two-tower retrieval cell only")
     dev = resolve_device(device)
+    meta = _is_meta(dev)
     fwd = _recsys_forward(cfg)
-    params = cfg.init(seed, dev)
+    params = param_shapes(cfg.param_defs(), mesh) if meta else cfg.init(seed, dev)
+
+    def batch_of(B: int) -> dict:
+        return recsys_input_specs(cfg, B, mesh) if meta else recsys_batch(cfg, B, dev, seed)
 
     if shape.kind == "recsys_train":
         B = p["batch"]
         step = make_train_step(recsys_loss(cfg), TRAIN_OPT)
-        batch = recsys_batch(cfg, B, dev, seed)
+        opt = _opt_shapes(params, mesh) if meta else init_opt_state(TRAIN_OPT, params)
         return Cell(
-            spec.name, shape.name, step, (params, init_opt_state(TRAIN_OPT, params), batch),
+            spec.name, shape.name, step, (params, opt, batch_of(B)),
             donate=(0, 1), model_flops=_recsys_flops(cfg, B, True),
         )
 
@@ -361,7 +486,7 @@ def build_recsys_cell(
                 return rec_lib.two_tower_user(cfg, prm, batch)
         else:
             fn = fwd
-        batch = recsys_batch(cfg, B, dev, seed)
+        batch = batch_of(B)
         batch.pop("label", None)
         return Cell(
             spec.name, shape.name, fn, (params, batch),
@@ -377,18 +502,23 @@ def build_recsys_cell(
                     cfg, prm, batch, cand_ids, cand_fields, top_k=100, geo=geo
                 )
 
-            batch = recsys_batch(cfg, B, dev, seed)
+            batch = batch_of(B)
             batch.pop("label", None)
-            cand_ids = (torch.arange(Nc, device=dev) % cfg.n_items).to(torch.int32)
-            g = rec_data.make_generator(seed, 1, dev)
-            cand_fields = torch.randint(0, cfg.field_vocab, (Nc, cfg.n_item_fields),
-                                        generator=g, device=dev, dtype=torch.int32)
+            if meta:
+                cand_ids = meta_tensor((Nc,), torch.int32, mesh, ("candidates",))
+                cand_fields = meta_tensor((Nc, cfg.n_item_fields), torch.int32, mesh,
+                                          ("candidates", None))
+            else:
+                cand_ids = (torch.arange(Nc, device=dev) % cfg.n_items).to(torch.int32)
+                g = rec_data.make_generator(seed, 1, dev)
+                cand_fields = torch.randint(0, cfg.field_vocab, (Nc, cfg.n_item_fields),
+                                            generator=g, device=dev, dtype=torch.int32)
             return Cell(
                 spec.name, shape.name, fn, (params, batch, cand_ids, cand_fields),
                 model_flops=_two_tower_retrieval_flops(cfg, B, Nc),
             )
         # CTR models: retrieval scoring = candidate-major forward batch
-        batch = recsys_batch(cfg, Nc, dev, seed)
+        batch = batch_of(Nc)
         batch.pop("label", None)
 
         def fn(prm, batch):
@@ -440,7 +570,76 @@ def check_geoweb_shards(cfg, n_shards: int) -> None:
     _check_i32_addressable("postings", n * cfg.avg_postings_per_doc, n_shards)
 
 
-def build_geoweb_cell(spec: ArchSpec, shape: ShapeSpec, mesh, seed: int = 0) -> Cell:
+def geoweb_index_specs(cfg, mesh):
+    """The geoweb cell's inputs as meta tensors, sharded on ``mesh``: a
+    :class:`~repro_torch.core.distributed.ShardedGeoIndex` of the
+    reference's per-shard shapes and dtypes (``cfg.n_docs`` over the doc
+    axes, ``max_rects`` toe prints and ``avg_postings_per_doc`` postings per
+    doc, the docid layout, the compressed stores of ``cfg.compress``) and a
+    :class:`~repro_torch.core.algorithms.QueryBatch` over ``"queries"``.
+    The int32 guard runs first."""
+    from repro_torch.core.algorithms import QueryBatch
+    from repro_torch.core.distributed import COVERAGE_GRID, ShardedGeoIndex, mesh_axes
+    from repro_torch.core.spatial_index import SCALE_BLOCK, normalize_compress
+    from repro_torch.core.text_index import POSTING_BLOCK
+
+    doc_axes = mesh_axes(mesh)[0]
+    S = math.prod(mesh.shape[a] for a in doc_axes)
+    check_geoweb_shards(cfg, S)
+    N = cfg.n_docs // S  # docs per shard
+    Tt, Pp = N * cfg.max_rects, N * cfg.avg_postings_per_doc  # toe prints, postings
+    G2, R, M = cfg.grid * cfg.grid, cfg.doc_major_rects, cfg.n_terms
+    mode = normalize_compress(cfg.compress)
+    ft = torch.float16 if mode != "none" else torch.float32
+    at = torch.int8 if mode == "int8" else ft  # amp store dtype
+    it = torch.int16 if (mode != "none" and N <= 2**15 - 1) else torch.int32
+    # one compressed block per POSTING_BLOCK postings, its delta width bound
+    # by the shard's doc-id range; the 128-posting framing (block-max text
+    # pruning) exists in both layouts
+    NBp = max(-(-Pp // POSTING_BLOCK), 1) if mode != "none" else 0
+    NBt = max(-(-Pp // POSTING_BLOCK), 1)
+    d_bits = max(int(N - 1).bit_length(), 1) if N > 1 else 1
+    Wp = NBp * (POSTING_BLOCK * d_bits // 32)
+    Pp_store = 0 if mode != "none" else Pp  # raw doc-id column
+    SBn = max(-(-Tt // SCALE_BLOCK), 1) if mode == "int8" else 0
+    bs = getattr(cfg, "block_size", 128)  # block-max metadata: one f32 row per block
+    NB = max((Tt + bs - 1) // bs, 1)
+    CG = COVERAGE_GRID + 1
+    i32, f32 = torch.int32, torch.float32
+
+    def sh(shape_, dtype):  # leading shard dim over the doc axes
+        return meta_tensor((S, *shape_), dtype, mesh, ("docs",) + (None,) * len(shape_))
+
+    idx = ShardedGeoIndex(
+        postings=sh((Pp_store,), i32), impacts=sh((Pp,), ft), offsets=sh((M + 1,), i32),
+        post_packed=sh((Wp,), torch.uint32), blk_first=sh((NBp,), i32),
+        blk_bits=sh((NBp,), i32), blk_word_off=sh((NBp,), i32), blk_n_exc=sh((NBp,), i32),
+        blk_len=sh((NBt,), i32), blk_pos=sh((NBt,), i32), blk_max_impact=sh((NBt,), f32),
+        blk_term_off=sh((M + 1,), i32),
+        # the docid layout's impact-segment CSR is degenerate
+        seg_term_off=sh((M + 1,), i32), seg_pos=sh((1,), i32), seg_len=sh((1,), i32),
+        tp_rects=sh((Tt, 4), ft), tp_amps=sh((Tt,), at), tp_doc_ids=sh((Tt,), it),
+        tp_amp_scale=sh((SBn,), f32),
+        tile_starts=sh((G2, cfg.m_intervals), i32), tile_ends=sh((G2, cfg.m_intervals), i32),
+        doc_rects=sh((N, R, 4), ft), doc_amps=sh((N, R), ft), doc_mbr=sh((N, 4), ft),
+        doc_mass=sh((N,), ft), blk_mbr=sh((NB, 4), f32), blk_max_amp=sh((NB,), f32),
+        blk_max_mass=sh((NB,), f32), pagerank=sh((N,), f32), doc_offset=sh((N,), i32),
+        coverage_sat=sh((CG, CG), f32),
+        grid=cfg.grid, n_terms=M, block_size=bs, coverage_grid=COVERAGE_GRID,
+        # synthetic hot-term bound: a term may touch every shard doc
+        max_term_blocks=max(-(-N // POSTING_BLOCK), 1),
+    )
+    B, d, Qr = cfg.query_batch, cfg.d_terms, cfg.q_rects
+    query = QueryBatch(
+        terms=meta_tensor((B, d), i32, mesh, ("queries", None)),
+        rects=meta_tensor((B, Qr, 4), f32, mesh, ("queries", None, None)),
+        amps=meta_tensor((B, Qr), f32, mesh, ("queries", None)),
+    )
+    return idx, query
+
+
+def build_geoweb_cell(spec: ArchSpec, shape: ShapeSpec, mesh, seed: int = 0,
+                      device=None) -> Cell:
     """The geoweb serve cell on ``mesh`` (:func:`repro_torch.core.make_mesh`):
     ``fn(index, query) -> (ids, scores, stats)``, the mesh serve step with
     the shape's algorithm over a stacked index of ``make_corpus(n_docs,
@@ -448,16 +647,27 @@ def build_geoweb_cell(spec: ArchSpec, shape: ShapeSpec, mesh, seed: int = 0) -> 
     seed)`` hash-partitioned over the mesh's doc axes (under
     ``normalize_compress(cfg.compress)``), and a query batch of
     ``query_batch`` × ``d_terms`` × ``q_rects`` from ``make_query_trace``.
-    The int32 guard runs first."""
-    from repro_torch.core.distributed import make_serve_fn, shard_corpus_np
+    The int32 guard runs first.  On a ``meta`` mesh (or ``device``) the
+    cell is shapes-only: :func:`geoweb_index_specs`."""
+    from repro_torch.core.distributed import make_serve_fn, mesh_axes, shard_corpus_np
     from repro_torch.core.spatial_index import normalize_compress
     from repro_torch.corpus import make_corpus, make_query_trace
 
     cfg = spec.config
     if mesh is None:
         raise ValueError("geoweb cells need a mesh")
-    doc_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    doc_axes, query_axis = mesh_axes(mesh)
     S = math.prod(mesh.shape[a] for a in doc_axes)
+    # geo-score flops: ~14 flops per (toeprint, query-rect) pair per query
+    kb = cfg.budgets
+    mf = float(cfg.query_batch) * kb.k_sweeps * kb.sweep_budget * cfg.q_rects * 14
+    serve = make_serve_fn(
+        mesh, cfg.budgets, cfg.weights,
+        doc_axes=doc_axes, query_axis=query_axis, algorithm=shape.params["algorithm"],
+    )
+    if _is_meta(mesh.device) or (device is not None and _is_meta(resolve_device(device))):
+        return Cell(spec.name, shape.name, serve, geoweb_index_specs(cfg, mesh),
+                    model_flops=mf, note="shapes only: the serve step syncs to the host")
     check_geoweb_shards(cfg, S)
     corpus = make_corpus(cfg.n_docs, cfg.n_terms, max_rects=cfg.doc_major_rects,
                          doc_len=cfg.avg_postings_per_doc, seed=seed)
@@ -468,27 +678,22 @@ def build_geoweb_cell(spec: ArchSpec, shape: ShapeSpec, mesh, seed: int = 0) -> 
     )
     query = make_query_trace(corpus, n_queries=cfg.query_batch, d_terms=cfg.d_terms,
                              q_rects=cfg.q_rects, seed=seed + 1).to(mesh.device)
-    serve = make_serve_fn(
-        mesh, cfg.budgets, cfg.weights,
-        doc_axes=doc_axes, query_axis="model", algorithm=shape.params["algorithm"],
-    )
-    # geo-score flops: ~14 flops per (toeprint, query-rect) pair per query
-    kb = cfg.budgets
-    mf = float(cfg.query_batch) * kb.k_sweeps * kb.sweep_budget * cfg.q_rects * 14
     return Cell(spec.name, shape.name, serve, (idx, query), model_flops=mf)
 
 
 def build_cell(
     spec: ArchSpec, shape: ShapeSpec, mesh=None, device=None, seed: int = 0,
+    lm_overrides: dict | None = None,
 ) -> Cell:
     """Dispatch on the arch's family: geoweb cells run on ``mesh``, the
-    others on ``device`` (CUDA unless given)."""
+    others on ``device`` (CUDA unless given).  With ``device="meta"`` every
+    cell is shapes-only, its tensors sharded on ``mesh``."""
     if spec.family == "geoweb":
-        return build_geoweb_cell(spec, shape, mesh, seed)
+        return build_geoweb_cell(spec, shape, mesh, seed, device)
     if spec.family == "lm":
-        return build_lm_cell(spec, shape, device, seed)
+        return build_lm_cell(spec, shape, device, seed, mesh=mesh, overrides=lm_overrides)
     if spec.family == "gnn":
-        return build_gnn_cell(spec, shape, device, seed)
+        return build_gnn_cell(spec, shape, device, seed, mesh=mesh)
     if spec.family == "recsys":
-        return build_recsys_cell(spec, shape, device, seed)
+        return build_recsys_cell(spec, shape, device, seed, mesh=mesh)
     raise ValueError(spec.family)

@@ -130,6 +130,28 @@ def segment_plan(ids: torch.Tensor, n: int, mask: torch.Tensor | None = None) ->
     return SegmentPlan(ids, n, order, runs, live[: runs[0] if runs else 0], counts)
 
 
+@dataclass
+class StaticPlan:
+    """A shape-static stand-in for :class:`SegmentPlan`, for a trace on the
+    ``meta`` device (the dry-run): :func:`segment_sum` by ``index_add``
+    (unordered on the card) and :func:`gather` by ``index_select`` with its
+    own backward, over all edges (padded ones carry zeros); ``counts`` by
+    ``scatter_add_``.  The products, and so the FLOPs, are those of the
+    ordered plan; no host sync."""
+
+    ids: torch.Tensor
+    n: int
+    counts: torch.Tensor
+
+
+def static_plan(ids: torch.Tensor, n: int, mask: torch.Tensor | None = None) -> StaticPlan:
+    """:func:`segment_plan`'s shape-static stand-in (same arguments)."""
+    ids = ids.long()
+    ones = torch.ones_like(ids) if mask is None else mask.long()
+    counts = torch.zeros(n, dtype=torch.long, device=ids.device).scatter_add_(0, ids, ones)
+    return StaticPlan(ids, n, counts)
+
+
 def _ordered_sum(vals: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     """vals [E, ...] → [n, ...]: each segment's real terms added in
     ascending edge index from a zero, rounded after every add in
@@ -175,12 +197,16 @@ class _Gather(torch.autograd.Function):
 def segment_sum(vals: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     """``jax.ops.segment_sum(vals, ids, n)`` in the reference's order
     (masked edges, which must hold zeros, left out)."""
+    if isinstance(plan, StaticPlan):
+        return vals.new_zeros((plan.n, *vals.shape[1:])).index_add(0, plan.ids, vals)
     return _SegmentSum.apply(vals, plan)
 
 
 def gather(src: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     """``src[ids]``; its backward sums in the reference's order (masked
     edges, whose cotangents must be zeros, left out)."""
+    if isinstance(plan, StaticPlan):
+        return src.index_select(0, plan.ids)
     return _Gather.apply(src, plan)
 
 
@@ -226,16 +252,17 @@ def egnn_layer(cfg: EGNNConfig, lp: dict, h, x, edge_mask, recv: SegmentPlan,
     return h_new, x_new
 
 
-def forward(cfg: EGNNConfig, params: dict, batch: dict):
+def forward(cfg: EGNNConfig, params: dict, batch: dict, plan=segment_plan):
     """batch: feats f32[N,Fin], coords f32[N,C], senders/receivers i32[E],
     edge_mask bool[E].  Returns (node_out f32[N, max(n_classes, 1)],
-    coords [N, C] in the compute dtype)."""
+    coords [N, C] in the compute dtype).  ``plan`` builds the sums' plans
+    (:func:`static_plan` for a trace on ``meta``)."""
     cd = cfg.compute_dtype
     h = batch["feats"].to(cd) @ params["encode"].to(cd)
     x = batch["coords"].to(cd)
     real = batch["edge_mask"].bool()  # the plans run over the real edges
-    recv = segment_plan(batch["receivers"], h.shape[0], real)
-    send = segment_plan(batch["senders"], h.shape[0], real)
+    recv = plan(batch["receivers"], h.shape[0], real)
+    send = plan(batch["senders"], h.shape[0], real)
     edge_mask = batch["edge_mask"].to(cd)
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in params["layers"].items()}
@@ -256,10 +283,10 @@ def pad_nodes(n: int, multiple: int = 512) -> int:
     return (n + multiple - 1) // multiple * multiple
 
 
-def loss_fn(cfg: EGNNConfig, params: dict, batch: dict):
+def loss_fn(cfg: EGNNConfig, params: dict, batch: dict, plan=segment_plan):
     """Node classification (labels i32[N], −1 ignored) or graph regression
-    (graph_ids i32[N] + targets f32[G])."""
-    out, _ = forward(cfg, params, batch)
+    (graph_ids i32[N] + targets f32[G]); ``plan`` as :func:`forward`'s."""
+    out, _ = forward(cfg, params, batch, plan)
     if cfg.n_classes > 0:
         labels = batch["labels"].long()
         mask = labels >= 0
@@ -274,7 +301,7 @@ def loss_fn(cfg: EGNNConfig, params: dict, batch: dict):
         return loss, {"nll": loss, "acc": acc}
     # graph regression: mean-pool nodes per graph
     G = batch["targets"].shape[0]
-    graphs = segment_plan(batch["graph_ids"], G)
+    graphs = plan(batch["graph_ids"], G)
     pooled = segment_sum(out[:, 0], graphs)
     counts = graphs.counts.to(torch.float32)  # the f32 segment sum of ones
     pred = pooled / torch.clamp(counts, min=1.0)

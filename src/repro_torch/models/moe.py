@@ -143,7 +143,13 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg) -> tuple[torch.Tensor, torch.Tensor]:
 
     # load-balance aux loss (Switch): E · Σ_e f_e · p_e over all assignments
     me = probs.mean(dim=(0, 1))
-    ce = torch.bincount(top_e.reshape(-1), minlength=E).float() / (B * S * K)
+    # the assignments per expert, as bincount's integers, with a
+    # shape-static op (bincount's output size depends on the data, so it
+    # has no meta kernel and the dry-run could not trace it)
+    flat_e = top_e.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    ce = counts.float() / (B * S * K)
     aux = E * torch.sum(me * ce)
 
     C = capacity(cfg, S)

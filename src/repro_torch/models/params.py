@@ -2,10 +2,12 @@
 dtype and initializer of every parameter (port of ``repro/models/params.py``).
 
 Models declare a dict of :class:`ParamDef`; from it come ``init_params``
-(real tensors drawn on a device) and ``param_count``.  ``params_from_numpy``
-carries the reference's parameter arrays across, checked against the
-definitions, so that both packages compute with the same weights.  The
-logical axes are kept for the multi-card slice's sharding.
+(real tensors drawn on a device), ``param_shapes`` (``meta`` tensors, each
+with its sharding when a mesh is given: the dry-run's parameters, which
+allocate nothing), ``param_specs`` (the partition spec of every leaf) and
+``param_count``.  ``params_from_numpy`` carries the reference's parameter
+arrays across, checked against the definitions, so that both packages
+compute with the same weights.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.specs import logical_spec, named_sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +116,30 @@ def params_from_numpy(defs: dict, arrays: dict, device=None) -> dict:
             raise TypeError(f"{path}: dtype {a.dtype}, expected {d.dtype}")
         leaves[path] = t.to(dev)
     return _unflatten(leaves)
+
+
+def meta_tensor(shape, dtype, mesh=None, logical=None, rules=None) -> torch.Tensor:
+    """A ``meta`` tensor of ``shape`` and ``dtype`` (the reference's
+    ``ShapeDtypeStruct``); with a mesh, its ``sharding`` attribute holds
+    the :class:`~repro_torch.sharding.specs.NamedSharding` of the logical
+    axes ``logical``."""
+    t = torch.empty(tuple(shape), dtype=dtype, device="meta")
+    if mesh is not None:
+        t.sharding = named_sharding(mesh, tuple(logical), rules, shape=tuple(shape))
+    return t
+
+
+def param_shapes(defs: dict, mesh=None, rules=None) -> dict:
+    """``meta`` tensors of ``defs``' shapes and dtypes, in the reference's
+    flattened order; each carries its sharding when ``mesh`` is given."""
+    return _unflatten({path: meta_tensor(d.shape, d.dtype, mesh, d.logical, rules)
+                       for path, d in _flatten(defs)})
+
+
+def param_specs(defs: dict, mesh, rules=None) -> dict:
+    """The partition spec of every leaf of ``defs`` on ``mesh``."""
+    return _unflatten({path: logical_spec(d.logical, mesh.axis_names, rules, d.shape, mesh)
+                       for path, d in _flatten(defs)})
 
 
 def param_count(defs: dict) -> int:

@@ -239,15 +239,24 @@ def loss_fn(cfg: TransformerConfig, params: dict, batch: dict):
 # serving: prefill + decode with KV cache
 # ---------------------------------------------------------------------------
 
+def cache_defs(cfg: TransformerConfig, batch: int, max_len: int) -> dict:
+    """The KV cache as :class:`ParamDef`s (the dry-run's shapes and specs)."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    # kv_seq/head_dim are fallback shards: they engage exactly when batch or
+    # kv_heads cannot divide the mesh axes (long-context b=1, GQA kv<model)
+    logical = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {
+        "k": ParamDef(shape, logical, cfg.compute_dtype, "zeros"),
+        "v": ParamDef(shape, logical, cfg.compute_dtype, "zeros"),
+    }
+
+
 def make_cache(cfg: TransformerConfig, batch: int, max_len: int, device=None) -> dict:
     """A zero KV cache ``[layers, batch, max_len, kv_heads, d_head]`` in
     ``compute_dtype`` on ``device`` (CUDA unless given)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {
-        "k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
-        "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
-    }
+    return {k: torch.zeros(d.shape, dtype=d.dtype, device=dev)
+            for k, d in cache_defs(cfg, batch, max_len).items()}
 
 
 def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, cache: dict):

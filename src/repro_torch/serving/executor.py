@@ -336,7 +336,7 @@ class MeshExecutor:
     partitioning, stacked into one :class:`ShardedGeoIndex` on the mesh's
     device, and one serve step per plan
     (:func:`~repro_torch.core.distributed.make_serve_fn`).  The doc and
-    query axes come from :data:`~repro_torch.core.distributed.SHARDING_RULES`.
+    query axes come from :func:`~repro_torch.core.distributed.mesh_axes`.
     Each shard's per-query counters are summed over the doc axes inside the
     step.  Steps are made lazily per plan: the fixed-algorithm step at
     construction, one per distinct plan under ``algorithm="auto"``.

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.sharding.specs import NamedSharding, PartitionSpec
 from repro_torch.train.tree import leaves, tree_map
 
 
@@ -36,8 +37,9 @@ class OptimizerConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     clip_norm: float = 1.0
-    # ZeRO-1 moment sharding over the data axis: accepted, and nothing to
-    # do on one device (the sharded layout comes with the mesh across cards)
+    # ZeRO-1 moment sharding over the data axis (:func:`zero1_sharding`):
+    # the dry-run lays the moments out so; on one device there is nothing
+    # to shard (the sharded update comes with the mesh across cards)
     zero1: bool = False
 
 
@@ -64,6 +66,20 @@ def init_opt_state(cfg: OptimizerConfig, params) -> dict:
         "m": tree_map(torch.zeros_like, params),
         "v": tree_map(torch.zeros_like, params),
     }
+
+
+def zero1_sharding(mesh, spec, shape) -> NamedSharding:
+    """ZeRO-1 moment sharding: the param's own spec + the ``data`` axis on
+    the first free dim it divides (so moments shard over data×model while
+    params stay replicated across data)."""
+    if "data" in spec.axes() or "data" not in mesh.axis_names:
+        return NamedSharding(mesh, spec)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (e, dim) in enumerate(zip(entries, shape)):
+        if e is None and dim % mesh.shape["data"] == 0:
+            entries[i] = "data"
+            return NamedSharding(mesh, PartitionSpec(*entries))
+    return NamedSharding(mesh, spec)
 
 
 def global_norm(tree) -> torch.Tensor:
