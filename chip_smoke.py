@@ -12,7 +12,13 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    impacts, with and without the monotone cut, at max_candidates 2048 and
    1000, with and without a select floor; bitmap_and_popcount on 2, 4 and
    8 rows of the index's bitmaps — masks, flags and block counts exactly,
-   scores bitwise (the kernels are compiled without FMA contraction);
+   scores bitwise (the kernels are compiled without FMA contraction); then
+   the two redesigned kernels' edges: bitmap_and_popcount and the
+   count-only prefilter (== ``counts.sum()``) on 1, 3, 8 and 9 rows of 1,
+   5 and 32,771 words, aligned and at an odd word offset; geo_score's bit
+   patterns (NaN and ±inf included) on ``ref.adversarial_case`` with 1, 2,
+   4 and 8 live slots × T in (1, 3, 4097), B = 3, aligned and at an odd
+   storage offset;
 3. drives K-SWEEP at 2^20 documents in batches of 32 through the executor
    ``make_executor("single", ...)`` builds and, over its index, the ones
    its ``fused=`` and ``use_pallas=`` select — plain, fused, geo-score
@@ -39,8 +45,12 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    tiles), beside a torch fill of its output's size and the store bytes
    its windows request and the unique bytes; beside each kernel's time
    (CUDA events around one call), its device time: 100 launches queued
-   behind a spin kernel between one pair of events, over 100; and
-   ``geo_score`` both ways at phase 9's retrieval shape;
+   behind a spin kernel between one pair of events, over 100, and the
+   host µs per call it took to queue them; the launch floor (a 1-element
+   ``fill_`` timed the same way) beside every row, each device time over
+   max(bound, floor); the conjunction prefilter's one count-only launch
+   against the kernel + ``counts.sum()`` it replaced; and ``geo_score``
+   both ways at phase 9's retrieval shape;
 5. runs one profiler pass per variant (phase 7's sharded executor too):
    each stage's host time and device time, and the device's idle share
    over a batch; and one over each of phase 9's recsys cells (the
@@ -479,11 +489,12 @@ def time_ms(fn, torch, runs: int = RUNS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, torch, launches: int = DEVICE_LAUNCHES) -> float:
+def device_ms(fn, torch, launches: int = DEVICE_LAUNCHES) -> tuple[float, float]:
     """Device time per launch of ``fn``: ``launches`` launches queued behind
     a spin kernel between one pair of CUDA events, so they run back to back
-    on the card.  Checks that the host queued them all before the spin
-    ended (else the figure would hold host gaps)."""
+    on the card; and the host µs per call it took to queue them.  Checks
+    that the host queued them all before the spin ended (else the figure
+    would hold host gaps)."""
     fn()
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -499,7 +510,7 @@ def device_ms(fn, torch, launches: int = DEVICE_LAUNCHES) -> float:
     spin = ev[0].elapsed_time(ev[1])
     check(host < spin, f"device_ms: queuing {launches} launches took {host:.3f} ms, longer "
           f"than the {spin:.3f} ms spin")
-    return ev[1].elapsed_time(ev[2]) / launches
+    return ev[1].elapsed_time(ev[2]) / launches, host * 1e3 / launches
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
@@ -514,6 +525,15 @@ def exact(a, b, what: str, torch) -> float:
     if a.dtype.is_floating_point:
         return float((a - b).abs().max()) if a.numel() else 0.0
     return 0.0
+
+
+def at_odd_offset(x, torch):
+    """A contiguous copy of ``x`` (4-byte elements) whose storage starts one
+    element into its buffer, off 16-byte alignment."""
+    flat = x.reshape(-1).view(torch.int32)
+    buf = torch.empty(flat.numel() + 1, dtype=torch.int32, device=x.device)
+    buf[1:] = flat
+    return buf[1:].view(x.dtype).view(x.shape)
 
 
 def results_equal(a, b, what: str, torch, counters: bool = True) -> None:
@@ -732,6 +752,42 @@ def run_phases(dry: dict) -> int:
         torch.cuda.synchronize()
         say(f"phase 2: bitmap_and_popcount[d={d}, {tuple(rows.shape)}] == plain; "
             f"{int(got[1].sum())} docs in every row")
+    # the redesigned kernels' edges: bitmap row counts around the chunk of 8
+    # and widths around the 4-word groups, a row block at an odd word offset
+    # (scalar loads), the count-only prefilter against counts.sum(); geo_score
+    # on ref.adversarial_case (1, 2, 4, 8 live slots, a zero-amp slot of
+    # overflowing area, a row with none; NaN, ±inf and huge store
+    # coordinates, −0 amps; B = 3 rows of T positions, off 16-byte alignment
+    # for T = 3, 4097) and from inputs at an odd storage offset, bit patterns
+    # compared (NaN included)
+    rng = np.random.default_rng(4)
+    for d in (1, 3, 8, 9):
+        for W in (1, 5, 32768 + 3):
+            rows_np = rng.integers(0, 2**32, (d, W), dtype=np.uint64).astype(np.uint32)
+            rows_np[:, : min(W, 2)] = 0xFFFFFFFF
+            rows = torch.from_numpy(rows_np.view(np.int32)).to(dev).view(torch.uint32)
+            want = BR.bitmap_and_popcount_ref(rows)
+            for where, x in (("aligned", rows), ("odd offset", at_odd_offset(rows, torch))):
+                tag = f"bitmap_and_popcount[d={d}, W={W}, {where}]"
+                got = bitmap_and_popcount(x)
+                exact(got[0].view(torch.int32), want[0].view(torch.int32), tag + " anded", torch)
+                exact(got[1], want[1], tag + " counts", torch)
+                exact(conjunction_block_prefilter(x), want[1].sum(), tag + " prefilter", torch)
+    torch.cuda.synchronize()
+    say("phase 2: bitmap_and_popcount == plain and the count-only prefilter == counts.sum() "
+        "for d in (1, 3, 8, 9), W in (1, 5, 32771), aligned and at an odd word offset")
+    for n_live in (1, 2, 4, 8):
+        for T in (1, 3, 4097):
+            args = [torch.from_numpy(x).to(dev) for x in GR.adversarial_case(rng, T, n_live)]
+            want = GR.geo_score_toeprints_ref(*args).view(torch.int32)
+            for where, r, a in (("aligned", *args[:2]),
+                                ("odd offset", *(at_odd_offset(x, torch) for x in args[:2]))):
+                got = geo_score_toeprints(r, a, *args[2:])
+                exact(got.view(torch.int32), want,
+                      f"geo_score[{n_live} live, T={T}, {where}] bit patterns", torch)
+    torch.cuda.synchronize()
+    say("phase 2: geo_score == plain bit for bit (NaN, ±inf) on the adversarial cases: "
+        "1, 2, 4, 8 live slots x T in (1, 3, 4097), B = 3, aligned and at an odd offset")
 
     # small input: the card equals the CPU port and a brute-force oracle
     small = make_corpus(n_docs=3000, n_terms=400, seed=5)
@@ -1072,6 +1128,12 @@ def run_phases(dry: dict) -> int:
                  lambda: BR.bitmap_and_popcount_ref(rows8),
                  *bound_ms(8 * W * 4 + W * 8, 8 * W, INT32_OPS_PER_S)))
 
+    # the launch floor: a 1-element fill_, timed as the kernels are; a
+    # kernel whose bound is below it is held to max(bound, floor)
+    one = torch.empty(1, dtype=torch.float32, device=dev)
+    floor_ms, floor_us = device_ms(lambda: one.fill_(1.0), torch)
+    say(f"phase 4: launch floor (a 1-element fill_): device {floor_ms:.4f} ms, host "
+        f"{floor_us:.2f} us per call ({DEVICE_LAUNCHES} back-to-back launches)")
     table = []
     for name, kern, plain, b_ms, b_by in rows:
         k_out, p_out = kern(), plain()
@@ -1081,19 +1143,27 @@ def run_phases(dry: dict) -> int:
                 x, y = x.view(torch.int32), y.view(torch.int32)
             max_err[name] = max(max_err[name], exact(x, y, f"{name} at timing shapes", torch))
         ms_kernel = time_ms(kern, torch)
-        ms_device = device_ms(kern, torch)
+        ms_device, us_host = device_ms(kern, torch)
         ms_plain = time_ms(plain, torch, runs=RUNS)
         src, replaces = SOURCES[name]
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": main_counts[name], "max_abs_err": max_err[name],
-            "ms": ms_kernel, "device_ms": ms_device, "plain_ms": ms_plain, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "ms": ms_kernel, "device_ms": ms_device, "host_us": us_host, "plain_ms": ms_plain,
+            "bound_ms": b_ms, "bound_by": b_by, "floor_ms": floor_ms, "library_ms": None,
         })
         say(f"phase 4: {name}: kernel {ms_kernel:.4f} ms (events around one call), device "
-            f"{ms_device:.4f} ms ({DEVICE_LAUNCHES} back-to-back launches), plain "
-            f"{ms_plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {main_counts[name]} launches in "
-            f"{kernel_batches[name]} batches (or prefilter calls) that reach it")
+            f"{ms_device:.4f} ms ({DEVICE_LAUNCHES} back-to-back launches; host {us_host:.2f} us "
+            f"per call), plain {ms_plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); device / "
+            f"max(bound, floor) {ms_device / max(b_ms, floor_ms):.3f}; {main_counts[name]} "
+            f"launches in {kernel_batches[name]} batches (or prefilter calls) that reach it")
+    # the prefilter: one count-only launch per call, against the two steps
+    # it replaced (the kernel's outputs, then counts.sum())
+    pre = (device_ms(lambda: BK.conjunction_count_cuda(rows8), torch),
+           device_ms(lambda: BK.bitmap_and_popcount_cuda(rows8)[1].sum(), torch))
+    say(f"phase 4: conjunction prefilter over 8 rows: one count-only launch {pre[0][0]:.4f} ms "
+        f"device, {pre[0][1]:.2f} us host per call; the kernel + counts.sum() {pre[1][0]:.4f} "
+        f"ms device, {pre[1][1]:.2f} us host")
     # geo_score at phase 9's retrieval shape (1,000,000 candidates x
     # GEO_RECTS rects, 2 query rects), timed both ways
     geo = recsys_geo(1_000_000, 0.08, GEO_Q_RECTS, dev)
@@ -1104,13 +1174,15 @@ def run_phases(dry: dict) -> int:
           "geo_score kernel at the retrieval shape", torch)
     n_tp = flat_a.numel()
     b_ms, b_by = bound_ms(n_tp * (STORE_BYTES + 4.0), n_tp * (OPS_PER_SLOT * len(GEO_Q_RECTS) + 1))
-    retrieval = {"ms": time_ms(kern, torch), "device_ms": device_ms(kern, torch),
+    ms_device, us_host = device_ms(kern, torch)
+    retrieval = {"ms": time_ms(kern, torch), "device_ms": ms_device, "host_us": us_host,
                  "bound_ms": b_ms, "bound_by": b_by}
     table[[r["name"] for r in table].index("geo_score")]["retrieval_shape"] = retrieval
     say(f"phase 4: geo_score at the retrieval shape ({n_tp} rects, {len(GEO_Q_RECTS)} query "
         f"rects): kernel {retrieval['ms']:.4f} ms (events around one call), device "
-        f"{retrieval['device_ms']:.4f} ms ({DEVICE_LAUNCHES} back-to-back launches), bound "
-        f"{b_ms:.4f} ms ({b_by})")
+        f"{ms_device:.4f} ms ({DEVICE_LAUNCHES} back-to-back launches; host {us_host:.2f} us "
+        f"per call), bound {b_ms:.4f} ms ({b_by}); bound / kernel "
+        f"{b_ms / retrieval['ms']:.3f}, bound / device {b_ms / ms_device:.3f}")
     del geo, flat_r, flat_a
     for name, times in latency.items():
         say(f"phase 4: {name}: batch latency median {1e3 * statistics.median(times):.2f} ms, "

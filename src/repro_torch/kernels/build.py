@@ -36,11 +36,11 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name -> argtypes; each returns cudaGetLastError() as int
 SIGNATURES = {
-    "geo_score_launch": [_P, _P, _P, _P, _P, _L, _L, _P],
+    "geo_score_launch": [_P] * 5 + [_L, _L, _I, _P],
     "sweep_score_launch": [_P] * 7 + [_I] * 3 + [_L, _I, _I, _P],
     "sweep_score_pruned_launch": [_P] * 11 + [_I] * 5 + [_L, _I, _I, _I, _P],
     "text_probe_launch": [_P, _I] + [_P] * 7 + [_F, _P, _P] + [_I] * 5 + [_P],
-    "bitmap_and_popcount_launch": [_P, _P, _P, _I, _L, _P],
+    "bitmap_and_popcount_launch": [_P] * 5 + [_I, _L, _P],
 }
 
 _build_lock = threading.Lock()
@@ -131,6 +131,16 @@ def check_launch(name: str, err: int) -> None:
     if err:
         msg = library().cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")
+
+
+def raw_stream(device) -> int:
+    """The handle of ``device``'s current CUDA stream, as
+    ``torch.cuda.current_stream(device).cuda_stream`` gives it but without
+    building a ``Stream`` object, which costs several microseconds of host
+    time per launch (the accessor PyTorch's own generated kernels call)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_tensor(name: str, t, dtypes, shape: tuple, device) -> None:

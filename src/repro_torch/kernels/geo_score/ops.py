@@ -1,8 +1,9 @@
 """Public wrappers of the geo_score kernel (port of
 ``repro/kernels/geo_score/ops.py``, with an explicit batch axis).
 
-CUDA tensors go to the hand-written kernel — one launch per batch — and
-CPU tensors to its plain version; there is no fallback between the two.
+CUDA tensors go to the hand-written kernel — one launch per batch, the
+query read unpadded — and CPU tensors to its plain version over the
+zero-padded query; there is no fallback between the two.
 """
 from __future__ import annotations
 
@@ -39,13 +40,14 @@ def geo_score_toeprints(
     check_tensor("amps", amps, (torch.float32,), (B, T), dev)
     check_tensor("q_amps", q_amps, (torch.float32,), (B, None), dev)
     check_tensor("q_rects", q_rects, (torch.float32,), (B, q_amps.shape[1], 4), dev)
-    qr, qa = pad_query(q_rects, q_amps)
-    if dev.type == "cuda":
+    if q_amps.shape[1] > Q_MAX:
+        raise ValueError(f"at most {Q_MAX} query rects per pass, got {q_amps.shape[1]}")
+    if dev.type == "cuda":  # the kernel reads the slots past Q as zero padding
         geo_score_toeprints.launches += 1
-        return geo_score_cuda(rects, amps, qr, qa)
+        return geo_score_cuda(rects, amps, q_rects, q_amps)
     if dev.type != "cpu":
         raise ValueError(f"geo_score runs on cuda or cpu tensors, got {dev}")
-    return geo_score_toeprints_ref(rects, amps, qr, qa)
+    return geo_score_toeprints_ref(rects, amps, *pad_query(q_rects, q_amps))
 
 
 geo_score_toeprints.launches = 0

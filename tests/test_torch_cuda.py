@@ -18,6 +18,7 @@ from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.bitmap_filter import ops as pbm  # noqa: E402
 from repro_torch.kernels.bitmap_filter.ref import bitmap_and_popcount_ref  # noqa: E402
 from repro_torch.kernels.geo_score import ops as pg  # noqa: E402
+from repro_torch.kernels.geo_score import ref as pgr  # noqa: E402
 from repro_torch.kernels.geo_score.ref import geo_score_toeprints_ref  # noqa: E402
 from repro_torch.kernels.sweep_score import kernel as psk  # noqa: E402
 from repro_torch.kernels.sweep_score import ops as ps  # noqa: E402
@@ -68,20 +69,43 @@ def _sweeps(rng, T, budget, k):
     return ss, ee
 
 
+def _at_odd_offset(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose storage starts one 4-byte element
+    into its buffer (not 16-byte aligned)."""
+    flat = x.reshape(-1).view(torch.int32)
+    buf = torch.empty(flat.numel() + 1, dtype=torch.int32, device=x.device)
+    buf[1:] = flat
+    return buf[1:].view(x.dtype).view(x.shape)
+
+
 @pytest.mark.cuda
-def test_geo_score_kernel_bitwise_on_card(cuda):
-    rng = np.random.default_rng(5)
-    r = np.stack([_rects(rng, 3000) for _ in range(4)])
-    a = rng.uniform(0, 1, (4, 3000)).astype(np.float32)
-    qr = np.stack([_rects(rng, 3) for _ in range(4)])
-    qa = rng.uniform(0, 1, (4, 3)).astype(np.float32)
-    args = [_t(x, cuda) for x in (r, a, qr, qa)]
-    reset_launch_counts()
-    got = pg.geo_score_toeprints(*args)
-    assert launch_counts()["geo_score"] == 1
-    want = geo_score_toeprints_ref(*args[:2], *pg.pad_query(*args[2:]))
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
+@pytest.mark.parametrize("T", [1, 3, 4097])
+@pytest.mark.parametrize("n_live", [1, 2, 4, 8])
+def test_geo_score_kernel_bitwise_on_card(cuda, n_live, T):
+    """The kernel's bit patterns (NaN and ±inf included) equal the plain
+    version's on ``ref.adversarial_case`` (1, 2, 4, 8 live slots, a
+    zero-amp slot of overflowing area, a row with none; NaN, ±inf and huge
+    store coordinates, −0 amps; B = 3, so rows start off 16-byte
+    alignment) and on ordinary rects with ``n_live`` query rects (read
+    unpadded); and from rects, amps or query rects at an odd storage offset
+    (the scalar path)."""
+    rng = np.random.default_rng(5 + 10 * n_live + T)
+    ordinary = (np.stack([_rects(rng, T) for _ in range(3)]),
+                rng.uniform(0, 1, (3, T)).astype(np.float32),
+                np.stack([_rects(rng, n_live) for _ in range(3)]),
+                rng.uniform(0, 1, (3, n_live)).astype(np.float32))
+    for case in (pgr.adversarial_case(rng, T, n_live), ordinary):
+        args = [_t(x, cuda) for x in case]
+        reset_launch_counts()
+        got = pg.geo_score_toeprints(*args)
+        assert launch_counts()["geo_score"] == 1
+        want = geo_score_toeprints_ref(*args[:2], *pg.pad_query(*args[2:]))
+        odd = [pg.geo_score_toeprints(_at_odd_offset(args[0]), _at_odd_offset(args[1]), *args[2:]),
+               pg.geo_score_toeprints(args[0], _at_odd_offset(args[1]), *args[2:]),
+               pg.geo_score_toeprints(*args[:2], _at_odd_offset(args[2]), args[3])]
+        torch.cuda.synchronize()
+        for x in (got, *odd):
+            assert torch.equal(x.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -327,29 +351,39 @@ def test_text_probe_kernel_bitwise_on_card(cuda, dtype, layout, C, floor):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 2, 4, 8])
-def test_bitmap_kernel_bitwise_on_card(cuda, d):
-    rng = np.random.default_rng(d)
-    W = 32768 + 77
+@pytest.mark.parametrize("W", [1, 5, 32768, 32768 + 3, 32768 + 77])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8, 9])
+def test_bitmap_kernel_bitwise_on_card(cuda, d, W):
+    """anded and counts equal the plain version's and numpy's; the
+    count-only prefilter equals ``counts.sum()`` in one launch; the same
+    from a row block at an odd word offset (the kernel's scalar loads)."""
+    rng = np.random.default_rng(d * 100003 + W)
     rows = rng.integers(0, 2**32, (d, W), dtype=np.uint64).astype(np.uint32)
     rows[:, :100] = 0xFFFFFFFF
     bm = _t(rows, cuda)
-    reset_launch_counts()
-    anded, counts = pbm.bitmap_and_popcount(bm)
-    assert launch_counts()["bitmap_and_popcount"] == 1
     want = bitmap_and_popcount_ref(bm)
-    torch.cuda.synchronize()
-    assert anded.dtype == torch.uint32 and counts.dtype == torch.int32
-    assert torch.equal(anded.view(torch.int32), want[0].view(torch.int32))
-    assert torch.equal(counts, want[1])
-    np.testing.assert_array_equal(anded.cpu().numpy(), np.bitwise_and.reduce(rows, axis=0))
-    assert int(pbm.conjunction_block_prefilter(bm)) == int(want[1].sum())
+    np.testing.assert_array_equal(want[0].cpu().numpy(), np.bitwise_and.reduce(rows, axis=0))
+    for x in (bm, _at_odd_offset(bm)):
+        reset_launch_counts()
+        anded, counts = pbm.bitmap_and_popcount(x)
+        total = pbm.conjunction_block_prefilter(x)
+        assert launch_counts()["bitmap_and_popcount"] == 2
+        torch.cuda.synchronize()
+        assert anded.dtype == torch.uint32 and counts.dtype == torch.int32
+        assert torch.equal(anded.view(torch.int32), want[0].view(torch.int32))
+        assert torch.equal(counts, want[1])
+        assert total.dtype == torch.int64 and total.shape == ()
+        assert int(total) == int(want[1].sum())
+    # the running sum is zero again after each launch: repeated calls agree
+    assert [int(pbm.conjunction_block_prefilter(bm)) for _ in range(3)] == [int(want[1].sum())] * 3
 
 
 @pytest.mark.cuda
 def test_new_wrappers_reject_bad_inputs_on_card(cuda):
     """Only f32/f16 impacts reach the text_probe kernel; tensors split
-    across the CPU and the card are refused by both new wrappers."""
+    across the CPU and the card are refused by both new wrappers; the
+    bitmap wrappers refuse other dtypes, strides and empty rows or words;
+    geo_score refuses more than Q_MAX query slots."""
     rng = np.random.default_rng(0)
     text = _text_store(rng, 500, 50, None, "docid")
     cols = [x.to(cuda) for x in (text.impacts, text.blk_pos, text.blk_max_impact, text.blk_len)]
@@ -365,10 +399,20 @@ def test_new_wrappers_reject_bad_inputs_on_card(cuda):
     with pytest.raises(ValueError):
         ptp.text_probe_pruned(*cols, q[0].cpu(), q[1], 1.0, rest, **kw)
     bm = _t(np.ones((2, 64), np.uint32), cuda)
-    with pytest.raises(TypeError):
-        pbm.bitmap_and_popcount(bm.view(torch.int32))
+    for fn in (pbm.bitmap_and_popcount, pbm.conjunction_block_prefilter):
+        with pytest.raises(TypeError):
+            fn(bm.view(torch.int32))
+        with pytest.raises(ValueError):
+            fn(bm[:, ::2])
+        with pytest.raises(ValueError):
+            fn(bm[:, :0])
+        with pytest.raises(ValueError):
+            fn(bm[:0])
+    # the geo_score kernel reads at most Q_MAX query slots
+    r, a = _t(np.zeros((1, 8, 4), np.float32), cuda), _t(np.zeros((1, 8), np.float32), cuda)
     with pytest.raises(ValueError):
-        pbm.bitmap_and_popcount(bm[:, ::2])
+        pg.geo_score_toeprints(r, a, _t(np.zeros((1, 9, 4), np.float32), cuda),
+                               _t(np.ones((1, 9), np.float32), cuda))
 
 
 @pytest.mark.cuda

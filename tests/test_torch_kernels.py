@@ -21,6 +21,7 @@ from repro.kernels.sweep_score.ref import sweep_score_pruned_ref as j_pruned_ref
 from repro.kernels.sweep_score.ref import sweep_score_ref as j_sweep_ref  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.geo_score import ops as pg  # noqa: E402
+from repro_torch.kernels.geo_score import ref as pgr  # noqa: E402
 from repro_torch.kernels.sweep_score import kernel as psk  # noqa: E402
 from repro_torch.kernels.sweep_score import ops as ps  # noqa: E402
 from repro_torch.kernels.sweep_score import ref as psr  # noqa: E402
@@ -123,6 +124,28 @@ def test_geo_score_docs_matches_reference():
     jargs = [jnp.asarray(x) for x in (rects, amps, qr, qa)]
     np.testing.assert_allclose(got.numpy(), np.asarray(j_geo_docs(*jargs)), **TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(j_fp_score(*jargs)), **TOL)
+
+
+@pytest.mark.parametrize("T", [1, 3, 4097])
+@pytest.mark.parametrize("n_live", [1, 2, 4, 8])
+def test_geo_score_live_slots_bitwise_and_reference(n_live, T):
+    """The card's loop (live slots only, slot 0 alone in a row with none)
+    gives the all-slot sum's bit patterns, NaN and ±inf included; both are
+    within TOL of the reference's kernel in interpret mode, row by row."""
+    rng = np.random.default_rng(100 * n_live + T)
+    rects, amps, qr, qa = pgr.adversarial_case(rng, T, n_live)
+    args = [_t(x) for x in (rects, amps, qr, qa)]
+    assert psr.live_slots(*args[2:]).sum(dim=1).tolist() == [n_live, n_live, 0]
+    want = pg.geo_score_toeprints(*args)
+    got = pgr.geo_score_toeprints_live_ref(*args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool(torch.isnan(want[2]).any())
+    if T > 7:  # every kind of store row in every query row
+        assert bool(torch.isnan(want).any(dim=1).all())
+        assert bool(torch.isinf(want[0]).any()) == (n_live >= 2)
+    for b in range(3):
+        ref = np.asarray(j_geo(*[jnp.asarray(x[b]) for x in (rects, amps, qr, qa)]))
+        np.testing.assert_allclose(want[b].numpy(), ref, **TOL)
 
 
 def test_wrappers_reject_bad_inputs():

@@ -318,7 +318,14 @@ def test_engine_from_reference_packed_index(corpus, compress, layout):
 # bitmap_and_popcount: the plain version against the reference
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("d,W", [(1, 5), (2, 1024), (3, 1000), (8, 4099)])
+# d in {1, 3, 8, 9} (9: the card's chunk of 8 rows, then 1) × W % 4 in
+# {0, 1, 2, 3} (the card's 4-word groups and their tail)
+BITMAP_SHAPES = [(1, 5), (2, 1024), (3, 1000), (8, 4099), (9, 1)] + [
+    (d, W) for d in (1, 3, 8, 9) for W in (4096, 4097, 4098, 4099) if (d, W) != (8, 4099)
+]
+
+
+@pytest.mark.parametrize("d,W", BITMAP_SHAPES)
 def test_bitmap_plain_matches_reference(d, W):
     rng = np.random.default_rng(d * 1000 + W)
     rows = rng.integers(0, 2**32, (d, W), dtype=np.uint64).astype(np.uint32)
