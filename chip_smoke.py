@@ -94,7 +94,7 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    phase 6 and before phase 5.
 8. puts telemetry (``repro_torch.obs.Telemetry``) to work: (a) serves
    phase 6's ``serve_auto_mixture`` (without its cache, whose wall-clock
-   eviction credits could move a hit between runs) three times each
+   eviction credits could move a hit between runs) ``TEL_RUNS`` times each
    without and with a handle, alternating, and prints the queries/s ratio of the best runs
    (on/off, as the reference's serve benchmark computes it; not gated),
    again with every sink but the planner audit, and the planner's host
@@ -184,7 +184,7 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    ``prefill_32k`` and ``decode_32k`` cells (and SmolLM-135M's
    ``long_500k_sliding``) at the batch and sequence of ``LM_CUTS``, each
    cut printed with its KV arithmetic: ms per prefill or decode step (CUDA
-   events, median of 3 after a warm-up; the 131,072-token step once),
+   events, median of 3 after a warm-up; the 65,536-token step once),
    tokens/s, model FLOPs as a share of 989e12, peak memory, finite logits.
    It runs after phase 11 and before phase 5.
 13. runs the MoE LMs (``olmoe-1b-7b``, ``granite-moe-1b-a400m``: the
@@ -258,6 +258,21 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    HBM bandwidth; the traced-bytes ``roofline_fraction`` printed, not
    checked.  It launches no kernel, and runs after phase 14 and before
    phase 5.
+16. runs the serve step across processes (``make_process_mesh``,
+   ``MeshExecutor.from_index``, ``repro_torch.launch.ranks.run_ranks``):
+   (a) phase 7's stacked index of 8 region shards is saved to a temporary
+   directory outside the repository and 8 ``gloo`` ranks, all on
+   ``cuda:0``, form the (2, 4, 1) pod x data x model mesh, each keeping
+   its row; rank 0 runs phase 7's trace batches and its narrow batch
+   (``--prune --fused``, routing footprint) after a warm-up, the others
+   follow until its ``close()``; on every batch ids, scores and every
+   counter equal the one-card loop's on the same (2, 4, 1) mesh over the
+   same index, bitwise, and each rank launched ``sweep_score_pruned`` once
+   per batch (its shard), the warm-up included; per-batch ms of the
+   process mesh and of the loop, rank start-up seconds; (b) one ``nccl``
+   rank (world size 1) runs the geoweb SMOKE ``serve_ksweep`` cell on a
+   (1, 1) process mesh, bitwise equal to the one-card cell of phase 11
+   (c).  It runs after phase 7 and before phase 8.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -266,6 +281,7 @@ exits non-zero without that line — as it does when CUDA is unavailable.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -330,7 +346,9 @@ RECALL_PROBE = 64
 TWIN_QUERIES = 512
 TWIN_RATE_QPS = 6400.0
 TWIN_SERVICE_S = 1e-3
-# phase 8: the serving CLI's subprocess (corpus, index, serving, recall)
+# phase 8: (a)'s runs of each side (3 until PR 26, cut to 2 for phase 16's
+# time beside the halved LM_CUTS), and the serving CLI's subprocess
+TEL_RUNS = 2
 CLI_TIMEOUT_S = 600
 # phase 9: the recsys serving path at the published CONFIGs (one card)
 RECSYS_ARCHS = ("two-tower-retrieval", "dcn-v2", "autoint", "bst")
@@ -375,25 +393,27 @@ SPIN_CYCLES = 40_000_000  # ~20 ms at 1.98 GHz
 # (global_batch, seq_len) per (arch, shape)
 LM_ARCHS = ("smollm-135m", "qwen1.5-0.5b", "qwen2.5-14b")
 # (the MoE LMs' cells, phase 13 (b), are the last four)
+# PR 26 halved each cut for phase 16's time (the decodes' batch, keeping
+# their 32,768 keys; the prefills' length; the window step's length)
 LM_CUTS = {
-    ("smollm-135m", "prefill_32k"): (1, 8192),
-    ("smollm-135m", "decode_32k"): (64, 32768),
-    ("smollm-135m", "long_500k_sliding"): (1, 131072),
-    ("qwen1.5-0.5b", "prefill_32k"): (1, 8192),
-    ("qwen1.5-0.5b", "decode_32k"): (16, 32768),
-    ("qwen2.5-14b", "prefill_32k"): (1, 4096),
+    ("smollm-135m", "prefill_32k"): (1, 4096),
+    ("smollm-135m", "decode_32k"): (32, 32768),
+    ("smollm-135m", "long_500k_sliding"): (1, 65536),
+    ("qwen1.5-0.5b", "prefill_32k"): (1, 4096),
+    ("qwen1.5-0.5b", "decode_32k"): (8, 32768),
+    ("qwen2.5-14b", "prefill_32k"): (1, 2048),
     ("qwen2.5-14b", "decode_32k"): (1, 32768),
-    ("olmoe-1b-7b", "prefill_32k"): (1, 8192),
-    ("olmoe-1b-7b", "decode_32k"): (4, 32768),
-    ("granite-moe-1b-a400m", "prefill_32k"): (1, 8192),
-    ("granite-moe-1b-a400m", "decode_32k"): (16, 32768),
+    ("olmoe-1b-7b", "prefill_32k"): (1, 4096),
+    ("olmoe-1b-7b", "decode_32k"): (2, 32768),
+    ("granite-moe-1b-a400m", "prefill_32k"): (1, 4096),
+    ("granite-moe-1b-a400m", "decode_32k"): (8, 32768),
 }
 LM_SEED = 0
 LM_WARMUP = 1
 LM_RUNS = 3
 # long_500k_sliding: one step, no warm-up (cut from the published 524,288
 # keys, 1,024 KV chunks per layer, 14-26 s on the card, host-bound in the
-# flash loop, to 131,072: the script's time limit)
+# flash loop, to 65,536: the script's time limit)
 LM_LONG = (0, 1)
 # decode of token S after an S-token prefill vs an (S+1)-token prefill's
 # last position, at full width in bf16.  The 513-token prefill runs as one
@@ -444,6 +464,11 @@ EGNN_SEED = 0
 EGNN_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")
 EGNN_NOT_RUN = "ogb_products"
 EGNN_EQUIV_ATOL = 2e-4
+# phase 16: the serve step across processes, (2, 4, 1) pod x data x model
+# over phase 7's 8 region shards, one gloo rank each on the card
+PROC_MESH = (2, 4, 1)
+PROC_AXES = ("pod", "data", "model")
+PROC_TIMEOUT_S = 300
 # phase 15: the dry-run CLI on the single-pod mesh (one subprocess per
 # arch), and the roofline against the card at sizes earlier phases run:
 # (arch, shape, (global_batch, seq_len) cut or None)
@@ -578,7 +603,7 @@ def main() -> int:
 
 
 def run_phases(dry: dict) -> int:
-    """Phases 1 to 15 and 5 (see the module docstring)."""
+    """Phases 1 to 16 and 5 (see the module docstring)."""
     import numpy as np
 
     import torch
@@ -1190,7 +1215,12 @@ def run_phases(dry: dict) -> int:
     # ---- phase 6: the serving stack at size, before the profiler pass ----
     serve_counts = serving_phase(corpus, plain_ex.engine.index, budgets)
     # ---- phase 7: document-sharded serving, before the profiler pass ----
-    shard_counts, executors["sharded_footprint"] = sharded_phase(corpus, budgets, batches)
+    shard_counts, executors["sharded_footprint"], (mesh_ex, narrow) = sharded_phase(
+        corpus, budgets, batches)
+    # ---- phase 16: the serve step across processes, on phase 7's index --
+    proc_counts = process_mesh_phase(mesh_ex, batches + [narrow], budgets)
+    del mesh_ex
+    torch.cuda.empty_cache()
     # ---- phase 8: telemetry and the serving CLI, before the profiler pass
     tel_counts = telemetry_phase(corpus, plain_ex.engine.index, budgets,
                                  executors["sharded_footprint"][0])
@@ -1218,6 +1248,7 @@ def run_phases(dry: dict) -> int:
     torch.cuda.empty_cache()
     for row in table:
         main_counts[row["name"]] += (serve_counts[row["name"]] + shard_counts[row["name"]]
+                                     + proc_counts[row["name"]]
                                      + tel_counts[row["name"]] + rec_counts[row["name"]]
                                      + train_counts[row["name"]] + example_counts[row["name"]])
         row["launches"] = main_counts[row["name"]]
@@ -1387,13 +1418,14 @@ def serving_phase(corpus, index, budgets) -> dict[str, int]:
     return totals
 
 
-def sharded_phase(corpus, budgets, batches) -> tuple[dict[str, int], tuple]:
+def sharded_phase(corpus, budgets, batches) -> tuple[dict[str, int], tuple, tuple]:
     """Phase 7: the sharded and mesh executors over 8 region shards of the
     phase-3 corpus (see the module docstring).  Returns the kernel launches
     of the runs a user's entry points make — the footprint-routed trace,
     the one-batch kernel variants, the served trace and the mesh; the
-    broadcast and plain-twin comparisons are not counted — and the
-    sharded executor with its algorithm, for phase 5's profile."""
+    broadcast and plain-twin comparisons are not counted —, the sharded
+    executor with its algorithm, for phase 5's profile, and the mesh
+    executor with the narrow batch, for phase 16."""
     import numpy as np
     import torch
 
@@ -1610,7 +1642,194 @@ def sharded_phase(corpus, budgets, batches) -> tuple[dict[str, int], tuple]:
         f"median {1e3 * statistics.median(m_times):.2f} ms, "
         f"{len(m_times) * BATCH / sum(m_times):.1f} queries/s")
     say(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
-    return totals, (ex, ex.algorithm)
+    return totals, (ex, ex.algorithm), (mesh_ex, nb)
+
+
+def _mesh_rank(rank: int, tmp: str, budgets, device: str) -> dict:
+    """Phase 16 (a), one rank of the process mesh: the stacked index from
+    ``tmp``, cut to the rank's row by ``MeshExecutor.from_index``; rank 0
+    runs the batches (a warm-up, then each timed) and closes, the others
+    follow.  Every rank counts its own launches from after its build."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ShardedGeoIndex, make_process_mesh
+    from repro_torch.core.algorithms import QueryBatch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import MeshExecutor
+
+    torch.set_num_threads(1)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    mesh = make_process_mesh(PROC_MESH, PROC_AXES, device=None if device == "cuda" else device)
+    stacked = ShardedGeoIndex(**torch.load(Path(tmp, "index.pt"), mmap=True, weights_only=True))
+    ex = MeshExecutor.from_index(mesh, stacked, budgets=budgets, fused=True, routing="footprint")
+    del stacked
+    sync()
+    out = {"ready": time.time(), "device": str(mesh.device)}
+    reset_launch_counts()
+    if mesh.rank:
+        out["batches"] = ex.serve_forever()
+        sync()
+        out["launches"] = launch_counts()
+        return out
+    batches = [QueryBatch(*a) for a in torch.load(Path(tmp, "batches.pt"), weights_only=True)]
+    try:
+        ex.run(batches[0])  # warm-up
+        sync()
+        out["times"], out["results"] = [], []
+        for b in batches:
+            t = time.perf_counter()
+            r = ex.run(b)
+            sync()
+            out["times"].append(time.perf_counter() - t)
+            out["results"].append((r.ids.cpu().numpy(), r.scores.cpu().numpy(),
+                                   {k: np.asarray(v) for k, v in r.stats.items()}))
+    finally:
+        ex.close()
+    out["batches"] = len(batches) + 1
+    out["launches"] = launch_counts()
+    return out
+
+
+def _geoweb_rank(rank: int, device: str) -> tuple:
+    """Phase 16 (b): the geoweb SMOKE ``serve_ksweep`` cell on a (1, 1)
+    process mesh."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import make_process_mesh
+    from repro_torch.launch.steps import build_cell
+
+    mesh = make_process_mesh((1, 1), ("data", "model"), device=None if device == "cuda" else device)
+    spec = get_arch("geoweb")
+    shape = next(s for s in spec.shapes if s.name == "serve_ksweep")
+    cell = build_cell(dataclasses.replace(spec, config=spec.smoke_config), shape, mesh)
+    ids, scores, stats = cell.fn(*cell.args)
+    return (str(mesh.device), ids.cpu().numpy(), scores.cpu().numpy(),
+            {k: v.cpu().numpy() for k, v in stats.items()})
+
+
+def process_mesh_phase(mesh_ex, batches, budgets) -> dict[str, int]:
+    """Phase 16: the serve step across processes (see the module
+    docstring).  Returns the process mesh's kernel launches, summed over
+    its ranks; the one-card loop it is held to is not counted."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import make_mesh
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.serving import MeshExecutor
+
+    t_phase = time.perf_counter()
+    pr = replace(budgets, prune=True)
+    n_ranks = math.prod(PROC_MESH)
+    totals = dict.fromkeys(launch_counts(), 0)
+
+    def sync():
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+
+    # (a) the (2, 4, 1) process mesh under gloo, every rank on the card
+    idx = mesh_ex.index
+    fields = {f.name: getattr(idx, f.name) for f in dataclasses.fields(idx)}
+    index_mib = sum(v.nbytes for v in fields.values() if isinstance(v, torch.Tensor)) / 2**20
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ranks-")
+    try:
+        t = time.perf_counter()
+        torch.save({k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in fields.items()},
+                   Path(tmp, "index.pt"))
+        torch.save([(b.terms.cpu(), b.rects.cpu(), b.amps.cpu()) for b in batches],
+                   Path(tmp, "batches.pt"))
+        save_s = time.perf_counter() - t
+        t0, t = time.time(), time.perf_counter()
+        outs = run_ranks(_mesh_rank, n_ranks, args=(tmp, pr, DEVICE), backend="gloo",
+                         timeout_s=PROC_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    start_s = [o["ready"] - t0 for o in outs]
+    say(f"phase 16 (a): {n_ranks} gloo ranks on {sorted({o['device'] for o in outs})}, mesh "
+        f"{dict(zip(PROC_AXES, PROC_MESH))}: the stacked index ({index_mib:.1f} MiB) "
+        f"saved in {save_s:.1f} s; rank start-up (spawn, group, index row on the card) "
+        f"{min(start_s):.1f}-{max(start_s):.1f} s; the ranks' whole run {ranks_s:.1f} s")
+    per_rank = [o["launches"] for o in outs]
+    for r, (o, counts) in enumerate(zip(outs, per_rank)):
+        check(o["batches"] == len(batches) + 1, f"phase 16 (a): rank {r} ran {o['batches']} batches")
+        for k, n in counts.items():
+            want = len(batches) + 1 if k == "sweep_score_pruned" else 0
+            check(n == want, f"phase 16 (a): rank {r} launched {k} {n} times, expected {want}")
+            totals[k] += n
+    loop = MeshExecutor.from_index(make_mesh(PROC_MESH, PROC_AXES, device=DEVICE), idx,
+                                   budgets=pr, fused=True, routing="footprint")
+    loop.run(batches[0])  # warm-up
+    sync()
+    reset_launch_counts()
+    loop_times, visited = [], []
+    for i, (b, (ids, scores, stats)) in enumerate(zip(batches, outs[0]["results"])):
+        t = time.perf_counter()
+        want = loop.run(b)
+        sync()
+        loop_times.append(time.perf_counter() - t)
+        w_ids, w_scores = want.ids.cpu().numpy(), want.scores.cpu().numpy()
+        check(ids.dtype == w_ids.dtype and np.array_equal(ids, w_ids),
+              f"phase 16 (a) batch {i}: ids differ from the one-card loop's")
+        check(scores.tobytes() == w_scores.tobytes(),
+              f"phase 16 (a) batch {i}: scores differ from the one-card loop's (bitwise)")
+        check(list(stats) == list(want.stats), f"phase 16 (a) batch {i}: stats keys differ")
+        for k, v in want.stats.items():
+            check(stats[k].dtype == v.dtype and stats[k].tobytes() == v.tobytes(),
+                  f"phase 16 (a) batch {i}: stats[{k}] differs from the one-card loop's")
+        visited.append(float(stats["shards_visited"][0]))
+    loop_counts = launch_counts()
+    check(loop_counts["sweep_score_pruned"] == n_ranks * len(batches),
+          f"phase 16 (a): the loop launched {loop_counts}")
+    p_ms = [1e3 * x for x in outs[0]["times"]]
+    l_ms = [1e3 * x for x in loop_times]
+    say(f"phase 16 (a): process mesh == the one-card loop on the same mesh, bitwise in ids, "
+        f"scores and every counter, on {len(batches)} batches of {BATCH} (the trace's "
+        f"{len(batches) - 1} and phase 7's narrow one: shards visited {visited}); "
+        f"sweep_score_pruned launched {totals['sweep_score_pruned']} times over the ranks "
+        f"({[c['sweep_score_pruned'] for c in per_rank]}: one per shard per batch, the warm-up "
+        f"included), the loop {loop_counts['sweep_score_pruned']}")
+    say("phase 16 (a): per-batch ms, process mesh vs loop: " + json.dumps({
+        "process_ms": p_ms, "loop_ms": l_ms,
+        "process_median_ms": statistics.median(p_ms), "loop_median_ms": statistics.median(l_ms),
+        "startup_s": max(start_s)}))
+    del loop
+
+    # (b) NCCL at world size 1: the geoweb SMOKE serve_ksweep cell
+    t = time.perf_counter()
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    dev, ids, scores, stats = run_ranks(_geoweb_rank, 1, args=(DEVICE,), backend=backend,
+                                        timeout_s=PROC_TIMEOUT_S)[0]
+    nccl_s = time.perf_counter() - t
+    spec = get_arch("geoweb")
+    shape = next(s for s in spec.shapes if s.name == "serve_ksweep")
+    cell = build_cell(dataclasses.replace(spec, config=spec.smoke_config), shape,
+                      make_mesh((1, 1), ("data", "model"), device=DEVICE))
+    w_ids, w_scores, w_stats = cell.fn(*cell.args)
+    check(np.array_equal(ids, w_ids.cpu().numpy()), "phase 16 (b): geoweb ids differ")
+    check(scores.tobytes() == w_scores.cpu().numpy().tobytes(), "phase 16 (b): geoweb scores differ")
+    check(list(stats) == list(w_stats), "phase 16 (b): geoweb stats keys differ")
+    for k, v in w_stats.items():
+        check(stats[k].tobytes() == v.cpu().numpy().tobytes(), f"phase 16 (b): stats[{k}] differs")
+    check(int((ids >= 0).sum()) > 0, "phase 16 (b): no hits")
+    say(f"phase 16 (b): {backend} at world size 1 on {dev}: geoweb serve_ksweep (SMOKE, (1, 1) "
+        f"process mesh) == the one-card cell (phase 11 (c)'s) bitwise in ids, scores and every "
+        f"counter; {int((ids >= 0).sum())} hits; {nccl_s:.1f} s with the rank's start-up")
+    say(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return totals
 
 
 def telemetry_phase(corpus, index, budgets, sharded) -> dict[str, int]:
@@ -1686,7 +1905,7 @@ def telemetry_phase(corpus, index, budgets, sharded) -> dict[str, int]:
             check(h.same_or_adjacent_bucket(h.quantile(p), rep.percentile_ms(p)),
                   f"{what}: latency p{p} histogram {h.quantile(p)} vs {rep.percentile_ms(p)}")
 
-    # (a) serve_auto_mixture without and with a handle, best of 3 each.
+    # (a) serve_auto_mixture without and with a handle, best of TEL_RUNS each.
     # Without a cache, as the reference's serve benchmark pairs them: the
     # Landlord cache's credits are wall-clock service costs, so which entry
     # it evicts, and so a later hit, can move between two runs whatever the
@@ -1699,7 +1918,7 @@ def telemetry_phase(corpus, index, budgets, sharded) -> dict[str, int]:
     # (the plans themselves are made in the warm-up's shape prediction)
     no_audit_ex = SingleDeviceExecutor(GeoSearchEngine.from_index(index, pr), "auto", fused=True)
     runs = {"off": [], "on": [], "no_audit": []}
-    for _ in range(3):
+    for _ in range(TEL_RUNS):
         runs["off"].append((serve(off_ex, mixture, None, cache=False), None))
         tel = Telemetry()
         runs["on"].append((serve(on_ex, mixture, tel, cache=False), tel))

@@ -9,7 +9,7 @@ Modules (each the counterpart of ``repro/core/<name>.py``):
   algorithms     TEXT-FIRST, GEO-FIRST, K-SWEEP (batched) + exact oracle
   planner        QueryPlan, cost model and the per-query Planner
   engine         GeoSearchEngine facade
-  distributed    partitioners, coverage routing, ShardedGeoIndex, the mesh step
+  distributed    partitioners, coverage routing, ShardedGeoIndex, the meshes and their step
   convert        the reference's index arrays → the port's GeoIndex
 """
 from repro_torch.core.algorithms import (
@@ -26,12 +26,15 @@ from repro_torch.core.distributed import (
     Mesh,
     MortonPartitioner,
     Partitioner,
+    ProcessMesh,
     RegionRangePartitioner,
     ShardedGeoIndex,
     make_mesh,
+    make_process_mesh,
     make_serve_fn,
     resolve_partitioner,
     shard_corpus_np,
+    shard_rows,
 )
 from repro_torch.core.engine import GeoIndex, GeoSearchEngine
 from repro_torch.core.planner import COST_KEYS, CostModel, Planner, QueryFeatures, QueryPlan
@@ -43,5 +46,5 @@ __all__ = [
     "QueryPlan", "RankWeights", "COST_KEYS", "CostModel", "Planner", "QueryFeatures",
     "COVERAGE_GRID", "Partitioner", "HashPartitioner", "MortonPartitioner",
     "RegionRangePartitioner", "resolve_partitioner", "ShardedGeoIndex", "shard_corpus_np",
-    "Mesh", "make_mesh", "make_serve_fn",
+    "shard_rows", "Mesh", "ProcessMesh", "make_mesh", "make_process_mesh", "make_serve_fn",
 ]

@@ -10,15 +10,26 @@ doc axes (``("pod", "data")``); the query batch is split over the
    shards' lists shard-major, keep the top k (lower position on ties).
 
 The reference runs this as one ``shard_map`` over a device mesh with
-``all_gather`` and ``psum`` collectives.  Here the mesh is a description
-(:class:`Mesh`: axis names and sizes, on one device) and a loop over the
-shards and query slices takes the collectives' place: shard ``s`` is the
-view ``field[s]`` of each stacked tensor of :class:`ShardedGeoIndex`
-(contiguous, so the kernels read it in place), the all-gathers become a
-stack and the psums a sum in shard order.  The reference's
-``sharded_index_specs`` (a table of ``PartitionSpec``s saying "every
-field's leading dimension goes over the doc axes") has no counterpart:
-:class:`Mesh` and the rules table
+``all_gather`` and ``psum`` collectives.  The port has two meshes:
+
+* :class:`Mesh` (:func:`make_mesh`) describes the axes on one device, and
+  a loop over the shards and query slices takes the collectives' place:
+  shard ``s`` is the view ``field[s]`` of each stacked tensor of
+  :class:`ShardedGeoIndex` (contiguous, so the kernels read it in place),
+  the all-gathers become a stack and the psums a sum in shard order.
+* :class:`ProcessMesh` (:func:`make_process_mesh`) puts one rank of a
+  ``torch.distributed`` process group on each mesh position, in row-major
+  rank order as ``jax.sharding.Mesh`` lays out its devices.  Each rank
+  holds its own row of the stacked index (:func:`shard_rows`) and runs its
+  (shard, query slice); one world all-gather brings every rank's lists,
+  touch flags and raw counters to every rank, which then applies the
+  loop's own merge and shard-order sums.  So ids, scores and every counter
+  are bitwise the loop's; an ``all_reduce`` would add in the backend's
+  order instead.
+
+The reference's ``sharded_index_specs`` (a table of ``PartitionSpec``s
+saying "every field's leading dimension goes over the doc axes") has no
+counterpart: the meshes and the rules table
 (:data:`repro_torch.sharding.specs.DEFAULT_RULES`, read by
 :func:`mesh_axes`) carry that meaning.
 
@@ -44,7 +55,9 @@ and the serve step masks it: results bit-identical to broadcasting.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+import os
 from dataclasses import dataclass
 from functools import cached_property, partial
 
@@ -478,17 +491,36 @@ def shard_corpus_np(
     )
 
 
+def shard_rows(
+    idx: ShardedGeoIndex, s: int, device: "str | torch.device | None" = None
+) -> ShardedGeoIndex:
+    """Shard ``s`` of a stacked index as a 1-shard index on ``device``
+    (default: the index's): every field's row ``s`` copied, the padded
+    shapes and the statics (``max_term_blocks``, ``grid``, …) kept, so the
+    row's results are bitwise those of the view ``field[s]``.  A copy, so
+    the stacked tensors can be freed.  A process mesh's rank holds this."""
+    if not 0 <= s < idx.n_shards:
+        raise IndexError(f"shard {s} of an index of {idx.n_shards} shards")
+    dev = idx.device if device is None else resolve_device(device)
+    return dataclasses.replace(
+        idx, **{f: getattr(idx, f)[s:s + 1].to(dev, copy=True) for f in ARRAY_FIELDS}
+    )
+
+
 # ---------------------------------------------------------------------------
-# The mesh and the serve step
+# The meshes and the serve step
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class Mesh:
-    """A logical mesh on one device: named axes and their sizes.
+    """Named mesh axes and their sizes.
 
     The doc axes (the rules' ``"docs"``, :func:`mesh_axes`) multiply to
     the shard count, and the query axis (``"queries"``) to the number of
-    query slices; every shard and slice runs on ``device``.
+    query slices.  A plain :class:`Mesh` is one device: every shard and
+    slice runs on ``device``, the serve step a loop over them (on
+    ``"meta"`` it is the dry-run's abstract mesh).  Its subclass
+    :class:`ProcessMesh` has one process per mesh position.
     """
 
     axis_names: tuple[str, ...]
@@ -505,6 +537,74 @@ class Mesh:
         return math.prod(self.axis_sizes)
 
 
+@dataclass(frozen=True)
+class ProcessMesh(Mesh):
+    """A mesh whose positions are the ranks of the default
+    ``torch.distributed`` process group, in row-major rank order (as
+    ``jax.sharding.Mesh`` lays out its devices); ``device`` is this rank's.
+    Every rank builds the same mesh and calls the same collectives in the
+    same order."""
+
+    rank: int = 0
+    backend: str = "gloo"
+
+    def coords_of(self, rank: int) -> dict[str, int]:
+        """A rank's coordinate on each axis."""
+        return dict(zip(self.axis_names, (int(c) for c in np.unravel_index(rank, self.axis_sizes))))
+
+    def shard_of(self, doc_axes: tuple[str, ...], rank: int | None = None) -> int:
+        """The doc shard a rank holds: its doc coordinates, row-major in
+        ``doc_axes`` order (the leading dimension's ``P(doc_axes)``)."""
+        c = self.coords_of(self.rank if rank is None else rank)
+        return int(np.ravel_multi_index(
+            tuple(c[a] for a in doc_axes), tuple(self.shape[a] for a in doc_axes)))
+
+    def all_gather(self, tensors: list[torch.Tensor]) -> list[list[torch.Tensor]]:
+        """Every rank's ``tensors``, in rank order, on this rank's device:
+        one world ``all_gather`` of their bytes.  Every rank passes tensors
+        of the same shapes and dtypes.  Under ``gloo`` the bytes are staged
+        through host memory here, explicitly: gloo's transport moves host
+        buffers (given CUDA tensors, torch 2.11's gloo copies them through
+        the host itself, checked on an H100), so the copy is named here
+        and the same for every version."""
+        import torch.distributed as dist
+
+        flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in tensors])
+        if self.backend == "gloo":
+            flat = flat.cpu()
+        out = [torch.empty_like(flat) for _ in range(self.size)]
+        dist.all_gather(out, flat)
+        gathered = []
+        for buf in out:
+            buf, off, parts = buf.to(self.device), 0, []
+            for t in tensors:
+                n = t.numel() * t.element_size()
+                # a fresh tensor per part, so its dtype view is aligned
+                parts.append(buf[off:off + n].clone().view(t.dtype).reshape(t.shape))
+                off += n
+            gathered.append(parts)
+        return gathered
+
+    def broadcast_object(self, obj=None):
+        """Rank 0's ``obj`` on every rank (pickled; sent by rank 0 of this
+        program only)."""
+        import torch.distributed as dist
+
+        box = [obj]
+        dev = self.device if self.backend == "nccl" else torch.device("cpu")
+        dist.broadcast_object_list(box, src=0, device=dev)
+        return box[0]
+
+
+def _check_axes(shape: tuple[int, ...], axis_names: tuple[str, ...]):
+    sizes, names = tuple(int(n) for n in shape), tuple(axis_names)
+    if len(sizes) != len(names):
+        raise ValueError(f"mesh shape {sizes} does not match axis names {names}")
+    if len(set(names)) != len(names) or any(n < 1 for n in sizes):
+        raise ValueError(f"mesh axes must be distinct and of size >= 1: {names}, {sizes}")
+    return sizes, names
+
+
 def make_mesh(
     shape: tuple[int, ...],
     axis_names: tuple[str, ...],
@@ -514,12 +614,46 @@ def make_mesh(
     (default CUDA; raises without it).  On ``"meta"`` it is an abstract
     mesh that holds no data: the dry-run's production meshes
     (:mod:`repro_torch.launch.mesh`)."""
-    sizes, names = tuple(int(n) for n in shape), tuple(axis_names)
-    if len(sizes) != len(names):
-        raise ValueError(f"mesh shape {sizes} does not match axis names {names}")
-    if len(set(names)) != len(names) or any(n < 1 for n in sizes):
-        raise ValueError(f"mesh axes must be distinct and of size >= 1: {names}, {sizes}")
+    sizes, names = _check_axes(shape, axis_names)
     return Mesh(names, sizes, resolve_device(device))
+
+
+def make_process_mesh(
+    shape: tuple[int, ...],
+    axis_names: tuple[str, ...],
+    device: "str | torch.device | None" = None,
+) -> ProcessMesh:
+    """A :class:`ProcessMesh` of ``shape`` over ``axis_names`` on the
+    default process group, which must be initialised
+    (``torch.distributed.init_process_group``) with ``prod(shape)`` ranks.
+
+    Rank ``r`` runs on ``cuda:{local_rank % device_count}`` (``LOCAL_RANK``
+    from the environment, else the rank; raises without CUDA) unless
+    ``device`` is given; ``"cpu"`` runs the kernels' plain versions, as the
+    tests do.  On a host with one card every rank shares ``cuda:0``.
+    """
+    import torch.distributed as dist
+
+    sizes, names = _check_axes(shape, axis_names)
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "make_process_mesh needs an initialised default process group: call "
+            "torch.distributed.init_process_group first (or launch the ranks with "
+            "repro_torch.launch.ranks.run_ranks)"
+        )
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != math.prod(sizes):
+        raise ValueError(
+            f"the process group has {world} ranks, the mesh {dict(zip(names, sizes))} "
+            f"needs {math.prod(sizes)}"
+        )
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            local = int(os.environ.get("LOCAL_RANK", rank))
+            dev = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return ProcessMesh(names, sizes, dev, rank=rank, backend=dist.get_backend())
 
 
 def mesh_axes(mesh: Mesh) -> tuple[tuple[str, ...], str]:
@@ -572,6 +706,11 @@ def make_serve_fn(
     counters (each shard's, summed over the doc axes).  The grid, term
     count, block size and text statics are read from the index.
 
+    On a :class:`Mesh` the index is the whole stacked index and one loop
+    runs every (shard, query slice).  On a :class:`ProcessMesh` it is this
+    rank's row (:func:`shard_rows`); every rank calls ``serve`` with the
+    same batch and gets the whole result.
+
     ``fused`` runs K-SWEEP (pruned under ``budgets.prune``) and pruned
     TEXT-FIRST through their kernels on every shard.  ``with_routing``
     masks each (query, shard) pair the query's footprints do not reach:
@@ -586,6 +725,7 @@ def make_serve_fn(
         if a not in mesh.axis_names:
             raise ValueError(f"mesh {mesh.axis_names} has no axis {a!r}")
     doc_sizes = tuple(mesh.shape[a] for a in doc_axes)
+    n_shards = math.prod(doc_sizes)
     n_slices = mesh.shape[query_axis]
 
     def merge(ids: torch.Tensor, scores: torch.Tensor):
@@ -603,19 +743,21 @@ def make_serve_fn(
             ids = torch.gather(ids, -1, sel)
         return ids, scores
 
-    def step(idx: ShardedGeoIndex, query: alg.QueryBatch):
-        """One query slice over every shard."""
-        ids, scores, raw = [], [], []
-        for local, gid_map in idx.shards:
-            res = fn(local.text, local.spatial, local.pagerank, query, budgets, weights)
-            valid = res.ids >= 0
-            safe = torch.clamp(res.ids, 0, gid_map.shape[0] - 1).long()
-            ids.append(torch.where(valid, gid_map[safe], -1))
-            scores.append(torch.where(valid, res.scores, -torch.inf))
-            raw.append(res.stats)
-        ids, scores = torch.stack(ids), torch.stack(scores)
+    def shard_step(local: GeoIndex, gid_map: torch.Tensor, query: alg.QueryBatch):
+        """One shard on one query slice: global ids and scores (−1, −inf
+        where empty) and the shard's raw counters."""
+        res = fn(local.text, local.spatial, local.pagerank, query, budgets, weights)
+        valid = res.ids >= 0
+        safe = torch.clamp(res.ids, 0, gid_map.shape[0] - 1).long()
+        ids = torch.where(valid, gid_map[safe], -1)
+        return ids, torch.where(valid, res.scores, -torch.inf), res.stats
+
+    def combine(ids: torch.Tensor, scores: torch.Tensor, raw: list[dict], touch):
+        """The collectives over the doc axes for one query slice: the
+        shards' lists ``[S, b, k]`` and counters in shard order, and (under
+        routing) their touch flags ``bool[S, b]`` → the merged lists and
+        the counters summed in shard order."""
         if with_routing:
-            touch = shard_touch(idx.coverage_sat, idx.coverage_grid, query.rects, query.amps)
             ids = torch.where(touch[..., None], ids, -1)
             scores = torch.where(touch[..., None], scores, -torch.inf)
         ids, scores = merge(ids, scores)
@@ -635,30 +777,75 @@ def make_serve_fn(
             stats["shards_visited"] = _sum_rows(touch.any(dim=1).to(torch.float32))[None]
         return ids, scores, stats
 
-    def serve(idx: ShardedGeoIndex, query: alg.QueryBatch):
-        if idx.n_shards != math.prod(doc_sizes):
-            raise ValueError(
-                f"index has {idx.n_shards} shards, the mesh's doc axes {doc_axes} "
-                f"hold {math.prod(doc_sizes)}"
-            )
-        query = query.to(idx.device)
+    def loop_step(idx: ShardedGeoIndex, query: alg.QueryBatch):
+        """One query slice over every shard of the stacked index."""
+        outs = [shard_step(local, gid_map, query) for local, gid_map in idx.shards]
+        touch = (shard_touch(idx.coverage_sat, idx.coverage_grid, query.rects, query.amps)
+                 if with_routing else None)
+        return combine(torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]),
+                       [o[2] for o in outs], touch)
+
+    def split(query: alg.QueryBatch) -> list[alg.QueryBatch]:
         B = query.batch
         if B % n_slices:
             raise ValueError(f"batch of {B} does not split over {n_slices} query slices")
         b = B // n_slices
-        outs = [
-            step(idx, alg.QueryBatch(query.terms[i * b:(i + 1) * b],
-                                     query.rects[i * b:(i + 1) * b],
-                                     query.amps[i * b:(i + 1) * b]))
-            for i in range(n_slices)
-        ]
+        return [alg.QueryBatch(query.terms[i * b:(i + 1) * b], query.rects[i * b:(i + 1) * b],
+                               query.amps[i * b:(i + 1) * b]) for i in range(n_slices)]
+
+    def join(outs):
         ids = torch.cat([o[0] for o in outs])
         scores = torch.cat([o[1] for o in outs])
         # keys in sorted order, as the reference's step returns its dict
         stats = {key: torch.cat([o[2][key] for o in outs]) for key in sorted(outs[0][2])}
         return ids, scores, stats
 
-    return serve
+    def serve(idx: ShardedGeoIndex, query: alg.QueryBatch):
+        if idx.n_shards != n_shards:
+            raise ValueError(
+                f"index has {idx.n_shards} shards, the mesh's doc axes {doc_axes} "
+                f"hold {n_shards}"
+            )
+        return join([loop_step(idx, q) for q in split(query.to(idx.device))])
+
+    if not isinstance(mesh, ProcessMesh):
+        return serve
+
+    # the rank holding (shard s, slice m): the first in rank order, so a
+    # mesh axis outside the doc and query axes holds replicas
+    owner: dict[tuple[int, int], int] = {}
+    for r in range(mesh.size):
+        owner.setdefault((mesh.shard_of(doc_axes, r), mesh.coords_of(r)[query_axis]), r)
+    my_shard, my_slice = mesh.shard_of(doc_axes), mesh.coords_of(mesh.rank)[query_axis]
+
+    def process_serve(idx: ShardedGeoIndex, query: alg.QueryBatch):
+        if idx.n_shards != 1:
+            raise ValueError(
+                f"a process mesh's step takes this rank's row of the stacked index "
+                f"(shard_rows(index, {my_shard})), got an index of {idx.n_shards} shards"
+            )
+        q = split(query.to(idx.device))[my_slice]
+        local, gid_map = idx.shards[0]
+        ids, scores, raw = shard_step(local, gid_map, q)
+        keys = list(raw)
+        mine = [ids, scores, *(raw[key] for key in keys)]
+        if with_routing:
+            mine.append(shard_touch(idx.coverage_sat, idx.coverage_grid, q.rects, q.amps)[0])
+        # the doc axes' all_gathers and psums, as one world all_gather; the
+        # reference gathers intra-pod, then inter-pod, which saves bandwidth
+        # only across several cards and gives the same lists
+        every = mesh.all_gather(mine)
+        outs = []
+        for m in range(n_slices):
+            rows = [every[owner[(s, m)]] for s in range(n_shards)]
+            outs.append(combine(
+                torch.stack([r[0] for r in rows]), torch.stack([r[1] for r in rows]),
+                [dict(zip(keys, r[2:2 + len(keys)])) for r in rows],
+                torch.stack([r[-1] for r in rows]) if with_routing else None,
+            ))
+        return join(outs)
+
+    return process_serve
 
 
 def _sum_rows(x: torch.Tensor) -> torch.Tensor:

@@ -640,16 +640,26 @@ def geoweb_index_specs(cfg, mesh):
 
 def build_geoweb_cell(spec: ArchSpec, shape: ShapeSpec, mesh, seed: int = 0,
                       device=None) -> Cell:
-    """The geoweb serve cell on ``mesh`` (:func:`repro_torch.core.make_mesh`):
-    ``fn(index, query) -> (ids, scores, stats)``, the mesh serve step with
-    the shape's algorithm over a stacked index of ``make_corpus(n_docs,
-    n_terms, max_rects=doc_major_rects, doc_len=avg_postings_per_doc,
-    seed)`` hash-partitioned over the mesh's doc axes (under
-    ``normalize_compress(cfg.compress)``), and a query batch of
-    ``query_batch`` × ``d_terms`` × ``q_rects`` from ``make_query_trace``.
-    The int32 guard runs first.  On a ``meta`` mesh (or ``device``) the
-    cell is shapes-only: :func:`geoweb_index_specs`."""
-    from repro_torch.core.distributed import make_serve_fn, mesh_axes, shard_corpus_np
+    """The geoweb serve cell on ``mesh`` (:func:`repro_torch.core.make_mesh`
+    or, on every rank of a process group,
+    :func:`repro_torch.core.make_process_mesh`): ``fn(index, query) -> (ids,
+    scores, stats)``, the mesh serve step with the shape's algorithm over a
+    stacked index of ``make_corpus(n_docs, n_terms,
+    max_rects=doc_major_rects, doc_len=avg_postings_per_doc, seed)``
+    hash-partitioned over the mesh's doc axes (under
+    ``normalize_compress(cfg.compress)``; on a process mesh stacked on the
+    host and cut to the rank's row), and a query batch of ``query_batch`` ×
+    ``d_terms`` × ``q_rects`` from ``make_query_trace``.  The int32 guard
+    runs first: ``CONFIG`` needs >= 8 doc shards, and its 2^26 docs fit one
+    card in no case.  On a ``meta`` mesh (or ``device``) the cell is
+    shapes-only: :func:`geoweb_index_specs`."""
+    from repro_torch.core.distributed import (
+        ProcessMesh,
+        make_serve_fn,
+        mesh_axes,
+        shard_corpus_np,
+        shard_rows,
+    )
     from repro_torch.core.spatial_index import normalize_compress
     from repro_torch.corpus import make_corpus, make_query_trace
 
@@ -669,13 +679,16 @@ def build_geoweb_cell(spec: ArchSpec, shape: ShapeSpec, mesh, seed: int = 0,
         return Cell(spec.name, shape.name, serve, geoweb_index_specs(cfg, mesh),
                     model_flops=mf, note="shapes only: the serve step syncs to the host")
     check_geoweb_shards(cfg, S)
+    procs = isinstance(mesh, ProcessMesh)
     corpus = make_corpus(cfg.n_docs, cfg.n_terms, max_rects=cfg.doc_major_rects,
                          doc_len=cfg.avg_postings_per_doc, seed=seed)
     idx = shard_corpus_np(
         corpus.doc_terms, corpus.doc_rects, corpus.doc_amps, corpus.pagerank,
         corpus.n_terms, S, grid=cfg.grid, m_intervals=cfg.m_intervals,
-        compress=normalize_compress(cfg.compress), device=mesh.device,
+        compress=normalize_compress(cfg.compress), device="cpu" if procs else mesh.device,
     )
+    if procs:
+        idx = shard_rows(idx, mesh.shard_of(doc_axes), mesh.device)
     query = make_query_trace(corpus, n_queries=cfg.query_batch, d_terms=cfg.d_terms,
                              q_rects=cfg.q_rects, seed=seed + 1).to(mesh.device)
     return Cell(spec.name, shape.name, serve, (idx, query), model_flops=mf)

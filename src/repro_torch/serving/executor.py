@@ -13,7 +13,9 @@ The executor is the serving layer's view of the engine: it takes a padded
   ties to the lower global doc id, counters summed in float64).
 * :class:`MeshExecutor` runs :func:`~repro_torch.core.distributed.make_serve_fn`'s
   step over a stacked :class:`~repro_torch.core.distributed.ShardedGeoIndex`,
-  its counters summed over the doc axes inside the step.
+  its counters summed over the doc axes inside the step: a loop over the
+  shards on one device, or one rank per mesh position on a
+  :class:`~repro_torch.core.distributed.ProcessMesh` (rank 0 drives).
 
 Footprint routing (``routing="footprint"``): each shard's coverage SAT
 decides which shards a batch reaches; the sharded executor skips the rest
@@ -43,6 +45,7 @@ shard span ends after its host pull, so it covers its shard's device work.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import replace
 
 import numpy as np
@@ -54,6 +57,7 @@ from repro_torch.core.distributed import (
     Mesh,
     MortonPartitioner,
     Partitioner,
+    ProcessMesh,
     ShardedGeoIndex,
     _require_partitioner,
     _valid_rects_np,
@@ -62,6 +66,7 @@ from repro_torch.core.distributed import (
     mesh_axes,
     shard_corpus_np,
     shard_coverage_sat_np,
+    shard_rows,
 )
 from repro_torch.core.engine import GeoSearchEngine
 from repro_torch.core.planner import CostModel, Planner, QueryPlan
@@ -333,13 +338,20 @@ class ShardedExecutor:
 
 class MeshExecutor:
     """The mesh twin of :class:`ShardedExecutor`: the same doc-wise
-    partitioning, stacked into one :class:`ShardedGeoIndex` on the mesh's
-    device, and one serve step per plan
-    (:func:`~repro_torch.core.distributed.make_serve_fn`).  The doc and
-    query axes come from :func:`~repro_torch.core.distributed.mesh_axes`.
-    Each shard's per-query counters are summed over the doc axes inside the
-    step.  Steps are made lazily per plan: the fixed-algorithm step at
-    construction, one per distinct plan under ``algorithm="auto"``.
+    partitioning, stacked into one :class:`ShardedGeoIndex`, and one serve
+    step per plan (:func:`~repro_torch.core.distributed.make_serve_fn`).
+    The doc and query axes come from
+    :func:`~repro_torch.core.distributed.mesh_axes`.  Each shard's
+    per-query counters are summed over the doc axes inside the step.  Steps
+    are made lazily per plan: the fixed-algorithm step at construction, one
+    per distinct plan under ``algorithm="auto"``.
+
+    On a :class:`~repro_torch.core.distributed.ProcessMesh` every rank
+    builds the executor and holds its own row of the index.  Rank 0 drives:
+    :meth:`run` broadcasts the plan and the batch, every rank runs the step,
+    and rank 0 returns the merged result (a :class:`GeoServer` runs there
+    only).  The other ranks follow in :meth:`serve_forever` until rank 0's
+    :meth:`close`.
     """
 
     def __init__(
@@ -355,6 +367,7 @@ class MeshExecutor:
         query_axis: str = "model",
         fused: bool = False,
         routing: str = "broadcast",
+        planner: Planner | None = None,
     ):
         self.mesh = mesh
         self._index = sharded_index
@@ -369,8 +382,14 @@ class MeshExecutor:
         # plan (None: the construction-time configuration) → serve step
         self._serve_fns: dict = {None: serve_fn}
         self.telemetry = None
-        self.planner: Planner | None = None
-        if algorithm == "auto":
+        self._closed = False
+        self.planner = planner
+        if algorithm == "auto" and planner is None:
+            if isinstance(mesh, ProcessMesh):
+                raise ValueError(
+                    "algorithm='auto' on a process mesh needs the planner of the whole "
+                    "stacked index: build with MeshExecutor.from_index"
+                )
             self.planner = Planner(
                 model=CostModel.from_sharded_index(sharded_index, self.budgets),
                 candidates=Planner.make_candidates(self.budgets, fused=fused),
@@ -395,22 +414,50 @@ class MeshExecutor:
         layout: str = "docid",
         **kw,
     ) -> "MeshExecutor":
-        """Shard the corpus over the mesh's doc axes onto ``mesh.device``.
-        As in the reference, the sweep budget is clamped to the *stacked*
-        store's length."""
+        """Shard the corpus over the mesh's doc axes: stacked on
+        ``mesh.device``, or on a process mesh stacked on the host and cut to
+        the rank's row (:meth:`from_index`)."""
         _reject_partition_kwarg(kw)
         if kw:
             raise TypeError(f"unexpected keyword arguments: {sorted(kw)}")
-        budgets = budgets or alg.QueryBudgets()
         partitioner = _require_partitioner(partitioner, default=MortonPartitioner)
-        doc_axes, query_axis = mesh_axes(mesh)
-        n_shards = 1
-        for a in doc_axes:
-            n_shards *= mesh.shape[a]
+        doc_axes, _ = mesh_axes(mesh)
         sharded = shard_corpus_np(
-            doc_terms, doc_rects, doc_amps, pagerank, n_terms, n_shards, partitioner,
-            grid=grid, compress=compress, layout=layout, device=mesh.device,
+            doc_terms, doc_rects, doc_amps, pagerank, n_terms,
+            math.prod(mesh.shape[a] for a in doc_axes), partitioner, grid=grid,
+            compress=compress, layout=layout,
+            device="cpu" if isinstance(mesh, ProcessMesh) else mesh.device,
         )
+        return MeshExecutor.from_index(
+            mesh, sharded, budgets=budgets, weights=weights, algorithm=algorithm,
+            fused=fused, routing=routing,
+        )
+
+    @staticmethod
+    def from_index(
+        mesh: Mesh,
+        sharded: ShardedGeoIndex,
+        budgets: alg.QueryBudgets | None = None,
+        weights: ranking.RankWeights | None = None,
+        algorithm: str = "k_sweep",
+        fused: bool = False,
+        routing: str = "broadcast",
+    ) -> "MeshExecutor":
+        """The executor over a stacked index of the mesh's doc shards.  As
+        in the reference, the sweep budget is clamped to the *stacked*
+        store's length; under ``auto`` the planner's cost model reads every
+        shard.  Both read the whole index, so plans and budgets equal the
+        one-card executor's; on a process mesh the rank then keeps only its
+        row (:func:`~repro_torch.core.distributed.shard_rows`), on its
+        device."""
+        budgets = budgets or alg.QueryBudgets()
+        doc_axes, query_axis = mesh_axes(mesh)
+        n_shards = math.prod(mesh.shape[a] for a in doc_axes)
+        if sharded.n_shards != n_shards:
+            raise ValueError(
+                f"index has {sharded.n_shards} shards, the mesh's doc axes {doc_axes} "
+                f"hold {n_shards}"
+            )
         budgets = replace(
             budgets, sweep_budget=min(budgets.sweep_budget, sharded.tp_rects.shape[1])
         )
@@ -420,18 +467,28 @@ class MeshExecutor:
             algorithm="k_sweep" if algorithm == "auto" else algorithm, fused=fused,
             with_routing=routing == "footprint",
         )
+        planner = None
+        if algorithm == "auto":
+            planner = Planner(
+                model=CostModel.from_sharded_index(sharded, budgets),
+                candidates=Planner.make_candidates(budgets, fused=fused),
+            )
+        if isinstance(mesh, ProcessMesh):
+            sharded = shard_rows(sharded, mesh.shard_of(doc_axes), mesh.device)
         return MeshExecutor(
             mesh, serve, sharded, budgets.top_k, budgets=budgets, algorithm=algorithm,
             weights=weights, doc_axes=doc_axes, query_axis=query_axis, fused=fused,
-            routing=routing,
+            routing=routing, planner=planner,
         )
 
     @property
     def n_shards(self) -> int:
-        return self._index.n_shards
+        """The mesh's doc shards (on a process mesh this rank holds one)."""
+        return math.prod(self.mesh.shape[a] for a in self.doc_axes)
 
     @property
     def index(self) -> ShardedGeoIndex:
+        """The stacked index (on a process mesh: this rank's row)."""
         return self._index
 
     def attach_telemetry(self, telemetry) -> None:
@@ -451,9 +508,9 @@ class MeshExecutor:
             return self._serve_fns[plan]
         if self.telemetry and self.telemetry.metrics is not None:
             self.telemetry.metrics.inc("engine.compiled_fns_total")
-        idx = self._index
         budgets = replace(
-            plan.budgets, sweep_budget=min(plan.budgets.sweep_budget, idx.tp_rects.shape[1])
+            plan.budgets,
+            sweep_budget=min(plan.budgets.sweep_budget, self._index.tp_rects.shape[1]),
         )
         serve = make_serve_fn(
             self.mesh, budgets, self.weights, doc_axes=self.doc_axes,
@@ -463,13 +520,32 @@ class MeshExecutor:
         self._serve_fns[plan] = serve
         return serve
 
+    def _follower(self) -> bool:
+        return isinstance(self.mesh, ProcessMesh) and self.mesh.rank != 0
+
     def run(
         self, batch: alg.QueryBatch, plan: QueryPlan | None = None
     ) -> alg.TopKResult:
-        """ids and scores on the mesh's device; the counters as host numpy."""
+        """ids and scores on the mesh's device; the counters as host numpy.
+        On a process mesh: rank 0 only, while the others serve_forever."""
+        if isinstance(self.mesh, ProcessMesh):
+            if self._follower():
+                raise RuntimeError(
+                    "on a process mesh rank 0 runs the batches; the other ranks call "
+                    "serve_forever()"
+                )
+            if self._closed:
+                raise RuntimeError("the process mesh's executor is closed")
+            n_slices = self.mesh.shape[self.query_axis]
+            if batch.batch % n_slices:  # raised here, before the ranks wait on a step
+                raise ValueError(
+                    f"batch of {batch.batch} does not split over {n_slices} query slices")
         serve = self._serve_for(plan)
         tracer = self.telemetry.tracer if self.telemetry else None
         t0 = tracer.wall_now() if tracer is not None else 0.0
+        if isinstance(self.mesh, ProcessMesh):
+            self.mesh.broadcast_object(
+                ("run", plan, tuple(to_numpy(x) for x in (batch.terms, batch.rects, batch.amps))))
         ids, scores, stats = serve(self._index, batch)
         if tracer is not None:
             label = plan.label if plan is not None else self.algorithm
@@ -478,3 +554,26 @@ class MeshExecutor:
                 args={"batch": int(batch.terms.shape[0])},
             )
         return alg.TopKResult(ids=ids, scores=scores, stats={k: to_numpy(v) for k, v in stats.items()})
+
+    def serve_forever(self) -> int:
+        """Every rank but 0 of a process mesh: run the step on each batch
+        rank 0 broadcasts, until its :meth:`close`.  Returns the number of
+        batches run."""
+        if not self._follower():
+            raise RuntimeError("serve_forever runs on the ranks other than 0 of a process mesh")
+        n = 0
+        while True:
+            msg = self.mesh.broadcast_object()
+            if msg[0] == "stop":
+                self._closed = True
+                return n
+            _, plan, arrays = msg
+            self._serve_for(plan)(self._index, alg.QueryBatch(*map(torch.from_numpy, arrays)))
+            n += 1
+
+    def close(self) -> None:
+        """On rank 0 of a process mesh: end the other ranks'
+        :meth:`serve_forever` (once).  Nothing elsewhere."""
+        if isinstance(self.mesh, ProcessMesh) and not self._follower() and not self._closed:
+            self._closed = True
+            self.mesh.broadcast_object(("stop",))

@@ -8,6 +8,8 @@
     ex = make_executor("sharded", corpus, n_shards=8,
                        partitioner=RegionRangePartitioner(), routing="footprint")
     ex = make_executor("mesh", corpus, mesh=make_mesh((8, 1), ("data", "model")))
+    # on every rank of an initialised process group of 8 (one per position)
+    ex = make_executor("mesh", corpus, mesh=make_process_mesh((8, 1), ("data", "model")))
 
 The corpus argument is duck-typed: anything with ``doc_terms``,
 ``doc_rects``, ``doc_amps``, ``pagerank`` and ``n_terms`` attributes
@@ -57,9 +59,14 @@ def make_executor(
       not apply and raise ``ValueError`` if set.
     * ``kind="sharded"``: host scatter-gather over ``n_shards`` per-shard
       engines, split by ``partitioner`` (default Morton).
-    * ``kind="mesh"``: the serve step over ``mesh`` (required; see
-      :func:`repro_torch.core.distributed.make_mesh`), on the mesh's
-      device; the shard count comes from the mesh's doc axes.
+    * ``kind="mesh"``: the serve step over ``mesh`` (required), on the
+      mesh's device; the shard count comes from the mesh's doc axes.  A
+      :func:`~repro_torch.core.distributed.make_mesh` mesh loops over the
+      shards on one device; a
+      :func:`~repro_torch.core.distributed.make_process_mesh` mesh has one
+      process per position: call ``make_executor`` on every rank, run
+      batches (a ``GeoServer``) on rank 0, ``serve_forever()`` on the
+      others and ``close()`` on rank 0 at the end.
 
     ``algorithm`` is ``"k_sweep"``, ``"text_first"``, ``"geo_first"`` or
     ``"auto"`` (the cost-based planner picks one per query).  ``fused`` runs
@@ -128,10 +135,10 @@ def make_executor(
         if device is not None and resolve_device(device) != mesh.device:
             raise ValueError(
                 f"kind='mesh' runs on its mesh's device ({mesh.device}), not {device}: "
-                "pass device= to make_mesh"
+                "pass device= to make_mesh or make_process_mesh"
             )
         executor = MeshExecutor.build(
-        corpus.doc_terms, corpus.doc_rects, corpus.doc_amps, corpus.n_terms,
+            corpus.doc_terms, corpus.doc_rects, corpus.doc_amps, corpus.n_terms,
             pagerank=corpus.pagerank, mesh=mesh, partitioner=partitioner, grid=grid,
             budgets=budgets, weights=weights, algorithm=algorithm, fused=fused,
             routing=routing, compress=compress, layout=layout,

@@ -48,4 +48,4 @@ def psum_compressed(grads, error_buf, axis_names):
     """The int8 all-reduce of the reference's ``shard_map`` step."""
     raise NotImplementedError(
         "psum_compressed needs a collective across cards: it waits for the mesh across "
-        "cards (ROADMAP Queue 1 item 5)")
+        "cards (ROADMAP Queue 1 item 6b)")

@@ -272,7 +272,7 @@ def test_compress_tree_bitwise():
         assert len(g) == len(w)
         for a, b in zip(g, w):
             assert a.numpy().tobytes() == np.asarray(b).tobytes()
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         p_comp.psum_compressed(_t(grads), _t(err), ("data",))
 
 
