@@ -110,7 +110,7 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    span per visited shard per batch (warm-up batches visit all 8), and as
    many ``executor.shards_touched`` observations as routed queries; (c)
    runs the CLI as users start it, ``python -m repro_torch.launch.serve
-   --n-docs 1048576 --trace zipf --algorithm auto --prune --fused
+   --n-docs 262144 --trace zipf --algorithm auto --prune --fused
    --arrival poisson --rate-qps 200 --coalesce`` with the four export
    flags, in a subprocess: it exits 0, prints its report and recall@10,
    writes four non-empty files whose trace ``python -m
@@ -229,7 +229,7 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    edges/s, model FLOPs as a share of 989e12, peak memory, a finite loss,
    and the bytes autograd saves per edge and per node of a layer; (c)
    ``ogb_products`` printed as not run, with that count scaled to its
-   61,859,140 edges against the card's memory; (d) ``python -m
+   61,859,140 edges against the card's memory (it needs several cards); (d) ``python -m
    repro_torch.launch.train --arch egnn`` with and without
    ``--simulate-failure 5`` as subprocesses (equal loss lines).  It
    launches no kernel, and runs after phase 13 and before phase 5, which
@@ -273,6 +273,32 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    rank (world size 1) runs the geoweb SMOKE ``serve_ksweep`` cell on a
    (1, 1) process mesh, bitwise equal to the one-card cell of phase 11
    (c).  It runs after phase 7 and before phase 8.
+17. runs the train-side collectives across processes
+   (``repro_torch.core.collectives``, the data-parallel
+   ``make_train_step``, ZeRO-1's ``adamw_update``, ``psum_compressed``,
+   EGNN's ``make_sharded_loss``): one ``run_ranks`` call of 4 ``gloo``
+   ranks, all on ``cuda:0``, on the (4, 1) data x model process mesh:
+   (a) SmolLM-135M ``train_4k`` at published widths, global batch 4 x
+   4,096 (one sequence per rank; the published batch is 256), remat full,
+   ``TRAIN_OPT`` (ZeRO-1), 2 steps: params (SHA-256 of their bytes), loss
+   and grad_norm after each step bitwise equal on every rank and to the
+   one-process ``microbatches=4`` step on the card; each rank's ms per
+   step, its gradient gather and ordered sums timed alone, moment bytes per
+   rank against one process's (the leaves left whole named), peak per
+   rank; then ``psum_compressed`` of each rank's step-1 gradients the same
+   bits on every rank, within 5 % of the exact mean and bitwise equal to
+   rank 0's plain recomputation from the gathered gradients; (b) EGNN
+   ``full_graph_sm`` at ``CONFIG`` (3,072 nodes and 10,752 edges, 768 and
+   2,688 a rank): loss and accuracy of ``make_sharded_loss`` bitwise the
+   one-process loop's on the same mesh shape on the card, gradients within
+   ``GRAD_TOL`` (bitwise or not, printed), the loss within 2^-5 of
+   ``loss_fn``'s; then 2 train steps of the ``gnn_full`` cell with ZeRO-1
+   (ms per step); (c) one ``nccl`` rank on a (1, 1) process mesh: the
+   data-parallel step (SmolLM-135M SMOKE) and the sharded loss (EGNN SMOKE)
+   bitwise equal to the one-card step and loop.  The card's name and
+   power limit are printed beside its times.  It launches no kernel, and
+   runs after phase 15 and before phase 5.  No run on several cards is
+   possible on one card's host.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -350,6 +376,8 @@ TWIN_SERVICE_S = 1e-3
 # time beside the halved LM_CUTS), and the serving CLI's subprocess
 TEL_RUNS = 2
 CLI_TIMEOUT_S = 600
+# phase 8 (c)'s CLI: 2^18 docs (N_DOCS until PR 27, cut for phase 17's time)
+CLI_N_DOCS = 1 << 18
 # phase 9: the recsys serving path at the published CONFIGs (one card)
 RECSYS_ARCHS = ("two-tower-retrieval", "dcn-v2", "autoint", "bst")
 RECSYS_SEED = 0
@@ -459,7 +487,7 @@ LM_STEP_TOL = dict(rtol=1e-4, atol=TRAIN_SMOKE_OPT["lr"])
 # phase 14: EGNN.  (a) the SMOKE graphs of tests/test_arch_smoke.py, seed
 # 0 weights; (b) the published CONFIG at the shapes that fit one card,
 # LM_WARMUP + LM_RUNS steps each; (c) ogb_products (2,449,029 nodes,
-# 61,859,140 edges) waits for make_sharded_loss over several cards
+# 61,859,140 edges) needs several cards (its saved activations exceed one card)
 EGNN_SEED = 0
 EGNN_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")
 EGNN_NOT_RUN = "ogb_products"
@@ -469,6 +497,20 @@ EGNN_EQUIV_ATOL = 2e-4
 PROC_MESH = (2, 4, 1)
 PROC_AXES = ("pod", "data", "model")
 PROC_TIMEOUT_S = 300
+# phase 17: the train-side collectives across processes: 4 gloo ranks on
+# the card on the (4, 1) data x model mesh for (a) SmolLM-135M train_4k at
+# a global batch of 4 x 4,096 (one sequence per rank; published 256 x
+# 4,096) and (b) EGNN full_graph_sm at CONFIG; (c) one nccl rank
+TRAIN_MESH = (4, 1)
+TRAIN_AXES = ("data", "model")
+TRAIN_DP_ARCH = "smollm-135m"
+TRAIN_DP_CUT = (4, 4096)
+TRAIN_DP_STEPS = 2
+TRAIN_GNN_STEPS = 2
+TRAIN_TIMEOUT_S = 600
+COMPRESS_REL = 0.05  # tests/test_distributed.py's bound on the int8 mean
+GNN_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)  # tests/test_torch_egnn.py's GRAD_TOL
+GNN_BF16_REL = 2.0**-5  # tests/test_torch_egnn.py's BF16_REL: the loss against loss_fn
 # phase 15: the dry-run CLI on the single-pod mesh (one subprocess per
 # arch), and the roofline against the card at sizes earlier phases run:
 # (arch, shape, (global_batch, seq_len) cut or None)
@@ -603,7 +645,7 @@ def main() -> int:
 
 
 def run_phases(dry: dict) -> int:
-    """Phases 1 to 16 and 5 (see the module docstring)."""
+    """Phases 1 to 17 and 5 (see the module docstring)."""
     import numpy as np
 
     import torch
@@ -1245,6 +1287,9 @@ def run_phases(dry: dict) -> int:
     torch.cuda.empty_cache()
     # ---- phase 15: the dry-run and roofline tooling ----------------------
     roofline_phase(dry)
+    torch.cuda.empty_cache()
+    # ---- phase 17: the train-side collectives across processes -----------
+    train_collectives_phase()
     torch.cuda.empty_cache()
     for row in table:
         main_counts[row["name"]] += (serve_counts[row["name"]] + shard_counts[row["name"]]
@@ -2006,7 +2051,7 @@ def telemetry_phase(corpus, index, budgets, sharded) -> dict[str, int]:
     with tempfile.TemporaryDirectory() as d:
         exports = {"--trace-out": "T.json", "--metrics-out": "M.prom",
                    "--audit-out": "A.jsonl", "--events-out": "E.jsonl"}
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--n-docs", str(N_DOCS),
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--n-docs", str(CLI_N_DOCS),
                "--trace", "zipf", "--algorithm", "auto", "--prune", "--fused",
                "--arrival", "poisson", "--rate-qps", "200", "--coalesce",
                *[x for kv in exports.items() for x in kv]]
@@ -2697,8 +2742,9 @@ def moe_train_phase() -> None:
         if name not in LM_TRAIN_ARCHS:
             say(f"phase 13 (c): {name} train_4k not run: its train state (f32 params, grads, m "
                 f"and v: 16 B x {cfg.n_params():,} parameters) is {state_bytes / 1e9:.1f} GB "
-                f"of the card's {card_bytes / 1e9:.2f} GB; it needs ZeRO-1 across cards "
-                "(ROADMAP Queue 1 item 6)")
+                f"of the card's {card_bytes / 1e9:.2f} GB; ZeRO-1 (phase 17) splits the "
+                "moments over the data ranks, but ranks sharing this one card share its "
+                "memory: it needs several cards")
             continue
         cut = dataclasses.replace(shape, params={**shape.params, "global_batch": B,
                                                  "seq_len": S})
@@ -3169,8 +3215,8 @@ def egnn_phase() -> None:
         f"(2 H + 1) x 2 B of m_in + six [E, {H}] bf16 tensors = {estimate} B per edge), so "
         f"{e_b * E / 1e9:.1f} GB per layer of edges and {saved / 1e9:.1f} GB for "
         f"{cfg.n_layers} layers, beside {inputs / 1e9:.2f} GB of inputs, against the card's "
-        f"{card_bytes / 1e9:.2f} GB: it waits for make_sharded_loss over several cards "
-        "(ROADMAP Queue 1 item 6)")
+        f"{card_bytes / 1e9:.2f} GB: make_sharded_loss (phase 17) splits them over the "
+        "ranks, but ranks sharing this one card still hold them all: it needs several cards")
     check(saved > card_bytes, f"(c) {EGNN_NOT_RUN}: {saved / 1e9:.1f} GB would fit the card")
 
     # (d) the train CLI as users start it, in subprocesses
@@ -3284,6 +3330,377 @@ def dryrun_cli_phase(dry: dict) -> None:
     say(f"phase 15 (a): python -m repro_torch.launch.dryrun --mesh single: {len(dry['procs'])} "
         f"processes exit 0, {n_rows} rows, no error row; they ended {dry['wall_s']:.1f} s after "
         f"their start before phase 1, the set-up waited {dry['waited_s']:.1f} s for them")
+
+
+def _digest(tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order (bitwise equality of trees
+    across processes without moving them)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _lm_train_cut(spec):
+    """SmolLM-135M's ``train_4k`` at ``TRAIN_DP_CUT`` (phase 17 (a))."""
+    import dataclasses
+
+    shape = spec.shape("train_4k")
+    B, S = TRAIN_DP_CUT
+    return dataclasses.replace(shape, params={**shape.params, "global_batch": B, "seq_len": S})
+
+
+def _timed(fn, device: str):
+    """``fn()`` and its host ms, the device synchronised before and after."""
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _train_rank(rank: int, device: str) -> dict:
+    """Phase 17 (a) and (b), one rank of the (4, 1) process mesh."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import collectives as col
+    from repro_torch.core import make_process_mesh
+    from repro_torch.launch import steps
+    from repro_torch.models import egnn
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding.specs import use_sharding
+    from repro_torch.train.compression import psum_compressed
+    from repro_torch.train.loop import batch_axes, value_and_grad
+    from repro_torch.train.optimizer import zero1_blocks
+    from repro_torch.train.tree import flatten_with_paths, leaves, tree_map
+
+    torch.set_num_threads(1)
+    mesh = make_process_mesh(TRAIN_MESH, TRAIN_AXES, device=None if device == "cuda" else device)
+    out = {"device": str(mesh.device), "ready": time.time()}
+    cuda = device == "cuda"
+
+    # (a) SmolLM-135M train_4k, data-parallel with ZeRO-1
+    spec = get_arch(TRAIN_DP_ARCH)
+    cfg = spec.config
+    cell = steps.build_lm_cell(spec, _lm_train_cut(spec), seed=LM_SEED, mesh=mesh)
+    params, opt, batch = cell.args
+    axes = batch_axes(mesh)
+    shard = mesh.group(axes, mesh.rank).index(mesh.rank)
+    rows = tree_map(lambda x: x.narrow(0, shard * (x.shape[0] // 4), x.shape[0] // 4), batch)
+    # this rank's gradients of step 1, before the sum: psum_compressed's input
+    _, _, local = value_and_grad(lambda p, b: tf.loss_fn(cfg, p, b), params, rows)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ms, runs = [], []
+    for _ in range(TRAIN_DP_STEPS):
+        (params, opt, m), t = _timed(lambda: cell.fn(params, opt, batch), device)
+        ms.append(t)
+        runs.append((_digest(leaves(params)), m["loss"].cpu().numpy().tobytes(),
+                     m["grad_norm"].cpu().numpy().tobytes(), float(m["loss"]),
+                     float(m["grad_norm"])))
+    out["lm_peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+    # the step's gradient reduction alone: its gather, then the ordered sums
+    # (rank 0 keeps the gathered gradients for psum_compressed's check)
+    every, out["gather_ms"] = _timed(lambda: mesh.gather_axes(leaves(local), axes), device)
+    _, out["sum_ms"] = _timed(lambda: [col.ordered_sum([m[j] for m in every])
+                                       for j in range(len(every[0]))], device)
+    ms_tree = steps.moment_shardings(cfg.param_defs(), mesh)
+    blocks = zero1_blocks(steps.TRAIN_OPT, params, ms_tree)
+    out.update(lm_ms=ms, lm_runs=runs,
+               moment_bytes=sum(x.nbytes for x in leaves(opt["m"]) + leaves(opt["v"])),
+               whole=[p for (p, _), b in zip(flatten_with_paths(params), blocks) if b is None],
+               gather_bytes=sum(x.nbytes for x in leaves(local)))
+    # psum_compressed over the step-1 gradients, error buffer zero
+    with use_sharding(mesh):
+        (mean, err), out["compress_ms"] = _timed(lambda: psum_compressed(
+            local, tree_map(torch.zeros_like, local), ("data",)), device)
+    out["compress_digest"] = _digest(leaves(mean))  # the error buffer stays local
+    if mesh.rank == 0:  # the batch axes are psum_compressed's: ("data",)
+        out["compress_check"] = _compress_check(leaves(mean), every)
+    del every, mean, err, local, cell, params, opt, batch, rows
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) EGNN full_graph_sm at CONFIG: the sharded loss, then the cell's steps
+    spec = get_arch("egnn")
+    shape = spec.shape("full_graph_sm")
+    gcfg = steps.gnn_cell_config(spec, shape)
+    graph = steps.gnn_batch(gcfg, shape, mesh.device, EGNN_SEED)
+    gparams = gcfg.init(EGNN_SEED, mesh.device)
+    gaxes = egnn.sharded_axes(mesh)
+    grows = egnn.graph_rows(graph, col.group_size(mesh, gaxes),
+                            mesh.group(gaxes, mesh.rank).index(mesh.rank))
+    (loss, metrics, grads), out["gnn_loss_ms"] = _timed(
+        lambda: value_and_grad(egnn.make_sharded_loss(gcfg, mesh), gparams, grows), device)
+    out["gnn"] = (loss.cpu().numpy().tobytes(), metrics["acc"].cpu().numpy().tobytes(),
+                  [g.cpu().numpy() for g in leaves(grads)], float(loss), float(metrics["acc"]))
+    out["gnn_rows"] = (grows["feats"].shape[0], grows["senders"].shape[0])
+    cell = steps.build_gnn_cell(spec, shape, seed=EGNN_SEED, batch=graph, mesh=mesh)
+    gms, gruns = [], []
+    for _ in range(TRAIN_GNN_STEPS):
+        (_, _, m), t = _timed(lambda: cell.fn(*cell.args), device)
+        gms.append(t)
+        gruns.append((float(m["loss"]), float(m["grad_norm"])))
+    out.update(gnn_ms=gms, gnn_runs=gruns,
+               gnn_digest=_digest(leaves(cell.args[0])))
+    return out
+
+
+def _compress_check(mean: list, group: list) -> dict:
+    """Rank 0 of phase 17 (a): ``psum_compressed``'s mean against the exact
+    mean of the gathered gradients (relative error, the reference test's
+    measure) and against its plain recomputation from them (bitwise): each
+    member's leaf quantized on its absmax scale, re-quantized on the
+    group's largest, summed in int32, times the scale over the count."""
+    import torch
+
+    from repro_torch.core.collectives import ordered_sum
+
+    n = len(group)
+    err = top = 0.0
+    same = True
+    for j, got in enumerate(mean):
+        gs = [m[j].float() for m in group]
+        scales = [torch.clamp_min(g.abs().max(), 1e-12) / 127.0 for g in gs]
+        qs = [torch.clamp(torch.round(g / s), -127, 127).to(torch.int8) for g, s in zip(gs, scales)]
+        s_max = torch.stack(scales).max()
+        q8 = [torch.clamp(torch.round(q.float() * s / s_max), -127, 127).to(torch.int8)
+              for q, s in zip(qs, scales)]
+        plain = ordered_sum([q.to(torch.int32) for q in q8]).float() * s_max / n
+        same = same and plain.dtype == got.dtype and bool(
+            torch.equal(plain.view(torch.int32), got.view(torch.int32)))
+        exact = ordered_sum(gs) / n
+        err = max(err, float((got - exact).abs().max()))
+        top = max(top, float(exact.abs().max()))
+    return {"rel_err": err / (top + 1e-9), "plain_bitwise": same, "leaves": len(mean)}
+
+
+def _nccl_rank(rank: int, device: str) -> dict:
+    """Phase 17 (c): the data-parallel step (SmolLM-135M SMOKE) and the
+    sharded loss (EGNN SMOKE, the full graph) on a (1, 1) process mesh."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import make_process_mesh
+    from repro_torch.launch import steps
+    from repro_torch.models import egnn
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.tree import leaves
+
+    mesh = make_process_mesh((1, 1), ("data", "model"), device=None if device == "cuda" else device)
+    spec = get_arch(TRAIN_DP_ARCH)
+    spec = dataclasses.replace(spec, config=spec.smoke_config)
+    cell = steps.build_lm_cell(spec, _smoke_train_cut(spec), seed=LM_SEED, mesh=mesh)
+    runs = []
+    for _ in range(TRAIN_DP_STEPS):
+        _, _, m = cell.fn(*cell.args)
+        runs.append((_digest(leaves(cell.args[0])), m["loss"].cpu().numpy().tobytes(),
+                     m["grad_norm"].cpu().numpy().tobytes()))
+    cfg, batch = egnn_smoke("full", mesh.device)
+    loss, metrics, grads = value_and_grad(egnn.make_sharded_loss(cfg, mesh),
+                                          cfg.init(EGNN_SEED, mesh.device), batch)
+    return {"device": str(mesh.device), "backend": mesh.backend, "lm": runs,
+            "gnn": (loss.cpu().numpy().tobytes(), metrics["acc"].cpu().numpy().tobytes(),
+                    _digest(leaves(grads)))}
+
+
+def _smoke_train_cut(spec):
+    """A SMOKE LM's ``train_4k`` at ``LM_SMOKE_BATCH`` (phase 17 (c))."""
+    import dataclasses
+
+    shape = spec.shape("train_4k")
+    B, S = LM_SMOKE_BATCH
+    return dataclasses.replace(shape, params={**shape.params, "global_batch": B, "seq_len": S})
+
+
+def train_collectives_phase() -> None:
+    """Phase 17: the train-side collectives across processes (see the
+    module docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import make_mesh
+    from repro_torch.launch import steps
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import egnn
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.loop import make_train_step, value_and_grad
+    from repro_torch.train.tree import leaves
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    n = math.prod(TRAIN_MESH)
+    B, S = TRAIN_DP_CUT
+    spec = get_arch(TRAIN_DP_ARCH)
+    B0, S0 = (spec.shape("train_4k").params[k] for k in ("global_batch", "seq_len"))
+    say(f"phase 17: {card_line()}")
+
+    # (a) + (b): one run_ranks call of 4 gloo ranks on the card
+    t0, t = time.time(), time.perf_counter()
+    outs = run_ranks(_train_rank, n, args=(DEVICE,), backend="gloo", timeout_s=TRAIN_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t
+    start_s = [o["ready"] - t0 for o in outs]
+    say(f"phase 17: {n} gloo ranks on {sorted({o['device'] for o in outs})}, mesh "
+        f"{dict(zip(TRAIN_AXES, TRAIN_MESH))}: rank start-up {min(start_s):.1f}-"
+        f"{max(start_s):.1f} s; the ranks' whole run {ranks_s:.1f} s")
+
+    # (a) against the one-process microbatches=4 step on the card
+    cell = steps.build_lm_cell(spec, _lm_train_cut(spec), dev, LM_SEED)
+    params, opt, batch = cell.args
+    step = make_train_step(lambda p, b: tf.loss_fn(spec.config, p, b), steps.TRAIN_OPT,
+                           microbatches=n)
+    # a warm-up, as the ranks' own gradients warm them: the first row's
+    # value and gradients, which leave the state as it is
+    value_and_grad(lambda p, b: tf.loss_fn(spec.config, p, b), params,
+                   {k: v[:1] for k, v in batch.items()})
+    want, one_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_DP_STEPS):
+        (params, opt, m), t = _timed(lambda: step(params, opt, batch), DEVICE)
+        one_ms.append(t)
+        want.append((_digest(leaves(params)), m["loss"].cpu().numpy().tobytes(),
+                     m["grad_norm"].cpu().numpy().tobytes()))
+    one_peak = torch.cuda.max_memory_allocated()
+    dense_bytes = sum(x.nbytes for x in leaves(opt["m"]) + leaves(opt["v"]))
+    whole_bytes = 2 * sum(p.nbytes for p, path in zip(leaves(params), _paths(params))
+                          if path in outs[0]["whole"])
+    del cell, params, opt, batch, step
+    torch.cuda.empty_cache()
+    for r, o in enumerate(outs):
+        for i, (got, w) in enumerate(zip(o["lm_runs"], want)):
+            check(got[:3] == w, f"phase 17 (a): rank {r} step {i}: params, loss or grad_norm "
+                                f"differ from the one-process microbatches={n} step")
+        check(o["moment_bytes"] == (dense_bytes - whole_bytes) // n + whole_bytes,
+              f"phase 17 (a): rank {r} holds {o['moment_bytes']} moment bytes")
+        check(o["compress_digest"] == outs[0]["compress_digest"],
+              f"phase 17 (a): rank {r}'s psum_compressed differs from rank 0's")
+    cc = outs[0]["compress_check"]
+    check(cc["plain_bitwise"], "phase 17 (a): psum_compressed differs from its plain "
+                               "recomputation from the gathered gradients")
+    check(cc["rel_err"] < COMPRESS_REL, f"phase 17 (a): psum_compressed relative error "
+                                        f"{cc['rel_err']:.4g} >= {COMPRESS_REL}")
+    lm = {
+        "per_rank_ms_per_step": [statistics.median(o["lm_ms"]) for o in outs],
+        "per_rank_runs_ms": [o["lm_ms"] for o in outs],
+        "one_process_ms_per_step": statistics.median(one_ms), "one_process_runs_ms": one_ms,
+        "gather_ms": [o["gather_ms"] for o in outs], "sum_ms": [o["sum_ms"] for o in outs],
+        "gather_bytes_per_rank": outs[0]["gather_bytes"],
+        "moment_bytes_per_rank": outs[0]["moment_bytes"], "one_process_moment_bytes": dense_bytes,
+        "whole_leaves": outs[0]["whole"], "peak_gib_per_rank": [o["lm_peak"] / 2**30 for o in outs],
+        "one_process_peak_gib": one_peak / 2**30,
+        "losses": [r[3] for r in outs[0]["lm_runs"]],
+        "grad_norms": [r[4] for r in outs[0]["lm_runs"]],
+        "compress_ms": [o["compress_ms"] for o in outs], "compress_rel_err": cc["rel_err"]}
+    say(f"phase 17 (a): {TRAIN_DP_ARCH} train_4k at published widths, global batch {B} x {S} "
+        f"(published {B0} x {S0}: cut to one sequence per rank), remat {spec.config.remat}, "
+        f"TRAIN_OPT (ZeRO-1), {TRAIN_DP_STEPS} steps: params, loss and grad_norm after each "
+        f"step bitwise equal on the {n} ranks and to the one-process microbatches={n} step "
+        f"on the card; ms per step (host clock, synchronised) per rank "
+        f"{[round(x, 3) for x in lm['per_rank_ms_per_step']]} against the one-process "
+        f"{lm['one_process_ms_per_step']:.3f}; the gradient gather "
+        f"({lm['gather_bytes_per_rank'] / 1e6:.1f} MB a rank, through the host) "
+        f"{[round(x, 3) for x in lm['gather_ms']]} ms and its ordered sums "
+        f"{[round(x, 3) for x in lm['sum_ms']]} ms; moments {lm['moment_bytes_per_rank']:,} B "
+        f"a rank against {dense_bytes:,} in one process "
+        f"({lm['moment_bytes_per_rank'] / dense_bytes:.4f}; whole: {lm['whole_leaves']}); "
+        f"peak {[round(x, 2) for x in lm['peak_gib_per_rank']]} GiB a rank (one process "
+        f"{lm['one_process_peak_gib']:.2f}); psum_compressed over the step-1 gradients the "
+        f"same bits on every rank, rank 0: relative error {cc['rel_err']:.4g} against the "
+        f"exact mean (< {COMPRESS_REL}), bitwise its plain recomputation over "
+        f"{cc['leaves']} leaves; {card_line()}")
+    say("phase 17 (a): " + json.dumps(lm))
+
+    # (b) against the one-process loop on the same mesh shape on the card
+    gspec = get_arch("egnn")
+    shape = gspec.shape("full_graph_sm")
+    gcfg = steps.gnn_cell_config(gspec, shape)
+    graph = steps.gnn_batch(gcfg, shape, dev, EGNN_SEED)
+    gparams = gcfg.init(EGNN_SEED, dev)
+    loop = make_mesh(TRAIN_MESH, TRAIN_AXES, device=dev)
+    (loss, metrics, grads), loop_ms = _timed(
+        lambda: value_and_grad(egnn.make_sharded_loss(gcfg, loop), gparams, graph), DEVICE)
+    w_loss, w_acc = loss.cpu().numpy().tobytes(), metrics["acc"].cpu().numpy().tobytes()
+    w_grads = [g.cpu().numpy() for g in leaves(grads)]
+    plain = float(egnn.loss_fn(gcfg, gparams, graph)[0])
+    bitwise_grads = True
+    for r, o in enumerate(outs):
+        g_loss, g_acc, g_grads = o["gnn"][:3]
+        check(g_loss == w_loss and g_acc == w_acc,
+              f"phase 17 (b): rank {r}'s loss or accuracy differs from the loop's (bitwise)")
+        for a, b in zip(g_grads, w_grads):
+            bitwise_grads = bitwise_grads and a.tobytes() == b.tobytes()
+            check(np.allclose(a, b, **GNN_GRAD_TOL), f"phase 17 (b): rank {r}'s gradients "
+                                                     f"beyond GRAD_TOL of the loop's")
+    sharded = outs[0]["gnn"][3]
+    check(abs(sharded - plain) <= GNN_BF16_REL * abs(plain),
+          f"phase 17 (b): sharded loss {sharded} vs loss_fn {plain}")
+    digests = {o["gnn_digest"] for o in outs}
+    check(len(digests) == 1, "phase 17 (b): the ranks' params differ after the steps")
+    gnn = {"nodes": graph["feats"].shape[0], "edges": graph["senders"].shape[0],
+           "rows_per_rank": list(outs[0]["gnn_rows"]), "loss": sharded, "loss_fn": plain,
+           "acc": outs[0]["gnn"][4], "grads_bitwise": bitwise_grads,
+           "loss_ms_per_rank": [o["gnn_loss_ms"] for o in outs], "loop_loss_ms": loop_ms,
+           "step_ms_per_rank": [o["gnn_ms"] for o in outs],
+           "step_losses": [r[0] for r in outs[0]["gnn_runs"]],
+           "step_grad_norms": [r[1] for r in outs[0]["gnn_runs"]]}
+    say(f"phase 17 (b): egnn full_graph_sm at CONFIG ({gcfg.n_layers} layers, d_hidden "
+        f"{gcfg.d_hidden}, {str(gcfg.compute_dtype).replace('torch.', '')} compute): {gnn['nodes']:,} nodes and {gnn['edges']:,} edges "
+        f"({gnn['rows_per_rank'][0]} and {gnn['rows_per_rank'][1]} a rank): make_sharded_loss "
+        f"on {n} ranks == the one-process loop on the (4, 1) mesh on the card bitwise in loss "
+        f"and accuracy, gradients {'bitwise' if bitwise_grads else 'within GRAD_TOL'}; loss "
+        f"{sharded:.6f} against loss_fn's {plain:.6f} (within {GNN_BF16_REL:g}); value and "
+        f"gradients ms per rank {[round(x, 3) for x in gnn['loss_ms_per_rank']]}, the loop "
+        f"{loop_ms:.3f}; {TRAIN_GNN_STEPS} train steps with ZeRO-1, ms per rank "
+        f"{[[round(x, 3) for x in o['gnn_ms']] for o in outs]} (the first builds the "
+        f"plans); params equal on every rank; {card_line()}")
+    say("phase 17 (b): " + json.dumps(gnn))
+    del graph, gparams, grads, loss, metrics
+    torch.cuda.empty_cache()
+
+    # (c) NCCL at world size 1, against the one-card step and loop
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    (got,), nccl_ms = _timed(lambda: run_ranks(_nccl_rank, 1, args=(DEVICE,), backend=backend,
+                                               timeout_s=TRAIN_TIMEOUT_S), DEVICE)
+    sspec = get_arch(TRAIN_DP_ARCH)
+    sspec = dataclasses.replace(sspec, config=sspec.smoke_config)
+    cell = steps.build_lm_cell(sspec, _smoke_train_cut(sspec), dev, LM_SEED)
+    runs = []
+    for _ in range(TRAIN_DP_STEPS):
+        _, _, m = cell.fn(*cell.args)
+        runs.append((_digest(leaves(cell.args[0])), m["loss"].cpu().numpy().tobytes(),
+                     m["grad_norm"].cpu().numpy().tobytes()))
+    check(got["lm"] == runs, "phase 17 (c): the (1, 1) process mesh's data-parallel step "
+                             "differs from the one-card step")
+    cfg, batch = egnn_smoke("full", dev)
+    loss, metrics, grads = value_and_grad(
+        egnn.make_sharded_loss(cfg, make_mesh((1, 1), ("data", "model"), device=dev)),
+        cfg.init(EGNN_SEED, dev), batch)
+    check(got["gnn"] == (loss.cpu().numpy().tobytes(), metrics["acc"].cpu().numpy().tobytes(),
+                         _digest(leaves(grads))),
+          "phase 17 (c): the (1, 1) process mesh's sharded loss differs from the one-card loop")
+    say(f"phase 17 (c): {got['backend']} at world size 1 on {got['device']}: the "
+        f"data-parallel step ({TRAIN_DP_ARCH} SMOKE, {LM_SMOKE_BATCH[0]} x {LM_SMOKE_BATCH[1]}, "
+        f"ZeRO-1, {TRAIN_DP_STEPS} steps) == the one-card step and the sharded loss (EGNN SMOKE "
+        f"full graph) == the one-card loop, bitwise (params, loss, grad_norm; loss, accuracy, "
+        f"gradients); {nccl_ms / 1e3:.1f} s with the rank's start-up")
+    say(f"phase 17: {time.perf_counter() - t_phase:.1f} s; no run on several cards was "
+        "possible (one card on this host)")
+
+
+def _paths(tree) -> list[str]:
+    from repro_torch.train.tree import flatten_with_paths
+
+    return [p for p, _ in flatten_with_paths(tree)]
 
 
 def roofline_phase(dry: dict) -> None:

@@ -1,0 +1,214 @@
+"""Collectives over mesh axes: the port's ``jax.lax.psum``, ``pmax``,
+``all_gather(tiled=True)`` and ``psum_scatter(tiled=True)`` inside
+``shard_map`` (no reference module of its own: the reference calls
+``jax.lax``), for the train side's data-parallel step, ZeRO-1's update,
+``psum_compressed`` and EGNN's sharded loss.
+
+Every collective takes ``xs``, one tensor per mesh position this process
+holds (:func:`positions`), and returns one per position, as the serve
+step has its two forms:
+
+* on a :class:`~repro_torch.core.distributed.ProcessMesh`, ``xs`` holds
+  this rank's one tensor and the collective communicates: one
+  :meth:`~repro_torch.core.distributed.ProcessMesh.gather_axes` of the
+  group's tensors;
+* on a plain :class:`~repro_torch.core.distributed.Mesh`, ``xs`` holds
+  every position's tensor, and the collective is a loop over them on one
+  device.
+
+A group is the positions that differ only on ``axes`` (:meth:`Mesh.group`),
+in row-major order of their coordinates there.  Every float sum is a
+gather followed by additions from zero in that order (:func:`ordered_sum`),
+never an ``all_reduce``, which adds in the backend's order: so a process
+mesh gives the loop's bits, and a sum over ranks gives the bits of the
+one-process step that adds microbatches in the same order.
+
+Gradients (``torch.autograd.Function``s), as JAX transposes the same
+collectives:
+
+* :func:`all_gather`'s backward is the :func:`psum_scatter` of the
+  cotangents, and :func:`psum_scatter`'s is the :func:`all_gather`;
+* :func:`replicated` is the identity; its backward sums each leaf's
+  cotangents over the group.  It is the one place gradients of replicated
+  parameters are reduced: the data-parallel step and the sharded EGNN loss
+  both enter their parameters through it;
+* :func:`psum`'s output is replicated over the group, so its cotangent is
+  too: the backward hands it to every member unchanged.  On a plain mesh
+  the group's members share one output, computed once; a loss read at
+  position 0 then reaches every member's input once.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from repro_torch.core.distributed import Mesh, ProcessMesh
+from repro_torch.train.tree import leaves, unflatten
+
+
+def positions(mesh: Mesh) -> list[int]:
+    """The mesh positions this process holds: its rank on a
+    :class:`ProcessMesh`, every position on a plain :class:`Mesh`."""
+    return [mesh.rank] if isinstance(mesh, ProcessMesh) else list(range(mesh.size))
+
+
+def group_size(mesh: Mesh, axes: tuple[str, ...]) -> int:
+    """The number of positions in a group over ``axes``."""
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def _check_entries(mesh: Mesh, xs) -> list[int]:
+    """The local positions, checked against the number of entries."""
+    local = positions(mesh)
+    if len(xs) != len(local):
+        raise ValueError(f"a collective on {type(mesh).__name__} {mesh.shape} takes "
+                         f"{len(local)} local entries, got {len(xs)}")
+    return local
+
+
+def gather(mesh: Mesh, xs: list[list[torch.Tensor]], axes: tuple[str, ...]) -> list[list]:
+    """For each local position, its group's tensor lists (``xs[i]`` is
+    position ``positions(mesh)[i]``'s list), member by member in group
+    order.  Every member passes tensors of the same shapes and dtypes."""
+    local = _check_entries(mesh, xs)
+    if isinstance(mesh, ProcessMesh):
+        return [mesh.gather_axes(list(xs[0]), tuple(axes))]
+    return [[xs[q] for q in mesh.group(tuple(axes), p)] for p in local]
+
+
+def ordered_sum(parts) -> torch.Tensor:
+    """``parts`` added from zero in order, in their dtype (each add
+    rounded to it)."""
+    acc = torch.zeros_like(parts[0])
+    for x in parts:
+        acc.add_(x)
+    return acc
+
+
+def pmax(mesh: Mesh, xs: list[torch.Tensor], axes: tuple[str, ...]) -> list[torch.Tensor]:
+    """Each position's group maximum (elementwise; not differentiable)."""
+    return [functools.reduce(torch.maximum, [m[0] for m in members])
+            for members in gather(mesh, [[x] for x in xs], axes)]
+
+
+def _rows(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Block ``i`` of ``n`` equal row blocks of ``x``."""
+    if x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} rows do not divide over a group of {n}")
+    k = x.shape[0] // n
+    return x[i * k:(i + 1) * k]
+
+
+def _all_gather(mesh, xs, axes) -> list[torch.Tensor]:
+    return [torch.cat([m[0] for m in members]) for members in gather(mesh, [[x] for x in xs], axes)]
+
+
+def _psum_scatter(mesh, xs, axes) -> list[torch.Tensor]:
+    out = []
+    for p, members in zip(positions(mesh), gather(mesh, [[x] for x in xs], axes)):
+        i, n = mesh.group(tuple(axes), p).index(p), len(members)
+        out.append(ordered_sum([_rows(m[0], n, i) for m in members]))
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, *xs):
+        ctx.mesh, ctx.axes = mesh, axes
+        return tuple(_all_gather(mesh, list(xs), axes))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *_psum_scatter(ctx.mesh, list(gs), ctx.axes))
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, *xs):
+        ctx.mesh, ctx.axes = mesh, axes
+        return tuple(_psum_scatter(mesh, list(xs), axes))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *_all_gather(ctx.mesh, list(gs), ctx.axes))
+
+
+class _Psum(torch.autograd.Function):
+    """One group's sum from its local members (every member on a plain
+    mesh, this rank on a process mesh)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, *xs):
+        ctx.n = len(xs)
+        if isinstance(mesh, ProcessMesh):
+            return ordered_sum([m[0] for m in gather(mesh, [[xs[0]]], axes)[0]])
+        return ordered_sum(xs)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None) + (g,) * ctx.n
+
+
+def all_gather(mesh: Mesh, xs: list[torch.Tensor], axes: tuple[str, ...]) -> list[torch.Tensor]:
+    """``jax.lax.all_gather(x, axes, tiled=True)``: each position's group's
+    tensors concatenated along dim 0 in group order."""
+    return list(_AllGather.apply(mesh, tuple(axes), *xs))
+
+
+def psum_scatter(mesh: Mesh, xs: list[torch.Tensor], axes: tuple[str, ...]) -> list[torch.Tensor]:
+    """``jax.lax.psum_scatter(x, axes, scatter_dimension=0, tiled=True)``:
+    the group's sum (from zero, in group order), each position keeping the
+    row block of its place in the group."""
+    return list(_PsumScatter.apply(mesh, tuple(axes), *xs))
+
+
+def psum(mesh: Mesh, xs: list[torch.Tensor], axes: tuple[str, ...]) -> list[torch.Tensor]:
+    """``jax.lax.psum``: each position's group sum, from zero in group
+    order.  On a plain mesh the members of a group share one output."""
+    axes = tuple(axes)
+    local = _check_entries(mesh, xs)
+    if isinstance(mesh, ProcessMesh):
+        return [_Psum.apply(mesh, axes, xs[0])]
+    sums: dict[tuple, torch.Tensor] = {}
+    out = []
+    for p in local:
+        members = tuple(mesh.group(axes, p))
+        if members not in sums:
+            sums[members] = _Psum.apply(mesh, axes, *[xs[q] for q in members])
+        out.append(sums[members])
+    return out
+
+
+class _Replicated(torch.autograd.Function):
+    """Per local position, a view of every leaf; the backward sums each
+    leaf's cotangents over the group, from zero in group order."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, *flat):
+        ctx.mesh, ctx.axes, ctx.n = mesh, axes, len(flat)
+        return tuple(x.view_as(x) for _ in positions(mesh) for x in flat)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n = ctx.n
+        per_pos = [list(gs[i * n:(i + 1) * n]) for i in range(len(gs) // n)]
+        members = gather(ctx.mesh, per_pos, ctx.axes)[0]  # position 0's group: every one
+        return (None, None, *(ordered_sum([m[j] for m in members]) for j in range(n)))
+
+
+def replicated(mesh: Mesh, tree, axes: tuple[str, ...]) -> list:
+    """``tree`` (replicated parameters) entering per-position code: one
+    tree per local position, equal to ``tree``; the backward sums each
+    leaf's cotangents over the group (:class:`_Replicated`).  On a plain
+    mesh ``axes`` must span the mesh (one group): its one ``tree`` takes
+    every position's cotangent."""
+    axes = tuple(axes)
+    if not isinstance(mesh, ProcessMesh) and group_size(mesh, axes) != mesh.size:
+        raise ValueError(f"on a plain mesh, replicated sums over every axis of size > 1: "
+                         f"{axes} of {mesh.shape}")
+    flat = leaves(tree)
+    outs = _Replicated.apply(mesh, axes, *flat)
+    n = len(flat)
+    return [unflatten(tree, list(outs[i * n:(i + 1) * n])) for i in range(len(outs) // n)]

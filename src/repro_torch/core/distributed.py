@@ -536,6 +536,25 @@ class Mesh:
         """The number of devices the mesh describes."""
         return math.prod(self.axis_sizes)
 
+    def coords_of(self, pos: int) -> dict[str, int]:
+        """A position's (on a :class:`ProcessMesh`, a rank's) coordinate on
+        each axis; positions are row-major."""
+        return dict(zip(self.axis_names, (int(c) for c in np.unravel_index(pos, self.axis_sizes))))
+
+    def group(self, axes: tuple[str, ...], pos: int) -> list[int]:
+        """The positions of ``pos``'s group over ``axes``: those whose
+        coordinates off ``axes`` equal its, in row-major order of their
+        coordinates on ``axes`` (the order in which a collective over
+        ``axes`` concatenates and adds them, as ``jax.lax``'s)."""
+        unknown = [a for a in axes if a not in self.axis_names]
+        if unknown or len(set(axes)) != len(axes):
+            raise ValueError(f"axes {tuple(axes)} must be distinct axes of the mesh "
+                             f"{self.axis_names}")
+        mine = self.coords_of(pos)
+        members = [q for q in range(self.size)
+                   if all(c == mine[a] for a, c in self.coords_of(q).items() if a not in axes)]
+        return sorted(members, key=lambda q: tuple(self.coords_of(q)[a] for a in axes))
+
 
 @dataclass(frozen=True)
 class ProcessMesh(Mesh):
@@ -547,10 +566,6 @@ class ProcessMesh(Mesh):
 
     rank: int = 0
     backend: str = "gloo"
-
-    def coords_of(self, rank: int) -> dict[str, int]:
-        """A rank's coordinate on each axis."""
-        return dict(zip(self.axis_names, (int(c) for c in np.unravel_index(rank, self.axis_sizes))))
 
     def shard_of(self, doc_axes: tuple[str, ...], rank: int | None = None) -> int:
         """The doc shard a rank holds: its doc coordinates, row-major in
@@ -584,6 +599,19 @@ class ProcessMesh(Mesh):
                 off += n
             gathered.append(parts)
         return gathered
+
+    def gather_axes(self, tensors: list[torch.Tensor],
+                    axes: tuple[str, ...]) -> list[list[torch.Tensor]]:
+        """The ``tensors`` of this rank's group over ``axes``
+        (:meth:`Mesh.group`), member by member in the order of their
+        coordinates on ``axes``: ``("pod", "data")`` on a (2, 2, 1) mesh
+        gives the 4 ranks of this rank's ``model`` coordinate, pod-major.
+        One world :meth:`all_gather`, of which the group's entries are kept:
+        a subset of the axes moves the world's bytes (a process group per
+        axis set would move only the group's; one card cannot show the
+        difference)."""
+        every = self.all_gather(tensors)
+        return [every[r] for r in self.group(tuple(axes), self.rank)]
 
     def broadcast_object(self, obj=None):
         """Rank 0's ``obj`` on every rank (pickled; sent by rank 0 of this

@@ -38,6 +38,8 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ArchSpec, ShapeSpec
+from repro_torch.core import collectives as col
+from repro_torch.core.distributed import ProcessMesh
 from repro_torch.core.ranking import select_top
 from repro_torch.data import graph as graph_data
 from repro_torch.data import recsys as rec_data
@@ -47,10 +49,10 @@ from repro_torch.models import egnn as egnn_lib
 from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.params import meta_tensor, param_shapes
-from repro_torch.sharding.specs import named_sharding
-from repro_torch.train.loop import make_train_step
+from repro_torch.sharding.specs import named_sharding, use_sharding
+from repro_torch.train.loop import global_loss, make_train_step
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state, zero1_sharding
-from repro_torch.train.tree import leaves, unflatten
+from repro_torch.train.tree import leaves, tree_map, unflatten
 
 
 # the train cells' optimizer (lm, gnn, recsys), the reference's
@@ -104,6 +106,35 @@ def _opt_shapes(pshapes: dict, mesh) -> dict:
     return {"step": meta_tensor((), torch.int32, mesh, ()), "m": moments(), "v": moments()}
 
 
+def moment_shardings(defs: dict, mesh) -> dict:
+    """The ZeRO-1 layout of the moments of ``defs``' parameters on
+    ``mesh``: each leaf's :func:`zero1_sharding` of its own spec (the
+    reference's ``_moment_shardings``)."""
+    return tree_map(lambda s: zero1_sharding(mesh, s.sharding.spec, tuple(s.shape)),
+                    param_shapes(defs, mesh))
+
+
+def _train_step(loss, params: dict, defs: dict, mesh) -> tuple[Callable, dict]:
+    """A real cell's :data:`TRAIN_OPT` step and zero state.  On a
+    :class:`~repro_torch.core.distributed.ProcessMesh` the step is the
+    data-parallel one (built under ``use_sharding(mesh)``) and the moments
+    are ZeRO-1's blocks (:func:`moment_shardings`), as the reference's cells
+    on a mesh; elsewhere the one-device step."""
+    if not isinstance(mesh, ProcessMesh):
+        return make_train_step(loss, TRAIN_OPT), init_opt_state(TRAIN_OPT, params)
+    ms = moment_shardings(defs, mesh)
+    with use_sharding(mesh):
+        step = make_train_step(loss, TRAIN_OPT, moment_shardings=ms)
+    return step, init_opt_state(TRAIN_OPT, params, ms)
+
+
+def _cell_device(device, mesh) -> torch.device:
+    """``device``, or a process mesh's own when none is given."""
+    if device is None and isinstance(mesh, ProcessMesh):
+        return mesh.device
+    return resolve_device(device)
+
+
 # ---------------------------------------------------------------------------
 # LM cells
 # ---------------------------------------------------------------------------
@@ -132,7 +163,11 @@ def build_lm_cell(
     cell writes at ``pos = seq_len − 1``, so its step attends over the
     whole cache.  ``attn_window`` comes from the shape; ``overrides``
     replace config fields (the dry-run's ``n_layers`` and ``attn_chunk``).
-    On ``meta`` the cell is shapes-only, sharded on ``mesh``."""
+    On ``meta`` the cell is shapes-only, sharded on ``mesh``.  On a
+    :class:`~repro_torch.core.distributed.ProcessMesh` (on its device
+    unless ``device`` is given) the train cell's step is data-parallel with
+    ZeRO-1's moments: every rank holds the global batch and steps on its
+    rows."""
     cfg = spec.config
     p = shape.params
     if "attn_window" in p:
@@ -141,7 +176,7 @@ def build_lm_cell(
         cfg = dataclasses.replace(cfg, **overrides)
     if shape.kind not in ("lm_train", "lm_prefill", "lm_decode"):
         raise ValueError(shape.kind)
-    dev = resolve_device(device)
+    dev = _cell_device(device, mesh)
     meta = _is_meta(dev)
     B, S = p["global_batch"], p["seq_len"]
     if params is None:
@@ -154,8 +189,13 @@ def build_lm_cell(
         return lm_batch(LMDataConfig(cfg.vocab, seq_len, B, seed), 0, dev)
 
     if shape.kind == "lm_train":
-        step = make_train_step(lambda prm, b: tf_lib.loss_fn(cfg, prm, b), TRAIN_OPT)
-        opt = _opt_shapes(params, mesh) if meta else init_opt_state(TRAIN_OPT, params)
+        def loss(prm, b):
+            return tf_lib.loss_fn(cfg, prm, b)
+
+        if meta:
+            step, opt = make_train_step(loss, TRAIN_OPT), _opt_shapes(params, mesh)
+        else:
+            step, opt = _train_step(loss, params, cfg.param_defs(), mesh)
         return Cell(
             spec.name, shape.name, step, (params, opt, tokens_of(S)),
             donate=(0, 1), model_flops=_lm_flops(cfg, B * S, "train"),
@@ -201,7 +241,7 @@ def _egnn_flops(cfg, n_edges: int, n_nodes: int, train: bool = True) -> float:
     return (3.0 if train else 1.0) * fwd
 
 
-def _pad_rows(batch: dict, n: int, keys: tuple, fill: dict) -> dict:
+def pad_rows(batch: dict, n: int, keys: tuple, fill: dict) -> dict:
     """``keys`` of ``batch`` padded along dim 0 to ``n`` rows of ``fill``
     (0 unless named)."""
     out = dict(batch)
@@ -240,7 +280,7 @@ def gnn_batch(cfg, shape: ShapeSpec, device, seed: int = 0,
     if shape.kind == "gnn_molecule":
         G, npg, epg = p["batch"], p["n_nodes"], p["n_edges"]
         b = graph_data.molecule_batch(G, npg, epg, cfg.d_feat, seed, 0, device=device)
-        return _pad_rows(b, graph_data.pad_edges(G * epg), edges, {})
+        return pad_rows(b, graph_data.pad_edges(G * epg), edges, {})
     g = graph
     if g is None:
         g = graph_data.make_powerlaw_graph(p["n_nodes"], p["n_edges"], cfg.d_feat,
@@ -248,12 +288,12 @@ def gnn_batch(cfg, shape: ShapeSpec, device, seed: int = 0,
                                            device=device)
     if shape.kind == "gnn_full":
         b = graph_data.full_graph_batch(g, device=device)
-        return _pad_rows(b, egnn_lib.pad_nodes(g.n_nodes), ("feats", "coords", "labels"),
-                         {"labels": -1})
+        return pad_rows(b, egnn_lib.pad_nodes(g.n_nodes), ("feats", "coords", "labels"),
+                        {"labels": -1})
     if shape.kind == "gnn_minibatch":
         ss = graph_data.SampledShape(p["batch_nodes"], tuple(p["fanouts"]))
         b = graph_data.sample_subgraph(g, ss, seed, 0, device=device)
-        return _pad_rows(b, graph_data.pad_edges(ss.max_edges), edges, {})
+        return pad_rows(b, graph_data.pad_edges(ss.max_edges), edges, {})
     raise ValueError(shape.kind)
 
 
@@ -295,15 +335,22 @@ def build_gnn_cell(
     unless given): :func:`gnn_cell_config`'s model from ``cfg.init(seed,
     device)``, a zero :data:`TRAIN_OPT` state and ``batch``
     (:func:`gnn_batch`'s unless given).  The step runs the plain
-    ``loss_fn``, as the reference's one-device cell; its shard_map loss
-    waits for the mesh across cards (ROADMAP Queue 1 item 6).  On ``meta``
-    the cell is shapes-only, sharded on ``mesh``, and its sums run through
+    ``loss_fn``, as the reference's one-device cell.  On a
+    :class:`~repro_torch.core.distributed.ProcessMesh` (on its device unless
+    ``device`` is given) the step is the data-parallel one with ZeRO-1's
+    moments, and ``gnn_full`` runs the reference's sharded loss
+    (:func:`~repro_torch.models.egnn.make_sharded_loss`) on the rank's rows
+    of the graph (the cell's batch); the other kinds run ``loss_fn`` on the
+    whole graph on every rank (the reference lets XLA split its edges; the
+    port's one split loss is the full-graph one).  On ``meta`` the cell is
+    shapes-only, sharded on ``mesh``, and its sums run through
     ``static_plan`` (the ordered plan reads counts on the host)."""
     if shape.kind not in ("gnn_full", "gnn_minibatch", "gnn_molecule"):
         raise ValueError(shape.kind)
-    dev = resolve_device(device)
+    dev = _cell_device(device, mesh)
     cfg = gnn_cell_config(spec, shape)
     note = ""
+    sharded = isinstance(mesh, ProcessMesh) and shape.kind == "gnn_full" and not _is_meta(dev)
     if _is_meta(dev):
         params = param_shapes(cfg.param_defs(), mesh)
         opt = _opt_shapes(params, mesh)
@@ -313,11 +360,22 @@ def build_gnn_cell(
         note = "segment sums as index_add (static_plan)"
     else:
         params = cfg.init(seed, dev)
-        opt = init_opt_state(TRAIN_OPT, params)
-        step = make_train_step(lambda prm, b: egnn_lib.loss_fn(cfg, prm, b), TRAIN_OPT)
         if batch is None:
             batch = gnn_batch(cfg, shape, dev, seed)
+
+        def loss(prm, b):
+            return egnn_lib.loss_fn(cfg, prm, b)
+
+        if sharded:
+            loss, note = egnn_lib.make_sharded_loss(cfg, mesh), "sharded loss on the rank's rows"
+        elif isinstance(mesh, ProcessMesh):
+            loss = global_loss(loss)
+        step, opt = _train_step(loss, params, cfg.param_defs(), mesh)
     N, E = batch["feats"].shape[0], batch["senders"].shape[0]
+    if sharded:
+        axes = egnn_lib.sharded_axes(mesh)
+        batch = egnn_lib.graph_rows(batch, col.group_size(mesh, axes),
+                                    mesh.group(axes, mesh.rank).index(mesh.rank))
     return Cell(
         spec.name, shape.name, step, (params, opt, batch),
         donate=(0, 1), model_flops=_egnn_flops(cfg, E, N), note=note,
@@ -456,13 +514,16 @@ def build_recsys_cell(
     reference's geo dict: ``cand_rects [Nc,R,4]``, ``cand_amps [Nc,R]``,
     ``q_rects [Q,4]``, ``q_amps [Q]``, ``weight``.  ``recsys_train``
     steps with :data:`TRAIN_OPT`.  On ``meta`` the cell is shapes-only,
-    sharded on ``mesh``."""
+    sharded on ``mesh``; on a
+    :class:`~repro_torch.core.distributed.ProcessMesh` (on its device unless
+    ``device`` is given) the train step is data-parallel with ZeRO-1's
+    moments."""
     cfg = spec.config
     p = shape.params
     if geo is not None and not (shape.kind == "recsys_retrieval"
                                 and type(cfg).__name__ == "TwoTowerConfig"):
         raise ValueError("geo applies to the two-tower retrieval cell only")
-    dev = resolve_device(device)
+    dev = _cell_device(device, mesh)
     meta = _is_meta(dev)
     fwd = _recsys_forward(cfg)
     params = param_shapes(cfg.param_defs(), mesh) if meta else cfg.init(seed, dev)
@@ -472,8 +533,10 @@ def build_recsys_cell(
 
     if shape.kind == "recsys_train":
         B = p["batch"]
-        step = make_train_step(recsys_loss(cfg), TRAIN_OPT)
-        opt = _opt_shapes(params, mesh) if meta else init_opt_state(TRAIN_OPT, params)
+        if meta:
+            step, opt = make_train_step(recsys_loss(cfg), TRAIN_OPT), _opt_shapes(params, mesh)
+        else:
+            step, opt = _train_step(recsys_loss(cfg), params, cfg.param_defs(), mesh)
         return Cell(
             spec.name, shape.name, step, (params, opt, batch_of(B)),
             donate=(0, 1), model_flops=_recsys_flops(cfg, B, True),

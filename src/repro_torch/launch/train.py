@@ -10,25 +10,44 @@ replays, bit-identically) and deterministic data keyed by (seed, step).
 ``--device`` (default ``cuda``) is where the state lives and the steps
 run; without CUDA the default raises and names the opt-in ``--device
 cpu``.  The port trains the LM, GNN and recsys families.
+
+Started as ``WORLD_SIZE`` > 1 ranks of a process group (``torchrun``, or
+``main(argv)`` from each rank of
+:func:`repro_torch.launch.ranks.run_ranks`), the launcher builds the
+``(n, 1)`` data × model :class:`~repro_torch.core.distributed.ProcessMesh`,
+as the reference's ``make_host_mesh`` builds its mesh of the host's
+devices, and trains data-parallel (:func:`~repro_torch.train.loop.make_train_step`
+under ``use_sharding(mesh)``): every rank draws the global batch and steps
+on its rows; the gnn family runs EGNN's sharded loss on the rank's rows of
+the graph.  Rank 0 alone logs and writes checkpoints.
 """
 from __future__ import annotations
 
 import argparse
+import math
+import os
+
+import torch.distributed as dist
 
 from repro_torch.configs.base import get_arch
+from repro_torch.core import collectives as col
+from repro_torch.core.distributed import make_process_mesh
 from repro_torch.data.graph import full_graph_batch, make_powerlaw_graph
 from repro_torch.data.lm import LMDataConfig, lm_batch
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import recsys_batch, recsys_loss
+from repro_torch.launch.steps import pad_rows, recsys_batch, recsys_loss
 from repro_torch.models import egnn as egnn_lib
 from repro_torch.models import transformer as tf_lib
+from repro_torch.sharding.specs import use_sharding
 from repro_torch.train.loop import LoopConfig, make_train_step, run
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 
 
-def loss_and_batch_fns(spec, cfg, batch_size: int, seq_len: int, seed: int, device):
+def loss_and_batch_fns(spec, cfg, batch_size: int, seq_len: int, seed: int, device, mesh=None):
     """(loss(params, batch), batch_fn(step)) for ``spec``'s family, the
-    batches on ``device``.  ``seq_len`` is the LM family's."""
+    batches on ``device``.  ``seq_len`` is the LM family's.  On a process
+    ``mesh`` the gnn family's loss is EGNN's sharded one and its batch the
+    rank's rows (the graph padded to divide over the mesh)."""
     if spec.family == "lm":
         dc = LMDataConfig(vocab=cfg.vocab, seq_len=seq_len, global_batch=batch_size, seed=seed)
         return (lambda p, b: tf_lib.loss_fn(cfg, p, b),
@@ -36,8 +55,15 @@ def loss_and_batch_fns(spec, cfg, batch_size: int, seq_len: int, seed: int, devi
     if spec.family == "gnn":  # one 512-node power-law graph, every step
         g = make_powerlaw_graph(512, 2048, cfg.d_feat, n_classes=max(cfg.n_classes, 1),
                                 seed=seed, device=device)
-        batch = full_graph_batch(g, edge_multiple=8, device=device)
-        return (lambda p, b: egnn_lib.loss_fn(cfg, p, b), lambda step: batch)
+        if mesh is None:
+            batch = full_graph_batch(g, edge_multiple=8, device=device)
+            return (lambda p, b: egnn_lib.loss_fn(cfg, p, b), lambda step: batch)
+        axes = egnn_lib.sharded_axes(mesh)
+        n = col.group_size(mesh, axes)
+        batch = full_graph_batch(g, edge_multiple=math.lcm(8, n), device=device)
+        batch = pad_rows(batch, -(-g.n_nodes // n) * n, egnn_lib.NODE_KEYS, {"labels": -1})
+        rows = egnn_lib.graph_rows(batch, n, mesh.group(axes, mesh.rank).index(mesh.rank))
+        return egnn_lib.make_sharded_loss(cfg, mesh), lambda step: rows
     if spec.family == "recsys":
         return (recsys_loss(cfg),
                 lambda step: recsys_batch(cfg, batch_size, device, seed, step))
@@ -66,15 +92,20 @@ def main(argv=None) -> None:
         raise SystemExit("geoweb is a serving system: use repro_torch.launch.serve")
     device = resolve_device(None if args.device == "cuda" else args.device)
     cfg = spec.config if args.full else spec.smoke_config
+    mesh = _process_mesh(device)
+    if mesh is not None:
+        device = mesh.device
+    rank0 = mesh is None or mesh.rank == 0
 
     opt = OptimizerConfig(
         lr=args.lr, warmup_steps=min(20, args.steps // 5 + 1),
         total_steps=args.steps,
     )
     loss_fn, batch_fn = loss_and_batch_fns(
-        spec, cfg, args.batch_size, args.seq_len, args.seed, device
+        spec, cfg, args.batch_size, args.seq_len, args.seed, device, mesh
     )
-    step_fn = make_train_step(loss_fn, opt, microbatches=args.microbatches)
+    with use_sharding(mesh):
+        step_fn = make_train_step(loss_fn, opt, microbatches=args.microbatches)
 
     def init_state():
         params = cfg.init(args.seed, device)
@@ -85,7 +116,21 @@ def main(argv=None) -> None:
         ckpt_dir=args.ckpt_dir, log_every=max(args.steps // 20, 1),
         simulate_failure_at=args.simulate_failure,
     )
-    run(loop, step_fn, init_state, batch_fn)
+    run(loop, step_fn, init_state, batch_fn, log=print if rank0 else lambda line: None,
+        writer=rank0, barrier=None if mesh is None else dist.barrier)
+
+
+def _process_mesh(device):
+    """The ``(n, 1)`` data × model process mesh when ``WORLD_SIZE`` > 1 (the
+    default group initialised from the environment if it is not yet: gloo
+    on the CPU, nccl on cards), else None."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return None
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return make_process_mesh((world, 1), ("data", "model"),
+                             device=None if device.type == "cuda" else device)
 
 
 if __name__ == "__main__":

@@ -36,8 +36,12 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import collectives as col
+from repro_torch.core.distributed import ProcessMesh
 from repro_torch.models.params import ParamDef, init_params, param_count
+from repro_torch.train.loop import global_loss
 
 
 @dataclass(frozen=True)
@@ -219,14 +223,14 @@ def _mlp2(x, w1, b1, w2, b2):
     return F.silu(x @ w1 + b1) @ w2 + b2
 
 
-def egnn_layer(cfg: EGNNConfig, lp: dict, h, x, edge_mask, recv: SegmentPlan,
-               send: SegmentPlan):
-    """One EGNN layer.  h [N,H], x [N,C], edge_mask [E] in the compute
-    dtype; the edges are the plans' ``ids``."""
-    H = h.shape[1]
-    hx = torch.cat([h, x], dim=-1)  # one gather (and one backward sum) per side
-    hi, xi = gather(hx, recv).split([H, x.shape[1]], dim=-1)
-    hj, xj = gather(hx, send).split([H, x.shape[1]], dim=-1)
+def _edge_sums(lp: dict, hx, edge_mask, recv: SegmentPlan, send: SegmentPlan, H: int):
+    """A layer's edge part: from ``hx = [h, x]`` of the plans' node range,
+    each edge's coordinate update and message, summed over its receiver:
+    ``[n, C + H]`` in the compute dtype (one gather, and one backward sum,
+    per side)."""
+    C = hx.shape[1] - H
+    hi, xi = gather(hx, recv).split([H, C], dim=-1)
+    hj, xj = gather(hx, send).split([H, C], dim=-1)
     diff = xi - xj
     dist2 = torch.sum(diff * diff, dim=-1, keepdim=True)  # [E,1]
     m_in = torch.cat([hi, hj, dist2], dim=-1)
@@ -238,18 +242,29 @@ def egnn_layer(cfg: EGNNConfig, lp: dict, h, x, edge_mask, recv: SegmentPlan,
         m @ lp["coord_w1"].to(m.dtype) + lp["coord_b1"].to(m.dtype)
     ) @ lp["coord_w2"].to(m.dtype)  # [E,1]
     upd = diff * cw * edge_mask[:, None]
-    num, agg = segment_sum(torch.cat([upd, m], dim=-1), recv).split([x.shape[1], H], dim=-1)
+    return segment_sum(torch.cat([upd, m], dim=-1), recv)
+
+
+def _node_update(lp: dict, h, agg):
+    """The feature update ``h + φ_h(h, Σm)``."""
+    return h + _mlp2(
+        torch.cat([h, agg], dim=-1),
+        lp["node_w1"], lp["node_b1"], lp["node_w2"], lp["node_b2"],
+    )
+
+
+def egnn_layer(cfg: EGNNConfig, lp: dict, h, x, edge_mask, recv: SegmentPlan,
+               send: SegmentPlan):
+    """One EGNN layer.  h [N,H], x [N,C], edge_mask [E] in the compute
+    dtype; the edges are the plans' ``ids``."""
+    H = h.shape[1]
+    num, agg = _edge_sums(lp, torch.cat([h, x], dim=-1), edge_mask, recv, send, H).split(
+        [x.shape[1], H], dim=-1)
     if cfg.coord_agg == "mean":
         deg = recv.counts.to(torch.float32)  # the f32 segment sum of the mask
         num = num / torch.clamp(deg, min=1.0).to(num.dtype)[:, None]
     x_new = x + num.to(x.dtype)
-
-    # feature update
-    h_new = h + _mlp2(
-        torch.cat([h, agg], dim=-1),
-        lp["node_w1"], lp["node_b1"], lp["node_w2"], lp["node_b2"],
-    )
-    return h_new, x_new
+    return _node_update(lp, h, agg), x_new
 
 
 def forward(cfg: EGNNConfig, params: dict, batch: dict, plan=segment_plan):
@@ -270,13 +285,108 @@ def forward(cfg: EGNNConfig, params: dict, batch: dict, plan=segment_plan):
     return (h @ params["head"].to(h.dtype)).float(), x
 
 
+NODE_KEYS = ("feats", "coords", "labels")
+EDGE_KEYS = ("senders", "receivers", "edge_mask")
+
+
+def sharded_axes(mesh) -> tuple[str, ...]:
+    """The axes a full graph's nodes and edges are split over: every one of
+    ``("pod", "data", "model")`` the mesh has (the rules' ``"nodes"``)."""
+    return tuple(a for a in ("pod", "data", "model") if a in mesh.axis_names)
+
+
+def graph_rows(batch: dict, n: int, i: int) -> dict:
+    """Block ``i`` of ``n`` of a full graph's node arrays and of its edge
+    arrays, as the sharded loss's ``P(axes)`` lays them out (senders and
+    receivers keep their global ids).  Both counts must divide by ``n``."""
+    out = {}
+    for k in NODE_KEYS + EDGE_KEYS:
+        x = batch[k]
+        if x.shape[0] % n:
+            raise ValueError(f"{k}: {x.shape[0]} rows do not divide over {n} shards")
+        step = x.shape[0] // n
+        out[k] = x[i * step:(i + 1) * step]
+    return out
+
+
 def make_sharded_loss(cfg: EGNNConfig, mesh):
-    """The reference's shard_map full-graph loss (node state row-sharded,
-    all-gather + reduce-scatter per layer) waits for the mesh across cards
-    (ROADMAP Queue 1 item 6)."""
-    raise NotImplementedError(
-        "make_sharded_loss needs the mesh across several cards (ROADMAP Queue 1 item 6); "
-        "on one card use loss_fn")
+    """The reference's explicitly sharded full-graph loss (its ``shard_map``
+    ``body``): node rows and edges split over every mesh axis
+    (:func:`sharded_axes`; senders and receivers are global ids), and per
+    layer
+
+    * an ``all_gather`` of ``[h, x]`` (senders may live on any shard);
+    * the ordered segment sums of the local edges into the full node range,
+      in the compute dtype with per-add rounding (:func:`segment_sum`),
+      inside ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``;
+      the collectives stay outside, so the recomputation runs none);
+    * a ``psum_scatter`` back to the node shards, the mean coordinate update
+      by the f32 degree (gathered once: it is the same every layer; the
+      divide in f32, as the reference's promotes), and the node MLP;
+
+    then nll, count and accuracy summed with ``psum``.  Returns a
+    :func:`~repro_torch.train.loop.global_loss` ``loss(params, batch)``:
+    the parameters enter through
+    :func:`~repro_torch.core.collectives.replicated` (their gradients are
+    summed over the shards, unscaled, as the reference's), and the loss is
+    the global one on every position.
+
+    On a :class:`~repro_torch.core.distributed.ProcessMesh` ``batch`` is
+    this rank's rows (:func:`graph_rows` by its place in the mesh); on a
+    plain :class:`~repro_torch.core.distributed.Mesh` it is the whole
+    graph, and the loss loops over the positions.  Node and edge counts
+    must divide by the number of shards (:func:`pad_nodes` and
+    ``pad_edges`` pad to 512).  Node classification only, as the
+    reference's."""
+    if cfg.n_classes <= 0:
+        raise ValueError("make_sharded_loss classifies nodes: n_classes must be > 0")
+    axes = sharded_axes(mesh)
+    n_pos = col.group_size(mesh, axes)
+    procs = isinstance(mesh, ProcessMesh)
+    cd, H, C = cfg.compute_dtype, cfg.d_hidden, cfg.coord_dim
+
+    def loss(params, batch):
+        if procs:
+            parts = [batch]
+        else:
+            parts = [graph_rows(batch, n_pos, mesh.group(axes, p).index(p))
+                     for p in col.positions(mesh)]
+        N = parts[0]["feats"].shape[0] * n_pos
+        prms = col.replicated(mesh, params, axes)
+        hs = [b["feats"].to(cd) @ prm["encode"].to(cd) for b, prm in zip(parts, prms)]
+        xs = [b["coords"].to(cd) for b in parts]
+        plans = [(segment_plan(b["receivers"], N, b["edge_mask"].bool()),
+                  segment_plan(b["senders"], N, b["edge_mask"].bool())) for b in parts]
+        masks = [b["edge_mask"].to(cd) for b in parts]
+        # degree stays f32: hub degrees (>256) are not exact in bf16
+        deg = col.psum_scatter(mesh, [recv.counts.to(torch.float32) for recv, _ in plans], axes)
+        for i in range(cfg.n_layers):
+            lps = [{k: v[i] for k, v in prm["layers"].items()} for prm in prms]
+            full = col.all_gather(mesh, [torch.cat([h, x], dim=-1) for h, x in zip(hs, xs)], axes)
+            partial = [checkpoint(_edge_sums, lp, f, mask, recv, send, H, use_reentrant=False)
+                       for lp, f, mask, (recv, send) in zip(lps, full, masks, plans)]
+            for j, sums in enumerate(col.psum_scatter(mesh, partial, axes)):
+                num, agg = sums.split([C, H], dim=-1)
+                if cfg.coord_agg == "mean":
+                    num = num.float() / torch.clamp(deg[j], min=1.0)[:, None]
+                xs[j] = xs[j] + num.to(xs[j].dtype)
+                hs[j] = _node_update(lps[j], hs[j], agg.to(hs[j].dtype))
+        nll, n, acc = [], [], []
+        for h, prm, b in zip(hs, prms, parts):
+            out = (h @ prm["head"].to(h.dtype)).float()
+            labels = b["labels"].long()
+            mask = labels >= 0
+            lse = torch.logsumexp(out, dim=-1)
+            cls = torch.arange(out.shape[1], device=out.device)
+            ll = torch.where(cls == torch.clamp(labels, min=0)[:, None], out, 0.0).sum(-1)
+            nll.append(((lse - ll) * mask).sum())
+            n.append(mask.sum())
+            acc.append(((out.argmax(-1) == labels) & mask).sum())
+        n_all = torch.clamp(col.psum(mesh, n, axes)[0], min=1)
+        loss_ = col.psum(mesh, nll, axes)[0] / n_all
+        return loss_, {"nll": loss_, "acc": col.psum(mesh, acc, axes)[0] / n_all}
+
+    return global_loss(loss)
 
 
 def pad_nodes(n: int, multiple: int = 512) -> int:

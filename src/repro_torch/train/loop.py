@@ -1,10 +1,14 @@
 """Train-step factory and fault-tolerant training loop (port of
 ``repro/train/loop.py``).
 
-``make_train_step(loss_fn, opt_cfg, microbatches)`` builds
-``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``
-with optional gradient accumulation (microbatching); the AdamW update
-writes params and moments in place (:func:`adamw_update`).
+``make_train_step(loss_fn, opt_cfg, microbatches, moment_shardings)``
+builds ``train_step(params, opt_state, batch) -> (params, opt_state,
+metrics)`` with optional gradient accumulation (microbatching); the AdamW
+update writes params and moments in place (:func:`adamw_update`, ZeRO-1's
+with ``moment_shardings`` on a process mesh).  Built under
+``use_sharding(ProcessMesh)`` the step is data-parallel across the ranks
+(:func:`make_train_step`), where the reference's SPMD step lets XLA reduce
+the gradients over ``data``.
 
 ``run(...)`` checkpoints every N steps (atomic, async), and on a failure
 (including an injected one) restores the latest checkpoint and replays —
@@ -19,6 +23,9 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core import collectives as col
+from repro_torch.core.distributed import ProcessMesh
+from repro_torch.sharding.specs import DEFAULT_RULES, get_context
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.optimizer import OptimizerConfig, adamw_update
 from repro_torch.train.tree import leaves, tree_map, unflatten
@@ -36,40 +43,116 @@ def value_and_grad(loss_fn: Callable, params, batch):
             unflatten(params, list(grads)))
 
 
+def global_loss(loss_fn: Callable) -> Callable:
+    """Mark ``loss_fn`` as computing, on every rank of a process mesh, the
+    global loss of the batch it is given, its gradients already the global
+    ones (EGNN's :func:`~repro_torch.models.egnn.make_sharded_loss` reduces
+    them itself): the data-parallel step then neither splits the batch nor
+    reduces the gradients.  Returns ``loss_fn``."""
+    loss_fn.global_loss = True
+    return loss_fn
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    """The mesh axes a batch's leading dimension is split over: the rules'
+    ``"batch"`` axes the mesh has (``pod``, ``data``)."""
+    return tuple(a for a in DEFAULT_RULES["batch"] if a in mesh.axis_names)
+
+
 def make_train_step(
     loss_fn: Callable,  # (params, batch) -> (loss, metrics)
     opt_cfg: OptimizerConfig,
     microbatches: int = 1,
+    moment_shardings=None,
 ):
     """The train step.  ``microbatches > 1`` splits every batch leaf along
     its leading dimension (as ``dynamic_slice_in_dim``), sums the gradients
     in f32, divides by the count and averages the loss (metrics then carry
     only ``loss``, ``grad_norm`` and ``lr``, as the reference's).
+    ``moment_shardings`` goes to :func:`adamw_update`.
+
+    Built under ``use_sharding(mesh)`` with a
+    :class:`~repro_torch.core.distributed.ProcessMesh`, the step is
+    data-parallel: every rank is given the global batch and takes its rows
+    (the leading dimension over :func:`batch_axes`, by its place there);
+    the parameters enter the loss through
+    :func:`~repro_torch.core.collectives.replicated`, whose backward adds
+    the ranks' gradients from zero in rank order, and the step divides by
+    the ``D`` batch shards; the losses are added the same way.  Those are
+    the ``microbatches=D`` step's operations, so a ``D``-rank step equals it
+    bitwise.  A :func:`global_loss` is run on the batch as given.
 
     The reference's ``jit`` and ``donate`` have no counterpart: the step
     runs eagerly, and it updates params and moments in place, which is what
-    donation buys.  Its ``moment_shardings`` (ZeRO-1) waits for the mesh
-    across cards."""
+    donation buys."""
+    mesh = get_context().mesh
+    if isinstance(mesh, ProcessMesh):
+        return _data_parallel_step(mesh, loss_fn, opt_cfg, microbatches, moment_shardings)
 
     def step(params, opt_state, batch):
         if microbatches == 1:
             loss, metrics, grads = value_and_grad(loss_fn, params, batch)
         else:
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
-            loss_sum = torch.zeros((), dtype=torch.float32, device=leaves(params)[0].device)
-            for i in range(microbatches):
-                mb = tree_map(lambda x: x.narrow(0, i * (x.shape[0] // microbatches),
-                                                 x.shape[0] // microbatches), batch)
-                l, _, g = value_and_grad(loss_fn, params, mb)
-                for acc, gi in zip(leaves(grads), leaves(g)):
-                    acc.add_(gi)
-                loss_sum = loss_sum + l
-            for acc in leaves(grads):
-                acc.div_(microbatches)
-            loss = loss_sum / microbatches
+            loss, grads = _mean_over_microbatches(loss_fn, params, batch, microbatches,
+                                                  microbatches)
             metrics = {}
-        params, opt_state, opt_metrics = adamw_update(opt_cfg, grads, params, opt_state)
+        params, opt_state, opt_metrics = adamw_update(opt_cfg, grads, params, opt_state,
+                                                      moment_shardings)
+        return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
+
+    return step
+
+
+def _microbatch(batch, n: int, i: int):
+    """Block ``i`` of ``n`` along every leaf's leading dimension (the
+    remainder rows, as ``dynamic_slice_in_dim``'s, in none)."""
+    return tree_map(lambda x: x.narrow(0, i * (x.shape[0] // n), x.shape[0] // n), batch)
+
+
+def _mean_over_microbatches(loss_fn, params, batch, n: int, count: int,
+                            reduce=lambda loss: loss):
+    """(loss, grads) over ``n`` microbatches: the gradients summed in f32
+    from zero, the losses (each through ``reduce``) likewise, both divided
+    by ``count``."""
+    grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                     params)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=leaves(params)[0].device)
+    for i in range(n):
+        l, _, g = value_and_grad(loss_fn, params, _microbatch(batch, n, i))
+        for acc, gi in zip(leaves(grads), leaves(g)):
+            acc.add_(gi)
+        loss_sum = loss_sum + reduce(l)
+    for acc in leaves(grads):
+        acc.div_(count)
+    return loss_sum / count, grads
+
+
+def _data_parallel_step(mesh: ProcessMesh, loss_fn, opt_cfg, microbatches, moment_shardings):
+    """:func:`make_train_step` across the ranks of ``mesh``."""
+    axes = batch_axes(mesh)
+    D = col.group_size(mesh, axes)
+    shard = mesh.group(axes, mesh.rank).index(mesh.rank)
+    is_global = getattr(loss_fn, "global_loss", False)
+    if is_global and microbatches != 1:
+        raise ValueError("a global loss takes the batch whole: microbatches must be 1")
+
+    def local_loss(params, batch):
+        return loss_fn(col.replicated(mesh, params, axes)[0], batch)
+
+    def step(params, opt_state, batch):
+        if is_global:
+            loss, metrics, grads = value_and_grad(loss_fn, params, batch)
+        else:
+            for x in leaves(batch):
+                if x.shape[0] % D:
+                    raise ValueError(f"a batch of {x.shape[0]} rows does not split over the "
+                                     f"{D} batch shards of {mesh.shape}")
+            loss, grads = _mean_over_microbatches(
+                local_loss, params, _microbatch(batch, D, shard), microbatches,
+                microbatches * D, lambda l: col.psum(mesh, [l], axes)[0])
+            metrics = {}
+        params, opt_state, opt_metrics = adamw_update(opt_cfg, grads, params, opt_state,
+                                                      moment_shardings)
         return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
 
     return step
@@ -92,10 +175,20 @@ def run(
     init_state: Callable[[], tuple],  # () -> (params, opt_state)
     batch_fn: Callable[[int], Any],  # step -> batch (deterministic)
     log: Callable[[str], None] = print,
+    *,
+    writer: bool = True,
+    barrier: Callable[[], None] | None = None,
 ):
     """Fault-tolerant loop.  Returns (params, opt_state, history).  The
     step updates the state in place, so each restore rebinds it to the
-    restored tensors."""
+    restored tensors.
+
+    Across ranks (the data-parallel step) every rank runs the loop; only
+    the ``writer`` saves checkpoints, and after a fault ``barrier`` (every
+    rank's) runs once the writer's save has landed, so that all ranks
+    restore the same step.  The state must then be the same on every rank:
+    ZeRO-1's moment blocks differ by rank, and the writer's alone would
+    restore wrong blocks on the others (the train CLI's moments are dense)."""
     params, opt_state = init_state()
     start = 0
     if loop_cfg.ckpt_dir:
@@ -125,7 +218,7 @@ def run(
                 history.append((step, loss))
                 log(f"step {step:5d}  loss {loss:.4f}  ({dt*1e3:.0f} ms)")
             step += 1
-            if loop_cfg.ckpt_dir and step % loop_cfg.ckpt_every == 0:
+            if writer and loop_cfg.ckpt_dir and step % loop_cfg.ckpt_every == 0:
                 if pending is not None:
                     pending.join()
                 pending = ckpt_lib.save_checkpoint(
@@ -139,6 +232,8 @@ def run(
             if pending is not None:
                 pending.join()
                 pending = None
+            if barrier is not None:
+                barrier()
             latest = ckpt_lib.latest_checkpoint(loop_cfg.ckpt_dir)
             if latest is None:
                 log("[fault] no checkpoint — restarting from scratch")

@@ -14,6 +14,19 @@ its moments each step, as in the reference) and in place: ``p``, ``m`` and
 the counterpart of the reference's donation of params and state into the
 jitted step.  The schedule, clip scale and bias corrections stay 0-d
 tensors on the device, so a step makes no host sync.
+
+ZeRO-1 (``cfg.zero1`` with ``moment_shardings``, the reference's
+``zero1_sharding`` layout, on a
+:class:`~repro_torch.core.distributed.ProcessMesh`): where a leaf's
+sharding puts ``data`` on a dimension, each rank holds only its block of
+``m`` and ``v`` along it (by its ``data`` coordinate), updates only its
+block of the parameter from the full reduced gradient, and one all-gather
+over ``data`` rebuilds every replicated parameter; leaves the layout leaves
+whole are updated whole on every rank.  The formula is elementwise, so a
+block's bits are the dense update's.  The reference states the layout as
+a sharding constraint and lets XLA place the moments; on a plain
+:class:`~repro_torch.core.distributed.Mesh`, or without shardings, the
+update is dense.
 """
 from __future__ import annotations
 
@@ -22,8 +35,9 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.core.distributed import ProcessMesh
 from repro_torch.sharding.specs import NamedSharding, PartitionSpec
-from repro_torch.train.tree import leaves, tree_map
+from repro_torch.train.tree import leaves, unflatten
 
 
 @dataclass(frozen=True)
@@ -38,8 +52,8 @@ class OptimizerConfig:
     weight_decay: float = 0.1
     clip_norm: float = 1.0
     # ZeRO-1 moment sharding over the data axis (:func:`zero1_sharding`):
-    # the dry-run lays the moments out so; on one device there is nothing
-    # to shard (the sharded update comes with the mesh across cards)
+    # with ``moment_shardings`` on a process mesh each rank holds its block
+    # of the moments; on one device there is nothing to shard
     zero1: bool = False
 
 
@@ -58,14 +72,17 @@ def lr_at(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def init_opt_state(cfg: OptimizerConfig, params) -> dict:
-    """``step`` (int32, 0-d) and zero moments beside ``params``."""
+def init_opt_state(cfg: OptimizerConfig, params, moment_shardings=None) -> dict:
+    """``step`` (int32, 0-d) and zero moments beside ``params``: under
+    ZeRO-1 (:func:`zero1_blocks`) only this rank's blocks."""
     device = leaves(params)[0].device
-    return {
-        "step": torch.zeros((), dtype=torch.int32, device=device),
-        "m": tree_map(torch.zeros_like, params),
-        "v": tree_map(torch.zeros_like, params),
-    }
+    blocks = zero1_blocks(cfg, params, moment_shardings)
+
+    def zeros():
+        return unflatten(params, [torch.zeros_like(p if b is None else p.narrow(*b))
+                                  for p, b in zip(leaves(params), blocks)])
+
+    return {"step": torch.zeros((), dtype=torch.int32, device=device), "m": zeros(), "v": zeros()}
 
 
 def zero1_sharding(mesh, spec, shape) -> NamedSharding:
@@ -82,16 +99,51 @@ def zero1_sharding(mesh, spec, shape) -> NamedSharding:
     return NamedSharding(mesh, spec)
 
 
+def zero1_blocks(cfg: OptimizerConfig, params, moment_shardings) -> list:
+    """Per leaf of ``params``, this rank's ZeRO-1 block of its moments as
+    ``narrow`` arguments ``(dim, start, length)``, or None where the leaf
+    stays whole: the dimension whose sharding names ``data`` (as
+    :func:`zero1_sharding` adds it), split by the rank's ``data``
+    coordinate.  All None unless ``cfg.zero1`` and the shardings are on a
+    :class:`~repro_torch.core.distributed.ProcessMesh`."""
+    flat = leaves(params)
+    if not cfg.zero1 or moment_shardings is None:
+        return [None] * len(flat)
+    shardings = leaves(moment_shardings)
+    if len(shardings) != len(flat):
+        raise ValueError(f"{len(shardings)} moment shardings for {len(flat)} parameters")
+    out = []
+    for p, sh in zip(flat, shardings):
+        mesh = sh.mesh
+        dims = [i for i, e in enumerate(sh.spec)
+                if e == "data" or (isinstance(e, tuple) and "data" in e)]
+        if not isinstance(mesh, ProcessMesh) or not dims:
+            out.append(None)
+            continue
+        dim, n = dims[0], mesh.shape["data"]
+        if p.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(p.shape)} does not divide over "
+                             f"data = {n}")
+        k = p.shape[dim] // n
+        out.append((dim, mesh.coords_of(mesh.rank)["data"] * k, k))
+    return out
+
+
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves(tree)))
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptimizerConfig, grads, params, state):
+def adamw_update(cfg: OptimizerConfig, grads, params, state, moment_shardings=None):
     """One AdamW step, in place.  Returns (params, state, metrics) — the
     same ``params`` and ``state`` objects, updated — with metrics
     ``grad_norm`` and ``lr`` as 0-d tensors.  Params, grads and moments are
-    f32 (every config's ``param_dtype``)."""
+    f32 (every config's ``param_dtype``).  ``moment_shardings`` (a tree
+    like ``params`` of :func:`zero1_sharding`'s layouts) makes the update
+    ZeRO-1's under ``cfg.zero1`` on a process mesh (module docstring); the
+    grads are then the full reduced ones, equal on every rank, and so is
+    the global norm."""
+    blocks = zero1_blocks(cfg, params, moment_shardings)
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
@@ -99,9 +151,17 @@ def adamw_update(cfg: OptimizerConfig, grads, params, state):
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1.0 - torch.pow(b1, step.to(torch.float32))
     bc2 = 1.0 - torch.pow(b2, step.to(torch.float32))
-    for g, p, m, v in zip(leaves(grads), leaves(params), leaves(state["m"]), leaves(state["v"])):
+    split = []  # (parameter, its block, the updated block) of each split leaf
+    for g, p, m, v, b in zip(leaves(grads), leaves(params), leaves(state["m"]),
+                             leaves(state["v"]), blocks):
         if not (p.dtype == m.dtype == v.dtype == torch.float32):
             raise TypeError(f"AdamW state must be f32, got {p.dtype}/{m.dtype}/{v.dtype}")
+        whole = p
+        if b is not None:
+            g, p = g.narrow(*b), p.narrow(*b)
+        if m.shape != p.shape or v.shape != p.shape:
+            raise ValueError(f"moments of shape {tuple(m.shape)} beside a parameter block of "
+                             f"{tuple(p.shape)}: init_opt_state with the same shardings")
         g = g.float() * scale
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
@@ -111,5 +171,13 @@ def adamw_update(cfg: OptimizerConfig, grads, params, state):
         del den
         upd.add_(cfg.weight_decay * p)
         p.sub_(upd.mul_(lr))
+        if b is not None:
+            split.append((whole, b, p))
+    if split:  # every rank's updated blocks, in data order, into every parameter
+        mesh = leaves(moment_shardings)[0].mesh
+        every = mesh.gather_axes([blk.contiguous() for _, _, blk in split], ("data",))
+        for j, (whole, (dim, _, k), _) in enumerate(split):
+            for c, parts in enumerate(every):
+                whole.narrow(dim, c * k, k).copy_(parts[j])
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -272,7 +272,26 @@ def test_compress_tree_bitwise():
         assert len(g) == len(w)
         for a, b in zip(g, w):
             assert a.numpy().tobytes() == np.asarray(b).tobytes()
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    # psum_compressed over a one-device mesh: the reference's under
+    # shard_map bit for bit (mean and error buffer); without a mesh it raises
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from repro_torch.core import make_mesh
+    from repro_torch.sharding.specs import use_sharding
+
+    with use_sharding(make_mesh((1,), ("data",), device="cpu")):
+        (mean,), (new_err,) = p_comp.psum_compressed([_t(grads)], [_t(err)], ("data",))
+    jmesh = jax.make_mesh((1,), ("data",))
+    with jmesh:
+        jmean, jerr = shard_map(lambda g, e: j_comp.psum_compressed(g, e, ("data",)),
+                                mesh=jmesh, in_specs=(P(), P()), out_specs=P(),
+                                check_rep=False)(*(jax.tree.map(jnp.asarray, t)
+                                                   for t in (grads, err)))
+    for got, want in ((mean, jmean), (new_err, jerr), (new_err, je)):
+        for a, b in zip(leaves(got), jax.tree.leaves(want)):
+            assert a.numpy().tobytes() == np.asarray(b).tobytes()
+    with pytest.raises(RuntimeError, match="use_sharding"):
         p_comp.psum_compressed(_t(grads), _t(err), ("data",))
 
 
