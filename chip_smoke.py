@@ -54,7 +54,8 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
 5. runs one profiler pass per variant (phase 7's sharded executor too):
    each stage's host time and device time, and the device's idle share
    over a batch; and one over each of phase 9's recsys cells (the
-   geo-blended retrieval and every serve shape), over a prefill (2,048
+   geo-blended retrieval, AutoInt's chunked retrieval and every serve
+   shape), over a prefill (2,048
    tokens) and a decode step (4,096 cached tokens) of each of phases
    12–13's five LMs, over a train step (2,048 tokens) of Granite-MoE and
    over a train step of each of phase 14's EGNN cells:
@@ -90,8 +91,13 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    exactly one per visited shard per live batch plus 8 per warm-up shape);
    and the mesh executor on an (8, 1) data × model mesh equals the sharded
    one on the trace and the narrow batch (ids and scores after sorting each
-   row by (−score, id), counter sums within rtol 1e-6).  It runs after
-   phase 6 and before phase 5.
+   row by (−score, id), counter sums within rtol 1e-6).  The mesh's
+   stacked index (``shard_corpus_np`` of the same corpus and partitioner,
+   as ``make_executor("mesh", ...)`` builds it) is built on the host by a
+   subprocess with no card visible, started before phase 1 beside the
+   dry-run of phase 15 (a) and waited for at the end of the set-up, so
+   that its build is not on the timed path; phase 7 loads it onto the
+   card.  It runs after phase 6 and before phase 5.
 8. puts telemetry (``repro_torch.obs.Telemetry``) to work: (a) serves
    phase 6's ``serve_auto_mixture`` (without its cache, whose wall-clock
    eviction credits could move a hit between runs) ``TEL_RUNS`` times each
@@ -133,8 +139,17 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    the towers, score and blend, the kernel (beside its plain version and
    bound) and top-k; then every arch at ``serve_p99`` and ``serve_bulk``:
    ms per batch, rows/s, model FLOP/s and their share of 67e12, parameter
-   bytes and peak memory, finite outputs.  The CTR models'
-   ``retrieval_cand`` waits for the mesh across cards.  Its driven
+   bytes and peak memory, finite outputs.  ``dcn-v2``, ``autoint`` and
+   ``bst`` at ``retrieval_cand`` score 1,000,000 candidate rows in the
+   chunks of ``launch.steps.retrieval_chunk_rows`` (DCN-v2 one call,
+   AutoInt 8, BST 4), then one top-100 of all: (k) values and ids of
+   shape [100], finite non-increasing values, distinct ids in range, no
+   kernel launched in the driven run; (l) on the cell's first 262,144
+   rows, 100,000-row chunks (the last ragged) against one call within
+   rtol 1e-4 / atol 1e-5, the top-100 ids equal where separated; (m) in
+   (d), each SMOKE cell over 4,096 candidates in 1,500-row chunks, card
+   vs CPU; each timed (ms per 1M candidates, rows/s, FLOP share, peak
+   beside the chunk rule's prediction, the chunks).  The geo-blended
    retrieval's launch is added to the kernel table's.  It runs after phase
    8 and before phase 5.
 10. trains the four recsys archs (``repro_torch.train``: AdamW, the train
@@ -246,7 +261,8 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    model from the H100 data sheet); (b) the roofline against the card on the (1, 1) host mesh,
    at sizes earlier phases run (DCN-v2 ``train_batch``, SmolLM-135M
    ``train_4k`` at ``LM_TRAIN_CUT``, Qwen2.5-14B ``prefill_32k`` at its
-   ``LM_CUTS``, EGNN ``molecule``): (i) the dry-run's FLOPs (summed over
+   ``LM_CUTS``, EGNN ``molecule``, AutoInt ``retrieval_cand`` in its 8
+   chunks): (i) the dry-run's FLOPs (summed over
    dtypes) equal ``FlopCounterMode`` over the real CUDA step exactly; (ii) its
    argument bytes equal the real arguments' ``nbytes`` exactly; (iii) its
    predicted peak printed beside ``torch.cuda.max_memory_allocated()`` (the
@@ -394,6 +410,16 @@ SMOKE_TOL = dict(rtol=1e-4, atol=1e-5)
 SMOKE_ROWS = 512
 SMOKE_CANDIDATES = 4096
 SMOKE_Q_RECTS = ((0.3, 0.3, 0.35, 0.35), (0.6, 0.6, 0.62, 0.62))
+# the CTR models' retrieval_cand: 1,000,000 candidate rows in the chunks of
+# launch.steps.retrieval_chunk_rows, one top-100 of all.  (l) chunked ==
+# one call on the cell's first CTR_PREFIX rows, in CTR_CHECK_CHUNK-row
+# chunks (two full, one of 62,144); (m) each SMOKE cell over
+# SMOKE_CANDIDATES rows in CTR_SMOKE_CHUNK-row chunks (two full, one of
+# 1,096), card vs CPU
+CTR_RETRIEVAL_ARCHS = ("dcn-v2", "autoint", "bst")
+CTR_PREFIX = 262_144
+CTR_CHECK_CHUNK = 100_000
+CTR_SMOKE_CHUNK = 1_500
 # f32 FLOP/s outside the tensor cores with an FMA counted as two, as model
 # FLOPs count a multiply-add (cuBLAS f32 without TF32 runs there)
 F32_FLOPS_PER_S = 67e12
@@ -520,6 +546,7 @@ ROOFLINE_CELLS = (
     ("smollm-135m", "train_4k", LM_TRAIN_CUT),
     ("qwen2.5-14b", "prefill_32k", LM_CUTS[("qwen2.5-14b", "prefill_32k")]),
     ("egnn", "molecule", None),
+    ("autoint", "retrieval_cand", None),
 )
 # the measured step may beat a strict lower bound only by timing noise
 BOUND_SLACK = 1.05
@@ -635,16 +662,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
-    # phase 15 (a) starts first: its CPU-only dry-run runs beside phase 1
-    # and the set-up, which time nothing
+    # phase 15 (a) and phase 7's stacked index start first: their CPU-only
+    # subprocesses run beside phase 1 and the set-up, which time nothing
     dry = start_dryrun_cli()
+    stacked = start_stacked_index()
     try:
-        return run_phases(dry)
+        return run_phases(dry, stacked)
     finally:
+        stop_stacked_index(stacked)
         stop_dryrun_cli(dry)
 
 
-def run_phases(dry: dict) -> int:
+def run_phases(dry: dict, stacked: dict) -> int:
     """Phases 1 to 17 and 5 (see the module docstring)."""
     import numpy as np
 
@@ -725,6 +754,7 @@ def run_phases(dry: dict) -> int:
             f"{tx.posting_bytes:.4f} B/posting, impacts {tx.impacts.dtype}")
 
     wait_dryrun_cli(dry)  # before anything is timed
+    wait_stacked_index(stacked)
     # ---- phase 2: each kernel against its plain version ------------------
     b0 = batches[0].to(dev)
     S = plain_ex.engine.budgets.sweep_budget
@@ -1258,7 +1288,7 @@ def run_phases(dry: dict) -> int:
     serve_counts = serving_phase(corpus, plain_ex.engine.index, budgets)
     # ---- phase 7: document-sharded serving, before the profiler pass ----
     shard_counts, executors["sharded_footprint"], (mesh_ex, narrow) = sharded_phase(
-        corpus, budgets, batches)
+        corpus, budgets, batches, stacked["dir"])
     # ---- phase 16: the serve step across processes, on phase 7's index --
     proc_counts = process_mesh_phase(mesh_ex, batches + [narrow], budgets)
     del mesh_ex
@@ -1463,9 +1493,10 @@ def serving_phase(corpus, index, budgets) -> dict[str, int]:
     return totals
 
 
-def sharded_phase(corpus, budgets, batches) -> tuple[dict[str, int], tuple, tuple]:
+def sharded_phase(corpus, budgets, batches, stacked_dir) -> tuple[dict[str, int], tuple, tuple]:
     """Phase 7: the sharded and mesh executors over 8 region shards of the
-    phase-3 corpus (see the module docstring).  Returns the kernel launches
+    phase-3 corpus (see the module docstring), the mesh's stacked index
+    read from ``stacked_dir`` (:func:`build_stacked_index`).  Returns the kernel launches
     of the runs a user's entry points make — the footprint-routed trace,
     the one-batch kernel variants, the served trace and the mesh; the
     broadcast and plain-twin comparisons are not counted —, the sharded
@@ -1474,13 +1505,14 @@ def sharded_phase(corpus, budgets, batches) -> tuple[dict[str, int], tuple, tupl
     import numpy as np
     import torch
 
-    from repro_torch.core import QueryPlan, RegionRangePartitioner, make_mesh
+    from repro_torch.core import QueryPlan, RegionRangePartitioner, ShardedGeoIndex, make_mesh
     from repro_torch.corpus import make_zipf_trace
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.geo_score.ops import geo_score_toeprints
     from repro_torch.serving import (
         DeadlineBatcher,
         GeoServer,
+        MeshExecutor,
         ShardedExecutor,
         make_cache,
         make_executor,
@@ -1651,13 +1683,15 @@ def sharded_phase(corpus, budgets, batches) -> tuple[dict[str, int], tuple, tupl
 
     # the mesh step over the same partitioning, stacked on the card
     t = time.perf_counter()
-    mesh_ex = make_executor("mesh", corpus, mesh=make_mesh((8, 1), ("data", "model"),
-                                                           device=DEVICE),
-                            partitioner=RegionRangePartitioner(), routing="footprint",
-                            fused=True, budgets=pr)
-    say(f"phase 7: mesh (8, 1) data x model: stacked index built in "
-        f"{time.perf_counter() - t:.1f} s; {mesh_ex.index.tp_rects.shape[1]} toe-print rows "
-        f"per shard")
+    fields = torch.load(Path(stacked_dir, "index.pt"), mmap=True, weights_only=True)
+    stacked = ShardedGeoIndex(**{k: v.to(DEVICE) if isinstance(v, torch.Tensor) else v
+                                 for k, v in fields.items()})
+    mesh_ex = MeshExecutor.from_index(make_mesh((8, 1), ("data", "model"), device=DEVICE),
+                                      stacked, budgets=pr, fused=True, routing="footprint")
+    del fields, stacked
+    say(f"phase 7: mesh (8, 1) data x model: stacked index (built on the host before phase "
+        f"1) loaded in {time.perf_counter() - t:.1f} s; {mesh_ex.index.tp_rects.shape[1]} "
+        f"toe-print rows per shard")
     mesh_ex.run(batches[0])  # warm-up
     m_outs, m_counts, m_times = run_all(mesh_ex, batches)
     # every shard runs the step on every batch (the SPMD twin); untouched
@@ -2116,6 +2150,7 @@ def recsys_phase() -> dict[str, int]:
     from repro_torch.kernels.geo_score import kernel as GK
     from repro_torch.kernels.geo_score import ref as GR
     from repro_torch.kernels.geo_score.ops import geo_score_docs, pad_query
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.steps import build_recsys_cell, recsys_batch
     from repro_torch.models import recsys as rec
     from repro_torch.models.params import params_from_numpy
@@ -2146,8 +2181,32 @@ def recsys_phase() -> dict[str, int]:
         if name in forwards:
             errs["forward"] = card_close(forwards[name](cfg, p_dev, b_dev),
                                          forwards[name](cfg, p_cpu, b_cpu), f"{name} smoke forward")
-            say(f"phase 9: {name} smoke: card == CPU within rtol 1e-4 / atol 1e-5; max abs "
-                + json.dumps(errs))
+            # (m) the retrieval cell in chunks with a ragged tail
+            spec = get_arch(name)
+            spec = replace(spec, config=cfg, shapes=(ShapeSpec(
+                "retrieval_cand", "recsys_retrieval",
+                dict(batch=1, n_candidates=SMOKE_CANDIDATES)),))
+            cell = build_recsys_cell(spec, spec.shape("retrieval_cand"), "cpu", RECSYS_SEED,
+                                     chunk_rows=CTR_SMOKE_CHUNK)
+            n_chunks = -(-SMOKE_CANDIDATES // CTR_SMOKE_CHUNK)
+            check(n_chunks >= 3 and SMOKE_CANDIDATES % CTR_SMOKE_CHUNK
+                  and cell.note.endswith(f"{CTR_SMOKE_CHUNK} rows a chunk, {n_chunks} chunks"),
+                  f"phase 9 (m): {name} smoke retrieval: {cell.note}")
+            rp_cpu, rb_cpu = cell.args
+            rp_dev = params_from_numpy(cfg.param_defs(), {k: v.numpy() for k, v in rp_cpu.items()},
+                                       dev)
+            s_cpu, i_cpu = cell.fn(rp_cpu, rb_cpu)
+            s_dev, i_dev = cell.fn(rp_dev, on(rb_cpu, dev))
+            errs["retrieval scores"] = card_close(s_dev, s_cpu, f"{name} smoke retrieval scores")
+            sep = separated(s_cpu)
+            check(torch.equal(i_dev.cpu()[sep], i_cpu[sep]),
+                  f"{name} smoke retrieval: top-{TOP_K} ids differ between the card and the CPU")
+            say(f"phase 9: {name} smoke: card == CPU within rtol 1e-4 / atol 1e-5 (forward and "
+                f"loss at {SMOKE_ROWS} rows; (m) retrieval over {SMOKE_CANDIDATES} candidates in "
+                f"{n_chunks} chunks of {CTR_SMOKE_CHUNK}, the last "
+                f"{SMOKE_CANDIDATES - (n_chunks - 1) * CTR_SMOKE_CHUNK}: {int(sep.sum())} "
+                f"separated ids of {TOP_K} equal); max abs " + json.dumps(errs))
+            del p_dev, b_dev, rp_dev, cell
             continue
         errs["user tower"] = card_close(rec.two_tower_user(cfg, p_dev, b_dev),
                                         rec.two_tower_user(cfg, p_cpu, b_cpu),
@@ -2173,11 +2232,7 @@ def recsys_phase() -> dict[str, int]:
         # footprint) exactly
         i_dev = i_dev.cpu()
         fin = torch.isfinite(s_cpu)
-        tol = SMOKE_TOL["atol"] + SMOKE_TOL["rtol"] * s_cpu.abs()
-        gap = (s_cpu[..., 1:] - s_cpu[..., :-1]).abs()
-        sep = fin.clone()
-        sep[..., 1:] &= gap > tol[..., 1:]
-        sep[..., :-1] &= gap > tol[..., :-1]
+        sep = separated(s_cpu)
         check(torch.equal(i_dev[sep], i_cpu[sep]) and torch.equal(i_dev[~fin], i_cpu[~fin]),
               f"{name} smoke retrieval: top-{TOP_K} ids differ between the card and the CPU")
         n_match = int((plain_geo(geo_cpu) > 0).sum())
@@ -2279,10 +2334,7 @@ def recsys_phase() -> dict[str, int]:
     del cell, params, batch, cand_ids, cand_fields, geo, g, g_plain, u, v, scores, blended
     del flat_r, flat_a, vals, ids, pv, pi, nv, ni
     torch.cuda.empty_cache()
-    say("phase 9: dcn-v2, autoint, bst retrieval_cand (a candidate-major forward over "
-        f"{n_cand} rows) not run: it waits for the mesh across cards; AutoInt's attention "
-        "intermediates alone at 1M rows (q, k, v [1M, 39, 2, 32] and the scores and softmax "
-        "[1M, 2, 39, 39], f32, per layer) come to 54 GB of the card's 80 GB")
+    ctr_retrieval(report, record)
 
     for name in RECSYS_ARCHS:
         spec = get_arch(name)
@@ -2306,6 +2358,104 @@ def recsys_phase() -> dict[str, int]:
     say("phase 9: " + json.dumps(report))
     say(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+def ctr_retrieval(report: list, record) -> None:
+    """Phase 9's CTR ``retrieval_cand`` cells at the published ``CONFIG``s:
+    each driven once with the launch counts from 0 ((k): a well-formed
+    top-100 and no kernel launch), timed, then (l) its chunked forward
+    against one call on its first ``CTR_PREFIX`` rows."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.ranking import select_top
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import (
+        build_recsys_cell,
+        recsys_forward,
+        retrieval_chunk_rows,
+        retrieval_row_bytes,
+    )
+    from repro_torch.models import recsys as rec
+
+    dev = torch.device(DEVICE)
+    card = card_line()
+    for name in CTR_RETRIEVAL_ARCHS:
+        spec = get_arch(name)
+        shape = spec.shape("retrieval_cand")
+        cfg, n_cand = spec.config, shape.params["n_candidates"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cell = build_recsys_cell(spec, shape, dev, RECSYS_SEED)
+        params, batch = cell.args
+        param_bytes = sum(t.numel() * t.element_size() for t in params.values())
+        input_bytes = sum(t.numel() * t.element_size() for t in batch.values())
+        check(param_bytes == cfg.n_params() * 4, f"{name}: parameter bytes differ from its defs")
+        chunk = retrieval_chunk_rows(cfg, n_cand)
+        n_chunks = -(-n_cand // chunk)
+        # the driven run: counts from 0 just before, read just after
+        reset_launch_counts()
+        vals, ids = cell.fn(*cell.args)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        # (k) a well-formed top-100, no kernel on this path
+        check(tuple(vals.shape) == tuple(ids.shape) == (TOP_K,),
+              f"(k) {name}: top-k shapes {tuple(vals.shape)}, {tuple(ids.shape)}")
+        check(bool(torch.isfinite(vals).all()) and bool((vals[:-1] >= vals[1:]).all()),
+              f"(k) {name}: top-{TOP_K} values not finite and non-increasing")
+        id_list = ids.tolist()
+        check(len(set(id_list)) == TOP_K and min(id_list) >= 0 and max(id_list) < n_cand,
+              f"(k) {name}: top-{TOP_K} ids not distinct in [0, {n_cand})")
+        check(not any(counts.values()), f"(k) {name}: the retrieval launched {counts}")
+        ms = time_ms(lambda: cell.fn(*cell.args), torch)
+        # the peak the chunk rule predicts: parameters, candidates, the
+        # [N] scores and one chunk's counted transient
+        pred = param_bytes + input_bytes + 4 * n_cand + chunk * retrieval_row_bytes(cfg)
+        record(name, "retrieval_cand", n_cand, ms, cell.model_flops, param_bytes, peak,
+               ms_per_1m_candidates=ms * 1e6 / n_cand, chunk_rows=chunk, chunks=n_chunks,
+               last_chunk_rows=n_cand - (n_chunks - 1) * chunk,
+               peak_above_base_gib=(peak - base) / 2**30, predicted_peak_gib=pred / 2**30)
+        say(f"phase 9: {name} retrieval_cand on {card}: (k) top-{TOP_K} of {n_cand} finite, "
+            f"non-increasing, distinct ids, launches {counts}; {n_chunks} chunks of {chunk} rows "
+            f"(the last {n_cand - (n_chunks - 1) * chunk}); {ms * 1e6 / n_cand:.4f} ms per 1M "
+            f"candidates; peak {(peak - base) / 2**30:.2f} GiB above the "
+            f"{base / 2**30:.2f} GiB held before (predicted {pred / 2**30:.2f})")
+        del vals, ids
+        # (l) chunked == one call on the cell's first CTR_PREFIX rows
+        fwd = recsys_forward(cfg)
+        prefix = {k: v[:CTR_PREFIX] for k, v in batch.items()}
+        one = fwd(params, prefix)
+        one_v, one_i = select_top(one, TOP_K)
+        one, one_v, one_i = one.cpu(), one_v.cpu(), one_i.cpu()
+        torch.cuda.empty_cache()
+        got = rec.forward_in_row_chunks(fwd, params, prefix, CTR_CHECK_CHUNK)
+        got_v, got_i = select_top(got, TOP_K)
+        err = card_close(got, one, f"(l) {name}: chunked vs one call")
+        sep = separated(one_v)
+        check(torch.equal(got_i.cpu()[sep], one_i[sep]),
+              f"(l) {name}: top-{TOP_K} ids of the chunked forward differ from one call's")
+        last = CTR_PREFIX - (CTR_PREFIX // CTR_CHECK_CHUNK) * CTR_CHECK_CHUNK
+        say(f"phase 9: (l) {name}: the first {CTR_PREFIX} candidates in chunks of "
+            f"{CTR_CHECK_CHUNK} (the last {last}) == one call within rtol 1e-4 / atol 1e-5 (max "
+            f"abs {err:.3g}); {int(sep.sum())} separated top-{TOP_K} ids equal")
+        del cell, params, batch, prefix, one, got
+        torch.cuda.empty_cache()
+
+
+def separated(scores):
+    """The picks of a top-k whose score lies more than ``SMOKE_TOL`` from
+    each neighbour's (finite scores only): where two top-k lists of
+    scores within the tolerance must agree in their ids."""
+    fin = scores.isfinite()
+    tol = SMOKE_TOL["atol"] + SMOKE_TOL["rtol"] * scores.abs()
+    gap = (scores[..., 1:] - scores[..., :-1]).abs()
+    sep = fin.clone()
+    sep[..., 1:] &= gap > tol[..., 1:]
+    sep[..., :-1] &= gap > tol[..., :-1]
+    return sep
 
 
 def card_close(got, want, what: str, tol: dict = SMOKE_TOL) -> float:
@@ -3258,6 +3408,71 @@ def egnn_phase() -> None:
     say(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
 
 
+def build_stacked_index(out_dir: str) -> None:
+    """Phase 7's stacked index, in a subprocess with no card: the set-up's
+    corpus made again from its seed, split into 8 region shards and
+    stacked on the host as ``make_executor("mesh", corpus,
+    partitioner=RegionRangePartitioner())`` does, saved to
+    ``out_dir/index.pt``; prints its timings as JSON."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import RegionRangePartitioner, shard_corpus_np
+    from repro_torch.corpus import make_corpus
+
+    t = time.perf_counter()
+    corpus = make_corpus(n_docs=N_DOCS, n_terms=N_TERMS, seed=0)
+    corpus_s = time.perf_counter() - t
+    t = time.perf_counter()
+    idx = shard_corpus_np(corpus.doc_terms, corpus.doc_rects, corpus.doc_amps,
+                          corpus.pagerank, corpus.n_terms, 8, RegionRangePartitioner(),
+                          device="cpu")
+    build_s = time.perf_counter() - t
+    torch.save({f.name: getattr(idx, f.name) for f in dataclasses.fields(idx)},
+               Path(out_dir, "index.pt"))
+    print(json.dumps({"corpus_s": corpus_s, "build_s": build_s}), flush=True)
+
+
+def start_stacked_index() -> dict:
+    """Start :func:`build_stacked_index` in a subprocess (before phase 1,
+    no card visible), writing into a temporary directory."""
+    import os
+    import tempfile
+
+    out_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-stacked-"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.build_stacked_index(sys.argv[2])")
+    with open(out_dir / "log", "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT), str(out_dir)], cwd=ROOT,
+                                env=env, stdout=log, stderr=subprocess.STDOUT)
+    return {"dir": out_dir, "proc": proc, "t0": time.perf_counter()}
+
+
+def wait_stacked_index(stacked: dict) -> None:
+    """Wait for :func:`start_stacked_index`'s subprocess (at the end of
+    the set-up); fails unless it exited 0."""
+    t = time.perf_counter()
+    rc = stacked["proc"].wait(timeout=DRYRUN_TIMEOUT_S)
+    log = (stacked["dir"] / "log").read_text()
+    check(rc == 0, f"phase 7's stacked index build exited {rc}: {log[-2000:]}")
+    say(f"set-up: phase 7's stacked index built on the host in a subprocess "
+        f"{log.strip().splitlines()[-1]}; it ended {time.perf_counter() - stacked['t0']:.1f} s "
+        f"after its start before phase 1, the set-up waited {time.perf_counter() - t:.1f} s")
+
+
+def stop_stacked_index(stacked: dict) -> None:
+    """Kill :func:`start_stacked_index`'s subprocess if it is left and
+    remove its files."""
+    import shutil
+
+    if stacked["proc"].poll() is None:
+        stacked["proc"].kill()
+        stacked["proc"].wait()
+    shutil.rmtree(stacked["dir"], ignore_errors=True)
+
+
 def start_dryrun_cli() -> dict:
     """Phase 15 (a), started before phase 1: the dry-run CLI over every
     arch × shape on the single-pod mesh, one subprocess per arch, all
@@ -4008,13 +4223,13 @@ def recsys_profiles():
     from repro_torch.launch.steps import build_recsys_cell
 
     dev = torch.device(DEVICE)
-    cells = [("two-tower-retrieval", "retrieval_cand")] + [
+    cells = [("two-tower-retrieval", "retrieval_cand"), ("autoint", "retrieval_cand")] + [
         (a, s) for a in RECSYS_ARCHS for s in ("serve_p99", "serve_bulk")]
     for arch, shape_name in cells:
         spec = get_arch(arch)
         shape = spec.shape(shape_name)
         geo = (recsys_geo(shape.params["n_candidates"], 0.08, GEO_Q_RECTS, dev)
-               if shape.kind == "recsys_retrieval" else None)
+               if (arch, shape_name) == ("two-tower-retrieval", "retrieval_cand") else None)
         cell = build_recsys_cell(spec, shape, dev, RECSYS_SEED, geo=geo)
         cell.fn(*cell.args)  # warm-up outside the profiler
         yield f"{arch} {shape_name}", profile_batch(lambda: cell.fn(*cell.args), torch, ())

@@ -4,11 +4,43 @@
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
 from repro_torch.core import geometry
 from repro_torch.core.ranking import fma32
+
+
+@dataclass(frozen=True)
+class FootprintBatch:
+    """A batch of footprints as padded rect sets.
+
+    rects: f32[..., R, 4]   (padding rows encoded as empty rects)
+    amps:  f32[..., R]      (padding rows have amp 0)
+    """
+
+    rects: torch.Tensor
+    amps: torch.Tensor
+
+    @property
+    def max_rects(self) -> int:
+        return self.rects.shape[-2]
+
+
+def make_footprint_np(
+    rects: np.ndarray, amps: np.ndarray, max_rects: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Pad a single footprint's (n,4)/(n,) arrays to (max_rects, …): the
+    first ``max_rects`` rects kept, the rest of the rows ``EMPTY_RECT`` with
+    amp 0."""
+    n = min(len(rects), max_rects)
+    out_r = np.tile(geometry.EMPTY_RECT, (max_rects, 1)).astype(np.float32)
+    out_a = np.zeros((max_rects,), dtype=np.float32)
+    out_r[:n] = rects[:n]
+    out_a[:n] = amps[:n]
+    return out_r, out_a
 
 
 def geo_score(

@@ -28,6 +28,49 @@ def rect_intersection_area(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x1 - x0, min=0.0) * torch.clamp(y1 - y0, min=0.0)
 
 
+def rects_intersect(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Boolean: do broadcast rects ``a[..., 4]``, ``b[..., 4]`` overlap (a
+    positive or zero-width touching area counts)?"""
+    return (
+        (torch.maximum(a[..., 0], b[..., 0]) <= torch.minimum(a[..., 2], b[..., 2]))
+        & (torch.maximum(a[..., 1], b[..., 1]) <= torch.minimum(a[..., 3], b[..., 3]))
+    )
+
+
+def rect_union_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """MBR of two broadcast rect tensors."""
+    return torch.stack(
+        [
+            torch.minimum(a[..., 0], b[..., 0]),
+            torch.minimum(a[..., 1], b[..., 1]),
+            torch.maximum(a[..., 2], b[..., 2]),
+            torch.maximum(a[..., 3], b[..., 3]),
+        ],
+        dim=-1,
+    )
+
+
+def _part1by1(v: torch.Tensor) -> torch.Tensor:
+    """Spread the low 16 bits of int64 ``v`` over its even bit positions."""
+    v = v & 0x0000FFFF
+    v = (v | (v << 8)) & 0x00FF00FF
+    v = (v | (v << 4)) & 0x0F0F0F0F
+    v = (v | (v << 2)) & 0x33333333
+    v = (v | (v << 1)) & 0x55555555
+    return v
+
+
+def morton_encode(ix, iy) -> torch.Tensor:
+    """Interleave integer coordinates (their low 16 bits) into Z-order
+    codes, int32 as the reference returns them: a code of 2**31 or more
+    (``iy`` >= 2**15) wraps negative.  Computed in int64, which torch
+    shifts on every device (it shifts no ``uint32`` on the CPU)."""
+    ix = torch.as_tensor(ix).to(torch.int64)
+    iy = torch.as_tensor(iy).to(torch.int64)
+    code = _part1by1(ix) | (_part1by1(iy) << 1)
+    return torch.where(code >= 2**31, code - 2**32, code).to(torch.int32)
+
+
 def morton_encode_np(ix: np.ndarray, iy: np.ndarray) -> np.ndarray:
     """Interleave integer coordinates (< 2**16) into Z-order codes, int64."""
     ix = ix.astype(np.uint32)
@@ -42,6 +85,17 @@ def morton_encode_np(ix: np.ndarray, iy: np.ndarray) -> np.ndarray:
         return v
 
     return (part(ix) | (part(iy) << np.uint32(1))).astype(np.int64)
+
+
+def point_to_cell(x, y, grid: int):
+    """Integer cell coordinates (int32, clipped to the grid) of points in
+    a ``grid``² grid over the unit square; ``x * grid`` truncates toward
+    zero, as the reference's ``astype``."""
+    def cell(v):
+        v = torch.as_tensor(v)
+        return torch.clamp((v * grid).to(torch.int32), 0, grid - 1)
+
+    return cell(x), cell(y)
 
 
 def rect_to_cell_range(r: torch.Tensor, grid: int):
@@ -96,3 +150,8 @@ def enumerate_rect_tiles(r: torch.Tensor, grid: int, max_tiles: int):
     tiy = torch.clamp(iy0[..., None] + rel_y, 0, grid - 1)
     tile_ids = (tiy * grid + tix).to(torch.int32)
     return torch.where(valid, tile_ids, 0), valid
+
+
+def rect_center(r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Centres ``(x, y)`` of rects ``r[..., 4]``."""
+    return (r[..., 0] + r[..., 2]) * 0.5, (r[..., 1] + r[..., 3]) * 0.5

@@ -32,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from functools import partial
+from functools import cache, partial
 from typing import Callable
 
 import torch
@@ -45,6 +45,7 @@ from repro_torch.data import graph as graph_data
 from repro_torch.data import recsys as rec_data
 from repro_torch.data.lm import LMDataConfig, lm_batch, lm_input_specs
 from repro_torch.device import resolve_device
+from repro_torch.launch.roofline import count_step
 from repro_torch.models import egnn as egnn_lib
 from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tf_lib
@@ -435,7 +436,7 @@ def recsys_loss(cfg):
     raise ValueError(name)
 
 
-def _recsys_forward(cfg):
+def recsys_forward(cfg):
     """The CTR models' forward(params, batch); None for two-tower, whose
     serve step is its user tower."""
     name = type(cfg).__name__
@@ -490,6 +491,51 @@ def _recsys_flops(cfg, B: int, train: bool) -> float:
     return (3.0 if train else 1.0) * per * B
 
 
+# the transient bytes one chunk of a CTR retrieval may take (the one-call
+# forward's count, by ``count_step``); the rest of an 80 GB card holds the
+# parameters, the candidates, the [N] scores and their sort.  A constant,
+# not the free memory, so the chunking is the same from run to run
+RETRIEVAL_TRANSIENT_BYTES = 24 * 2**30
+RETRIEVAL_PROBE_ROWS = (1024, 4096)
+
+
+@cache
+def retrieval_row_bytes(cfg) -> int:
+    """The transient bytes a candidate row of the CTR forward takes:
+    :func:`~repro_torch.launch.roofline.count_step` of the one-call
+    forward on ``meta`` at :data:`RETRIEVAL_PROBE_ROWS`, which must give
+    the same figure per row."""
+    fwd = recsys_forward(cfg)
+    params = param_shapes(cfg.param_defs())
+    per = set()
+    for n in RETRIEVAL_PROBE_ROWS:
+        batch = recsys_input_specs(cfg, n)
+        batch.pop("label", None)
+        t = count_step(fwd, (params, batch)).transient
+        per.add(t / n)
+    if len(per) != 1 or not float(next(iter(per))).is_integer():
+        raise RuntimeError(f"{cfg.name}: transient bytes per row differ across "
+                           f"{RETRIEVAL_PROBE_ROWS} rows: {sorted(per)}")
+    return int(per.pop())
+
+
+def retrieval_chunk_rows(cfg, rows: int) -> int:
+    """Rows a chunk of the CTR retrieval over ``rows`` candidate rows: the
+    largest power of two whose transient bytes
+    (:func:`retrieval_row_bytes`) fit :data:`RETRIEVAL_TRANSIENT_BYTES`,
+    capped at ``rows`` (one call when it fits)."""
+    fit = max(RETRIEVAL_TRANSIENT_BYTES // retrieval_row_bytes(cfg), 1)
+    return min(1 << (fit.bit_length() - 1), rows)
+
+
+def _rows_per_device(batch: dict) -> int:
+    """The rows of ``batch`` one device holds: a meta tensor's shard of
+    its rows on its mesh, else all of them."""
+    t = next(iter(batch.values()))
+    sh = getattr(t, "sharding", None)
+    return sh.shard_shape(tuple(t.shape))[0] if sh is not None else t.shape[0]
+
+
 def _tower_flops(dims: list[int]) -> float:
     return sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
 
@@ -507,12 +553,16 @@ def _two_tower_retrieval_flops(cfg, B: int, Nc: int) -> float:
 
 def build_recsys_cell(
     spec: ArchSpec, shape: ShapeSpec, device=None, seed: int = 0, geo: dict | None = None,
-    mesh=None,
+    mesh=None, chunk_rows: int | None | str = "auto",
 ) -> Cell:
     """The (arch, shape) cell with its inputs on ``device`` (CUDA unless
     given).  ``geo`` (two-tower ``recsys_retrieval`` only) is the
     reference's geo dict: ``cand_rects [Nc,R,4]``, ``cand_amps [Nc,R]``,
-    ``q_rects [Q,4]``, ``q_amps [Q]``, ``weight``.  ``recsys_train``
+    ``q_rects [Q,4]``, ``q_amps [Q]``, ``weight``.  The CTR models'
+    ``recsys_retrieval`` scores its candidates in chunks of ``chunk_rows``
+    rows a device (:func:`~repro_torch.models.recsys.forward_in_row_chunks`;
+    None: one call; ``"auto"``: :func:`retrieval_chunk_rows` of the rows a
+    device holds), then takes one top-100 of all.  ``recsys_train``
     steps with :data:`TRAIN_OPT`.  On ``meta`` the cell is shapes-only,
     sharded on ``mesh``; on a
     :class:`~repro_torch.core.distributed.ProcessMesh` (on its device unless
@@ -525,7 +575,7 @@ def build_recsys_cell(
         raise ValueError("geo applies to the two-tower retrieval cell only")
     dev = _cell_device(device, mesh)
     meta = _is_meta(dev)
-    fwd = _recsys_forward(cfg)
+    fwd = recsys_forward(cfg)
     params = param_shapes(cfg.param_defs(), mesh) if meta else cfg.init(seed, dev)
 
     def batch_of(B: int) -> dict:
@@ -580,17 +630,25 @@ def build_recsys_cell(
                 spec.name, shape.name, fn, (params, batch, cand_ids, cand_fields),
                 model_flops=_two_tower_retrieval_flops(cfg, B, Nc),
             )
-        # CTR models: retrieval scoring = candidate-major forward batch
+        # CTR models: retrieval scoring = candidate-major forward batch,
+        # in row chunks a device; on a mesh a chunk spans that many rows of
+        # every device's share
         batch = batch_of(Nc)
         batch.pop("label", None)
+        rows = _rows_per_device(batch)
+        chunk = retrieval_chunk_rows(cfg, rows) if chunk_rows == "auto" else chunk_rows
+        span = None if chunk is None or chunk >= rows else chunk * (Nc // rows)
 
         def fn(prm, batch):
-            return select_top(fwd(prm, batch), 100)
+            return select_top(rec_lib.forward_in_row_chunks(fwd, prm, batch, span), 100)
 
+        how = ("one call" if span is None
+               else f"{chunk} rows a chunk, {-(-rows // chunk)} chunks")
         return Cell(
             spec.name, shape.name, fn, (params, batch),
             model_flops=_recsys_flops(cfg, Nc, False),
-            note="candidate-major scoring (1 user context broadcast into rows)",
+            note=f"candidate-major scoring (1 user context broadcast into rows); {rows} rows "
+                 f"a device, {how}",
         )
     raise ValueError(shape.kind)
 

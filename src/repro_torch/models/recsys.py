@@ -21,6 +21,8 @@ path), with the reference's gradients: a clamped padding id masks row 0's
 gradient to zero, and ``max`` bags split a tie's gradient evenly
 (``amax``, as JAX's ``max``).  The two-tower in-batch softmax runs as
 :class:`InBatchSoftmaxNLL`, which keeps one [B, B] buffer.
+:func:`forward_in_row_chunks` runs a CTR forward over row slices, so a
+candidate batch larger than one card's memory scores on one card.
 """
 from __future__ import annotations
 
@@ -516,3 +518,30 @@ def bst_forward(cfg: BSTConfig, p: dict, batch: dict) -> torch.Tensor:
 def bst_loss(cfg: BSTConfig, params: dict, batch: dict):
     loss = _bce(bst_forward(cfg, params, batch), batch["label"])
     return loss, {"bce": loss}
+
+
+# ---------------------------------------------------------------------------
+# Row-chunked scoring
+# ---------------------------------------------------------------------------
+
+def forward_in_row_chunks(fwd, params: dict, batch: dict, chunk_rows: int | None) -> torch.Tensor:
+    """``fwd(params, batch)`` → f32[N] over ``batch``'s N rows, run on
+    slices of ``chunk_rows`` rows (views of every batch tensor along dim 0;
+    the last slice may be ragged), each slice's scores written into one
+    [N] output so no slice's intermediates outlive it.  With
+    ``chunk_rows`` None or ``>= N`` it is the one call ``fwd(params,
+    batch)``.  The CTR forwards score each row from that row alone, so
+    the result is the one call's (the reference scores its candidates in
+    one call, sharded over its mesh)."""
+    n = next(iter(batch.values())).shape[0]
+    if chunk_rows is None or chunk_rows >= n:
+        return fwd(params, batch)
+    if chunk_rows < 1:
+        raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
+    out = None
+    for lo in range(0, n, chunk_rows):
+        s = fwd(params, {k: v[lo:lo + chunk_rows] for k, v in batch.items()})
+        if out is None:
+            out = s.new_empty((n,))
+        out[lo:lo + s.shape[0]] = s
+    return out
