@@ -199,7 +199,7 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    ``prefill_32k`` and ``decode_32k`` cells (and SmolLM-135M's
    ``long_500k_sliding``) at the batch and sequence of ``LM_CUTS``, each
    cut printed with its KV arithmetic: ms per prefill or decode step (CUDA
-   events, median of 3 after a warm-up; the 65,536-token step once),
+   events, median of 3 after a warm-up; the 32,768-token step once),
    tokens/s, model FLOPs as a share of 989e12, peak memory, finite logits.
    It runs after phase 11 and before phase 5.
 13. runs the MoE LMs (``olmoe-1b-7b``, ``granite-moe-1b-a400m``: the
@@ -315,6 +315,33 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    power limit are printed beside its times.  It launches no kernel, and
    runs after phase 15 and before phase 5.  No run on several cards is
    possible on one card's host.
+18. runs the ``model`` axis across processes (tensor parallelism of the
+   dense LM, resharding checkpoints, elastic resume): one ``run_ranks``
+   call of 4 ``gloo`` ranks on ``cuda:0``, the (2, 2) data x model process
+   mesh: Qwen1.5-0.5B ``train_4k`` at published widths (16 heads, kv 16,
+   d_ff 2,816, vocab 151,936; depth cut to ``TP_LAYERS`` layers), f32
+   compute (the CPU tests' tolerances), global batch 2 x 2,048, ZeRO-1,
+   ``TP_OPT``, 2 steps: each rank holds only its ``param_specs`` blocks and
+   their moment blocks, their bytes exactly the dry-run's per-device
+   count on the same mesh shape; ms per step a rank, the ``model``
+   collectives of one step's gradients counted, timed and sized; then a
+   checkpoint with the state's shardings (save s).  Against one process's
+   ``microbatches=2`` step on the card: the losses within
+   ``TP_LOSS_TOL``, the checkpoint's gathered parameters within
+   ``TP_PARAM_ATOL`` and ``TP_TRAJ_TOL``.  Then 2 ``gloo`` ranks resume on
+   ``plan_elastic_mesh``'s (1, 2): restore s, every restored block
+   bitwise the checkpoint's global slice, one step, its loss within
+   ``TP_LOSS_TOL`` of the one-process third step.  Then one ``nccl`` rank
+   at world size 1 (the SMOKE config on a (1, 1) mesh): steps, a sharded
+   checkpoint, its restore and one more step, bitwise the one-card cell.
+   (e) The published bf16 compute, in the same ranks before their steps:
+   the initial blocks' gradients and loss against one process's
+   ``microbatches=2`` bf16 step (drawn on each rank), the loss's relative
+   gap and the largest leaf's relative distance over the whole array
+   within ``TP_BF16_GAP_FACTOR`` times one process's bf16 step's gaps from
+   its f32 step.
+   It launches no kernel, and runs after phase 17 and before phase 5.  No
+   run on several cards is possible on one card's host.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -389,8 +416,9 @@ TWIN_QUERIES = 512
 TWIN_RATE_QPS = 6400.0
 TWIN_SERVICE_S = 1e-3
 # phase 8: (a)'s runs of each side (3 until PR 26, cut to 2 for phase 16's
-# time beside the halved LM_CUTS), and the serving CLI's subprocess
-TEL_RUNS = 2
+# time beside the halved LM_CUTS, to 1 for phase 18's), and the serving
+# CLI's subprocess
+TEL_RUNS = 1
 CLI_TIMEOUT_S = 600
 # phase 8 (c)'s CLI: 2^18 docs (N_DOCS until PR 27, cut for phase 17's time)
 CLI_N_DOCS = 1 << 18
@@ -447,27 +475,28 @@ SPIN_CYCLES = 40_000_000  # ~20 ms at 1.98 GHz
 # (global_batch, seq_len) per (arch, shape)
 LM_ARCHS = ("smollm-135m", "qwen1.5-0.5b", "qwen2.5-14b")
 # (the MoE LMs' cells, phase 13 (b), are the last four)
-# PR 26 halved each cut for phase 16's time (the decodes' batch, keeping
-# their 32,768 keys; the prefills' length; the window step's length)
+# PR 26 halved each cut for phase 16's time and PR 29 again for phase
+# 18's (the decodes' batch, keeping their 32,768 keys, down to 1; the
+# prefills' length; the window step's length)
 LM_CUTS = {
-    ("smollm-135m", "prefill_32k"): (1, 4096),
-    ("smollm-135m", "decode_32k"): (32, 32768),
-    ("smollm-135m", "long_500k_sliding"): (1, 65536),
-    ("qwen1.5-0.5b", "prefill_32k"): (1, 4096),
-    ("qwen1.5-0.5b", "decode_32k"): (8, 32768),
-    ("qwen2.5-14b", "prefill_32k"): (1, 2048),
+    ("smollm-135m", "prefill_32k"): (1, 2048),
+    ("smollm-135m", "decode_32k"): (16, 32768),
+    ("smollm-135m", "long_500k_sliding"): (1, 32768),
+    ("qwen1.5-0.5b", "prefill_32k"): (1, 2048),
+    ("qwen1.5-0.5b", "decode_32k"): (4, 32768),
+    ("qwen2.5-14b", "prefill_32k"): (1, 1024),
     ("qwen2.5-14b", "decode_32k"): (1, 32768),
-    ("olmoe-1b-7b", "prefill_32k"): (1, 4096),
-    ("olmoe-1b-7b", "decode_32k"): (2, 32768),
-    ("granite-moe-1b-a400m", "prefill_32k"): (1, 4096),
-    ("granite-moe-1b-a400m", "decode_32k"): (8, 32768),
+    ("olmoe-1b-7b", "prefill_32k"): (1, 2048),
+    ("olmoe-1b-7b", "decode_32k"): (1, 32768),
+    ("granite-moe-1b-a400m", "prefill_32k"): (1, 2048),
+    ("granite-moe-1b-a400m", "decode_32k"): (4, 32768),
 }
 LM_SEED = 0
 LM_WARMUP = 1
 LM_RUNS = 3
 # long_500k_sliding: one step, no warm-up (cut from the published 524,288
 # keys, 1,024 KV chunks per layer, 14-26 s on the card, host-bound in the
-# flash loop, to 65,536: the script's time limit)
+# flash loop, to 65,536 (PR 26), then 32,768 (PR 29): the script's time limit)
 LM_LONG = (0, 1)
 # decode of token S after an S-token prefill vs an (S+1)-token prefill's
 # last position, at full width in bf16.  The 513-token prefill runs as one
@@ -534,6 +563,29 @@ TRAIN_DP_CUT = (4, 4096)
 TRAIN_DP_STEPS = 2
 TRAIN_GNN_STEPS = 2
 TRAIN_TIMEOUT_S = 600
+# phase 18: the model axis across processes: Qwen1.5-0.5B train_4k at
+# published widths on the (2, 2) data x model mesh of 4 gloo ranks, then
+# resumed on (1, 2); depth cut to TP_LAYERS (the vocab's 311M parameters
+# are most of the model either way), global batch 2 x 2,048 (one sequence
+# per data shard; published 256 x 4,096), f32 compute so the CPU tests'
+# tolerances hold (tests/test_torch_tensor_parallel.py)
+TP_ARCH = "qwen1.5-0.5b"
+TP_MESH = (2, 2)
+TP_LAYERS = 4
+TP_CUT = (2, 2048)
+TP_STEPS = 2
+TP_OPT = dict(lr=1e-3, warmup_steps=2, zero1=True)  # tests/test_elastic.py's, ZeRO-1
+TP_LOSS_TOL = dict(rtol=1e-5, atol=0)  # tests/test_torch_tensor_parallel.py's LOSS_TOL
+# its PARAM_ATOL and TRAJ_TOL (phase 13 (d)'s LM_STEP_TOL atol and
+# LM_TRAJ_TOL): every parameter within lr, each leaf's distance from one
+# process's within 1e-2 of the distance it travelled
+TP_PARAM_ATOL = TP_OPT["lr"]
+TP_TRAJ_TOL = LM_TRAJ_TOL
+# (e) the published bf16 compute: the tensor-parallel gradients' and loss's
+# gaps from one process's bf16 step within this factor of that step's own
+# gaps from one process's f32 step (the test's BF16_GAP_FACTOR)
+TP_BF16_GAP_FACTOR = 2
+TP_TIMEOUT_S = 600
 COMPRESS_REL = 0.05  # tests/test_distributed.py's bound on the int8 mean
 GNN_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)  # tests/test_torch_egnn.py's GRAD_TOL
 GNN_BF16_REL = 2.0**-5  # tests/test_torch_egnn.py's BF16_REL: the loss against loss_fn
@@ -674,7 +726,7 @@ def main() -> int:
 
 
 def run_phases(dry: dict, stacked: dict) -> int:
-    """Phases 1 to 17 and 5 (see the module docstring)."""
+    """Phases 1 to 18 and 5 (see the module docstring)."""
     import numpy as np
 
     import torch
@@ -1320,6 +1372,9 @@ def run_phases(dry: dict, stacked: dict) -> int:
     torch.cuda.empty_cache()
     # ---- phase 17: the train-side collectives across processes -----------
     train_collectives_phase()
+    torch.cuda.empty_cache()
+    # ---- phase 18: the model axis across processes -----------------------
+    tensor_parallel_phase()
     torch.cuda.empty_cache()
     for row in table:
         main_counts[row["name"]] += (serve_counts[row["name"]] + shard_counts[row["name"]]
@@ -3909,6 +3964,437 @@ def train_collectives_phase() -> None:
         f"full graph) == the one-card loop, bitwise (params, loss, grad_norm; loss, accuracy, "
         f"gradients); {nccl_ms / 1e3:.1f} s with the rank's start-up")
     say(f"phase 17: {time.perf_counter() - t_phase:.1f} s; no run on several cards was "
+        "possible (one card on this host)")
+
+
+def _tp_spec(n_layers: int = TP_LAYERS):
+    """Phase 18's arch (f32 compute, ``n_layers`` deep) and its
+    ``train_4k`` at ``TP_CUT``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+
+    spec = get_arch(TP_ARCH)
+    cfg = dataclasses.replace(spec.config, n_layers=n_layers, compute_dtype=torch.float32)
+    spec = dataclasses.replace(spec, config=cfg)
+    shape = spec.shape("train_4k")
+    B, S = TP_CUT
+    return spec, dataclasses.replace(shape, params={**shape.params, "global_batch": B,
+                                                    "seq_len": S})
+
+
+def _tp_batches(cfg, dev, n: int) -> list:
+    from repro_torch.data.lm import LMDataConfig, lm_batch
+
+    B, S = TP_CUT
+    return [lm_batch(LMDataConfig(cfg.vocab, S, B, LM_SEED), s, dev) for s in range(n)]
+
+
+def _tp_step(cfg, mesh, microbatches: int = 1):
+    """``TP_OPT``'s step: on a process mesh data- and tensor-parallel,
+    with the moments' ZeRO-1 shardings; else one process's."""
+    from repro_torch.core import ProcessMesh
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding.specs import use_sharding
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    opt = OptimizerConfig(**TP_OPT)
+    loss = lambda p, b: tf.loss_fn(cfg, p, b)  # noqa: E731
+    if not isinstance(mesh, ProcessMesh):
+        return make_train_step(loss, opt, microbatches)
+    with use_sharding(mesh):
+        return make_train_step(loss, opt, moment_shardings=steps.moment_shardings(
+            cfg.param_defs(), mesh))
+
+
+def _state_bytes(params, opt) -> dict:
+    from repro_torch.train.tree import leaves
+
+    return {"param_bytes": sum(x.nbytes for x in leaves(params)),
+            "moment_bytes": sum(x.nbytes for x in leaves(opt["m"]) + leaves(opt["v"]))}
+
+
+def _tp_rank(rank: int, device: str, ckpt_dir: str) -> dict:
+    """Phase 18, one rank of the (2, 2) process mesh: the cell's blocks,
+    the steps, the ``model`` collectives of one step's gradients, the
+    sharded checkpoint."""
+    import torch
+
+    from repro_torch.core import ProcessMesh, make_process_mesh
+    from repro_torch.launch import steps
+    from repro_torch.train import checkpoint as ckpt
+
+    torch.set_num_threads(1)
+    cuda = device == "cuda"
+    mesh = make_process_mesh(TP_MESH, TRAIN_AXES, device=None if cuda else device)
+    out = {"device": str(mesh.device), "ready": time.time()}
+    spec, shape = _tp_spec()
+    cfg = spec.config
+    (cell, out["init_ms"]) = _timed(lambda: steps.build_lm_cell(spec, shape, seed=LM_SEED,
+                                                                  mesh=mesh), device)
+    params, opt, _ = cell.args
+    out.update(_state_bytes(params, opt))
+    batches = _tp_batches(cfg, mesh.device, TP_STEPS)
+    out["bf16"] = _tp_bf16_gaps(cfg, mesh, params, batches[0], device)
+    step = _tp_step(cfg, mesh)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out["ms"], out["losses"], out["norms"] = [], [], []
+    for b in batches:
+        (params, opt, m), t = _timed(lambda: step(params, opt, b), device)
+        out["ms"].append(t)
+        out["losses"].append(float(m["loss"]))
+        out["norms"].append(float(m["grad_norm"]))
+    out["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+    # the model axis's collectives of one step's gradients (forward,
+    # backward and remat's recomputation), each timed between syncs
+    gather, stats = ProcessMesh.gather_axes, {"n": 0, "bytes": 0, "ms": 0.0}
+
+    def counted(self, tensors, axes):
+        if tuple(axes) != ("model",):
+            return gather(self, tensors, axes)
+        got, t = _timed(lambda: gather(self, tensors, axes), device)
+        stats["n"] += 1
+        stats["bytes"] += sum(x.nbytes for x in tensors)
+        stats["ms"] += t
+        return got
+
+    ProcessMesh.gather_axes = counted
+    try:
+        _, out["grads_ms"] = _timed(lambda: step.value_and_grad(params, batches[0]), device)
+    finally:
+        ProcessMesh.gather_axes = gather
+    out["model_collectives"] = stats
+    _, out["save_ms"] = _timed(lambda: ckpt.save_checkpoint(
+        ckpt_dir, TP_STEPS, (params, opt), shardings=steps.state_shardings(cfg.param_defs(),
+                                                                           mesh)), device)
+    out["coords"] = mesh.coords_of(mesh.rank)
+    return out
+
+
+def _bf16(cfg):
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+
+
+def _tp_bf16_gaps(cfg, mesh, params, batch, device: str) -> dict:
+    """Phase 18 (e) on one rank, before any step: the bf16 step's
+    tensor-parallel gradients of the initial blocks ``params`` and one
+    process's ``microbatches=D`` gradients of the whole initial model,
+    drawn on this rank; per leaf the squared distance of this rank's blocks
+    and the squared norm of one process's block."""
+    from repro_torch.models.params import param_shardings, place_params
+    from repro_torch.train.tree import leaves
+
+    cfg16 = _bf16(cfg)
+    (loss, _, grads), ms = _timed(
+        lambda: _tp_step(cfg16, mesh).value_and_grad(params, batch), device)
+    whole = cfg16.init(LM_SEED, mesh.device)
+    loss1, _, g1 = _tp_step(cfg16, None, TP_MESH[0]).value_and_grad(whole, batch)
+    del whole
+    ref = leaves(place_params(g1, param_shardings(cfg.param_defs(), mesh)))
+    out = {"loss": float(loss), "one_loss": float(loss1), "grads_ms": ms,
+           "err_sq": [float((a - b).double().square().sum())
+                      for a, b in zip(leaves(grads), ref, strict=True)],
+           "ref_sq": [float(b.double().square().sum()) for b in ref]}
+    del g1, ref, grads
+    return out
+
+
+def _leaf_gaps(a, b) -> list:
+    """Each leaf's relative L2 distance of tree ``a`` from tree ``b``."""
+    from repro_torch.train.tree import leaves
+
+    return [float((x - y).double().norm() / y.double().norm())
+            for x, y in zip(leaves(a), leaves(b), strict=True)]
+
+
+def _tp_resume_rank(rank: int, device: str, ckpt_dir: str) -> dict:
+    """Phase 18, one rank of the elastic (1, 2) mesh: restore, every block
+    against the checkpoint's global slice, one step."""
+    import json as json_lib
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_process_mesh
+    from repro_torch.launch import steps
+    from repro_torch.sharding.specs import local_block
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault import plan_elastic_mesh
+    from repro_torch.train.tree import flatten_with_paths, leaves
+
+    torch.set_num_threads(1)
+    cuda = device == "cuda"
+    shape = plan_elastic_mesh(n_alive_hosts=1, chips_per_host=2, model_parallel=TP_MESH[1])
+    mesh = make_process_mesh(shape, TRAIN_AXES, device=None if cuda else device)
+    out = {"shape": shape, "ready": time.time()}
+    spec, tshape = _tp_spec()
+    cfg = spec.config
+    cell = steps.build_lm_cell(spec, tshape, seed=LM_SEED, mesh=mesh)
+    shardings = steps.state_shardings(cfg.param_defs(), mesh)
+    (params, opt), out["restore_ms"] = _timed(lambda: ckpt.restore_checkpoint(
+        ckpt_dir, TP_STEPS, cell.args[:2], shardings), device)
+    del cell
+    out.update(_state_bytes(params, opt))
+    final = os.path.join(ckpt_dir, f"step_{TP_STEPS:08d}")
+    with open(os.path.join(final, "manifest.json")) as f:
+        files = {m["path"]: m["file"] for m in json_lib.load(f)["leaves"]}
+    same = []
+    for (path, x), sh in zip(flatten_with_paths((params, opt)), leaves(shardings)):
+        want = np.ascontiguousarray(local_block(
+            np.load(os.path.join(final, files[path]), mmap_mode="r"), sh))
+        same.append(x.cpu().numpy().tobytes() == want.tobytes())
+    out["restored_bitwise"], out["n_leaves"] = all(same), len(same)
+    b = _tp_batches(cfg, mesh.device, TP_STEPS + 1)[TP_STEPS]
+    (params, opt, m), out["step_ms"] = _timed(lambda: _tp_step(cfg, mesh)(params, opt, b),
+                                              device)
+    out["loss"] = float(m["loss"])
+    return out
+
+
+def _tp_nccl_rank(rank: int, device: str, ckpt_dir: str) -> dict:
+    """Phase 18 at world size 1: the SMOKE config on a (1, 1) mesh, 2
+    steps, a sharded checkpoint, its restore, one more step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import make_process_mesh
+    from repro_torch.launch import steps
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.tree import leaves
+
+    mesh = make_process_mesh((1, 1), TRAIN_AXES, device=None if device == "cuda" else device)
+    spec, shape = _tp_spec()
+    spec = dataclasses.replace(spec, config=dataclasses.replace(
+        spec.smoke_config, compute_dtype=torch.float32))
+    cfg = spec.config
+    cell = steps.build_lm_cell(spec, _smoke_train_cut(spec), seed=LM_SEED, mesh=mesh)
+    params, opt, batch = cell.args
+    step = _tp_step(cfg, mesh)
+    runs = []
+    for i in range(TP_STEPS + 1):
+        if i == TP_STEPS:
+            shardings = steps.state_shardings(cfg.param_defs(), mesh)
+            ckpt.save_checkpoint(ckpt_dir, i, (params, opt), shardings=shardings)
+            params, opt = ckpt.restore_checkpoint(ckpt_dir, i, (params, opt), shardings)
+        params, opt, m = step(params, opt, batch)
+        runs.append((_digest(leaves(params)), m["loss"].cpu().numpy().tobytes()))
+    return {"device": str(mesh.device), "backend": mesh.backend, "runs": runs}
+
+
+def tensor_parallel_phase() -> None:
+    """Phase 18: the model axis across processes (see the module
+    docstring)."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import make_mesh
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch import steps
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models.params import param_shardings
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.tree import flatten_with_paths, leaves
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    n = math.prod(TP_MESH)
+    spec, shape = _tp_spec()
+    cfg = spec.config
+    B0, S0 = (spec.shape("train_4k").params[k] for k in ("global_batch", "seq_len"))
+    L0 = get_arch(TP_ARCH).config.n_layers
+    say(f"phase 18: {card_line()}")
+    tmp = tempfile.mkdtemp(prefix="tp-ckpt-")
+    try:
+        # (a) 4 gloo ranks on the (2, 2) mesh: steps and the sharded checkpoint
+        t0, t = time.time(), time.perf_counter()
+        outs = run_ranks(_tp_rank, n, args=(DEVICE, tmp), backend="gloo",
+                         timeout_s=TP_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t
+        start_s = [o["ready"] - t0 for o in outs]
+        for o in outs[1:]:
+            check(o["losses"] == outs[0]["losses"] and o["norms"] == outs[0]["norms"],
+                  "phase 18 (a): the ranks' losses or grad norms differ")
+        # the dry-run's per-device bytes on the same mesh shapes
+        want = {}
+        for mshape in (TP_MESH, (1, TP_MESH[1])):
+            meta = make_mesh(mshape, TRAIN_AXES, device="meta")
+            p_meta, o_meta, _ = steps.build_lm_cell(spec, shape, device="meta", mesh=meta).args
+            want[mshape] = (rf.arg_counts((p_meta,), meta)["arg_bytes_dev"],
+                            rf.arg_counts((o_meta["m"], o_meta["v"]), meta)["arg_bytes_dev"])
+        for r, o in enumerate(outs):
+            check((o["param_bytes"], o["moment_bytes"]) == want[TP_MESH],
+                  f"phase 18 (a): rank {r} holds {o['param_bytes']} parameter and "
+                  f"{o['moment_bytes']} moment bytes, the dry-run {want[TP_MESH]}")
+        mc = outs[0]["model_collectives"]
+        o0 = outs[0]
+        say(f"phase 18 (a): {TP_ARCH} train_4k at published widths ({cfg.n_heads} heads, kv "
+            f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), {cfg.n_layers} layers "
+            f"(published {L0}), f32 compute, global batch {TP_CUT[0]} x {TP_CUT[1]} (published "
+            f"{B0} x {S0}), remat {cfg.remat}, ZeRO-1, {TP_STEPS} steps on {n} gloo ranks as "
+            f"{dict(zip(TRAIN_AXES, TP_MESH))} on {sorted({o['device'] for o in outs})}: rank "
+            f"start-up {min(start_s):.1f}-{max(start_s):.1f} s, the ranks' whole run "
+            f"{ranks_s:.1f} s; ms per step a rank {[[round(x, 1) for x in o['ms']] for o in outs]}; "
+            f"parameters {o0['param_bytes']:,} B and moments {o0['moment_bytes']:,} B a rank (= "
+            f"the dry-run's per-device count); one step's gradients {o0['grads_ms']:.1f} ms, of "
+            f"it {mc['n']} model collectives {mc['ms']:.1f} ms moving {mc['bytes'] / 1e6:.1f} MB "
+            f"a rank; save {o0['save_ms'] / 1e3:.2f} s; peak "
+            f"{[round(o['peak'] / 2**30, 2) for o in outs]} GiB; {card_line()}")
+        # (b) one process's microbatches=2 step on the card, against the
+        # ranks' losses and the checkpoint's gathered parameters
+        cell = steps.build_lm_cell(spec, shape, dev, LM_SEED)
+        params = cell.args[0]
+        whole = _state_bytes(params, cell.args[1])
+        del cell
+        # (e)'s reference: one process's bf16 gradients' gaps from its f32
+        b0 = _tp_batches(cfg, dev, 1)[0]
+        (l16, _, g16), (l32, _, g32) = (
+            _tp_step(c, None, TP_MESH[0]).value_and_grad(params, b0) for c in (_bf16(cfg), cfg))
+        floor = {"loss": abs(float(l16) / float(l32) - 1), "grad": max(_leaf_gaps(g16, g32))}
+        del g16, g32
+        torch.cuda.empty_cache()
+        init = [x.clone() for x in leaves(params)]
+        opt = init_opt_state(OptimizerConfig(**TP_OPT), params)
+        step = _tp_step(cfg, None, microbatches=TP_MESH[0])
+        batches = _tp_batches(cfg, dev, TP_STEPS + 1)
+        one_ms, one_losses = [], []
+        param_err, traj = 0.0, 0.0
+        for b in batches:
+            (params, opt, m), t = _timed(lambda: step(params, opt, b), DEVICE)
+            one_ms.append(t)
+            one_losses.append(float(m["loss"]))
+            if len(one_losses) != TP_STEPS:
+                continue
+            final = os.path.join(tmp, f"step_{TP_STEPS:08d}")
+            with open(os.path.join(final, "manifest.json")) as f:
+                files = {mm["path"]: mm["file"] for mm in json.load(f)["leaves"]}
+            for (path, x), x0 in zip(flatten_with_paths(params), init):
+                a = torch.from_numpy(np.load(os.path.join(final, files[f"[0]/{path}"])))
+                check(tuple(a.shape) == tuple(x.shape),
+                      f"phase 18 (b): {path} checkpointed as {tuple(a.shape)}")
+                d = a.to(dev) - x
+                param_err = max(param_err, float(d.abs().max()))
+                traj = max(traj, float(d.norm() / (x - x0).norm()))
+        del params, opt, init
+        torch.cuda.empty_cache()
+        say(f"phase 18 (b): losses {o0['losses']} against one process's microbatches="
+            f"{TP_MESH[0]} {one_losses[:TP_STEPS]} (within {TP_LOSS_TOL['rtol']:g}), ms per step "
+            f"{[round(x, 1) for x in one_ms]}; the checkpoint's gathered parameters after "
+            f"{TP_STEPS} AdamW steps: max abs {param_err:.4g} (<= {TP_PARAM_ATOL:g}), each leaf's "
+            f"distance at most {traj:.4g} of its travel (<= {TP_TRAJ_TOL:g})")
+        check(np.allclose(outs[0]["losses"], one_losses[:TP_STEPS], **TP_LOSS_TOL),
+              f"phase 18 (b): losses {outs[0]['losses']} vs one process's {one_losses}")
+        check(param_err <= TP_PARAM_ATOL and traj <= TP_TRAJ_TOL,
+              f"phase 18 (b): the checkpoint's parameters are {param_err} ({traj} of their "
+              "travel) from one process's")
+        # (e) bf16 compute: the ranks' gradients of the initial blocks
+        # against one process's, each leaf over the mesh's whole array
+        plain = leaves(param_shardings(cfg.param_defs(),
+                                       make_mesh(TP_MESH, TRAIN_AXES, device="meta")))
+        first = [r for r, o in enumerate(outs) if o["coords"]["data"] == 0]
+        gaps = []
+        for j, sh in enumerate(plain):
+            ranks = first if sh.n_shards > 1 else [0]
+            err = sum(outs[r]["bf16"]["err_sq"][j] for r in ranks)
+            gaps.append(math.sqrt(err / sum(outs[r]["bf16"]["ref_sq"][j] for r in ranks)))
+        bf = {"loss": abs(o0["bf16"]["loss"] / o0["bf16"]["one_loss"] - 1), "grad": max(gaps)}
+        for o in outs[1:]:
+            check(o["bf16"]["loss"] == o0["bf16"]["loss"],
+                  "phase 18 (e): the ranks' bf16 losses differ")
+        say(f"phase 18 (e): bf16 compute (published), the initial blocks' gradients on "
+            f"{dict(zip(TRAIN_AXES, TP_MESH))} against one process's microbatches={TP_MESH[0]}: "
+            f"loss {bf['loss']:.4g} relative, largest leaf distance {bf['grad']:.4g} (leaf "
+            f"{int(np.argmax(gaps))}); one process's bf16 from its f32: {floor['loss']:.4g}, "
+            f"{floor['grad']:.4g}; bound {TP_BF16_GAP_FACTOR} x the latter; the ranks' bf16 "
+            f"gradients "
+            f"{[round(o['bf16']['grads_ms'], 1) for o in outs]} ms; {card_line()}")
+        for k in bf:
+            check(bf[k] <= TP_BF16_GAP_FACTOR * floor[k],
+                  f"phase 18 (e): the bf16 {k} gap {bf[k]} exceeds {TP_BF16_GAP_FACTOR} x "
+                  f"one process's {floor[k]}")
+        # (c) the elastic resume on (1, 2)
+        t = time.perf_counter()
+        res = run_ranks(_tp_resume_rank, TP_MESH[1], args=(DEVICE, tmp), backend="gloo",
+                        timeout_s=TP_TIMEOUT_S)
+        resume_s = time.perf_counter() - t
+        say(f"phase 18 (c): resumed on {tuple(res[0]['shape'])} (plan_elastic_mesh) by 2 gloo "
+            f"ranks in {resume_s:.1f} s: restore {[round(o['restore_ms'] / 1e3, 2) for o in res]} s, "
+            f"every block bitwise the checkpoint's slice ({res[0]['n_leaves']} leaves); "
+            f"{res[0]['param_bytes']:,} / {res[0]['moment_bytes']:,} B a rank (= the dry-run's); one "
+            f"step {[round(o['step_ms'], 1) for o in res]} ms, loss {res[0]['loss']:.6f} against one "
+            f"process's {one_losses[TP_STEPS]:.6f}")
+        for r, o in enumerate(res):
+            check(tuple(o["shape"]) == (1, TP_MESH[1]), f"phase 18 (c): mesh {o['shape']}")
+            check(o["restored_bitwise"] and o["n_leaves"] == 3 * len(leaves(cfg.param_defs())) + 1,
+                  f"phase 18 (c): rank {r}'s restored blocks differ from the checkpoint's "
+                  "slices")
+            check((o["param_bytes"], o["moment_bytes"]) == want[(1, TP_MESH[1])],
+                  f"phase 18 (c): rank {r} holds {o['param_bytes']} / {o['moment_bytes']} B")
+            check(np.allclose(o["loss"], one_losses[TP_STEPS], **TP_LOSS_TOL),
+                  f"phase 18 (c): the resumed step's loss {o['loss']} vs one process's "
+                  f"{one_losses[TP_STEPS]}")
+        # (d) NCCL at world size 1, against the one-card cell
+        backend = "nccl" if DEVICE == "cuda" else "gloo"
+        nccl_dir = os.path.join(tmp, "nccl")
+        (got,), nccl_ms = _timed(lambda: run_ranks(
+            _tp_nccl_rank, 1, args=(DEVICE, nccl_dir), backend=backend,
+            timeout_s=TP_TIMEOUT_S), DEVICE)
+        sspec = dataclasses.replace(spec, config=dataclasses.replace(
+            spec.smoke_config, compute_dtype=torch.float32))
+        cell = steps.build_lm_cell(sspec, _smoke_train_cut(sspec), dev, LM_SEED)
+        params, opt, batch = cell.args
+        step = _tp_step(sspec.config, None)
+        runs = []
+        for _ in range(TP_STEPS + 1):
+            params, opt, m = step(params, opt, batch)
+            runs.append((_digest(leaves(params)), m["loss"].cpu().numpy().tobytes()))
+        check(got["runs"] == runs, "phase 18 (d): the (1, 1) process mesh's steps around its "
+                                   "sharded checkpoint differ from the one-card cell's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report = {
+        "mesh": dict(zip(TRAIN_AXES, TP_MESH)), "layers": cfg.n_layers,
+        "global_batch": [B0, S0], "run_batch": list(TP_CUT),
+        "per_rank_ms_per_step": [o["ms"] for o in outs], "one_process_ms_per_step": one_ms,
+        "grads_ms_per_rank": [o["grads_ms"] for o in outs],
+        "model_collectives_per_rank": [o["model_collectives"] for o in outs],
+        "save_ms_per_rank": [o["save_ms"] for o in outs],
+        "restore_ms_per_rank": [o["restore_ms"] for o in res],
+        "resumed_step_ms_per_rank": [o["step_ms"] for o in res],
+        "init_ms_per_rank": [o["init_ms"] for o in outs],
+        "param_bytes_per_rank": o0["param_bytes"], "moment_bytes_per_rank": o0["moment_bytes"],
+        "one_process_param_bytes": whole["param_bytes"],
+        "one_process_moment_bytes": whole["moment_bytes"],
+        "resumed_param_bytes_per_rank": res[0]["param_bytes"],
+        "resumed_moment_bytes_per_rank": res[0]["moment_bytes"],
+        "peak_gib_per_rank": [o["peak"] / 2**30 for o in outs],
+        "losses": o0["losses"], "one_process_losses": one_losses,
+        "resumed_loss": res[0]["loss"], "max_param_err": param_err, "max_traj_ratio": traj,
+        "bf16_gaps": bf, "bf16_one_process_gaps": floor,
+        "rank_start_s": start_s, "ranks_s": ranks_s, "resume_s": resume_s,
+        "nccl_s": nccl_ms / 1e3}
+    say(f"phase 18 (d): {got['backend']} at world size 1 on {got['device']}: the SMOKE config "
+        f"({LM_SMOKE_BATCH[0]} x {LM_SMOKE_BATCH[1]}, ZeRO-1), {TP_STEPS} steps, a sharded "
+        f"checkpoint, its restore and a step == the one-card cell bitwise (params, loss); "
+        f"{nccl_ms / 1e3:.1f} s with the rank's start-up")
+    say("phase 18: " + json.dumps(report))
+    say(f"phase 18: {time.perf_counter() - t_phase:.1f} s; no run on several cards was "
         "possible (one card on this host)")
 
 

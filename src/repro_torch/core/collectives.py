@@ -45,7 +45,24 @@ import math
 import torch
 
 from repro_torch.core.distributed import Mesh, ProcessMesh
+from repro_torch.sharding.specs import get_context
 from repro_torch.train.tree import leaves, unflatten
+
+# the tensor-parallel axis of the dense LM (the rules' heads, ffn, vocab)
+MODEL = ("model",)
+
+
+def model_mesh() -> ProcessMesh | None:
+    """The sharding context's :class:`ProcessMesh` when its ``model`` axis
+    splits the model (size > 1), else None: the dense LM's layers then
+    compute on their parameter blocks, entering each parallel region
+    through :func:`replicated` and leaving it through a :func:`psum` over
+    :data:`MODEL`."""
+    mesh = get_context().mesh
+    if isinstance(mesh, ProcessMesh) and mesh.shape.get("model", 1) > 1:
+        return mesh
+    return None
+
 
 
 def positions(mesh: Mesh) -> list[int]:

@@ -58,7 +58,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import cached_property, partial
 
 import numpy as np
@@ -566,6 +566,8 @@ class ProcessMesh(Mesh):
 
     rank: int = 0
     backend: str = "gloo"
+    # this rank's process group of each axis set (_subgroup), made on first use
+    _groups: dict = field(default_factory=dict, compare=False, repr=False)
 
     def shard_of(self, doc_axes: tuple[str, ...], rank: int | None = None) -> int:
         """The doc shard a rank holds: its doc coordinates, row-major in
@@ -584,21 +586,29 @@ class ProcessMesh(Mesh):
         and the same for every version."""
         import torch.distributed as dist
 
-        flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in tensors])
-        if self.backend == "gloo":
-            flat = flat.cpu()
+        flat = self._bytes(tensors)
         out = [torch.empty_like(flat) for _ in range(self.size)]
         dist.all_gather(out, flat)
-        gathered = []
-        for buf in out:
-            buf, off, parts = buf.to(self.device), 0, []
-            for t in tensors:
-                n = t.numel() * t.element_size()
-                # a fresh tensor per part, so its dtype view is aligned
-                parts.append(buf[off:off + n].clone().view(t.dtype).reshape(t.shape))
-                off += n
-            gathered.append(parts)
-        return gathered
+        return [_unpack(buf.to(self.device), tensors) for buf in out]
+
+    def gather_to(self, tensors: list[torch.Tensor], dst: int = 0) -> list[list[torch.Tensor]] | None:
+        """Every rank's ``tensors``, in rank order, on the host of rank
+        ``dst`` (None on the others): one ``gather`` of their bytes (under
+        ``gloo`` staged through host memory, as :meth:`all_gather`).  The
+        checkpoint's writer collects the ranks' blocks with it."""
+        import torch.distributed as dist
+
+        flat = self._bytes(tensors)
+        out = [torch.empty_like(flat) for _ in range(self.size)] if self.rank == dst else None
+        dist.gather(flat, out, dst=dst)
+        if out is None:
+            return None
+        return [_unpack(buf.cpu(), tensors) for buf in out]
+
+    def _bytes(self, tensors: list[torch.Tensor]) -> torch.Tensor:
+        """``tensors``' bytes in one buffer (on the host under ``gloo``)."""
+        flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in tensors])
+        return flat.cpu() if self.backend == "gloo" else flat
 
     def gather_axes(self, tensors: list[torch.Tensor],
                     axes: tuple[str, ...]) -> list[list[torch.Tensor]]:
@@ -606,12 +616,39 @@ class ProcessMesh(Mesh):
         (:meth:`Mesh.group`), member by member in the order of their
         coordinates on ``axes``: ``("pod", "data")`` on a (2, 2, 1) mesh
         gives the 4 ranks of this rank's ``model`` coordinate, pod-major.
-        One world :meth:`all_gather`, of which the group's entries are kept:
-        a subset of the axes moves the world's bytes (a process group per
-        axis set would move only the group's; one card cannot show the
-        difference)."""
-        every = self.all_gather(tensors)
-        return [every[r] for r in self.group(tuple(axes), self.rank)]
+        A group of the whole world is one world :meth:`all_gather`; a
+        smaller one gathers over the process group of its ranks
+        (:meth:`_subgroup`), so only the group's bytes move; a group of one
+        rank moves nothing: its entry is ``tensors`` themselves."""
+        import torch.distributed as dist
+
+        group = self.group(tuple(axes), self.rank)
+        if len(group) == 1:
+            return [list(tensors)]
+        if len(group) == self.size:
+            every = self.all_gather(tensors)
+            return [every[r] for r in group]
+        flat = self._bytes(tensors)
+        out = [torch.empty_like(flat) for _ in group]
+        dist.all_gather(out, flat, group=self._subgroup(tuple(axes)))
+        # a process group orders its members by rank
+        by_rank = dict(zip(sorted(group), out))
+        return [_unpack(by_rank[r].to(self.device), tensors) for r in group]
+
+    def _subgroup(self, axes: tuple[str, ...]):
+        """This rank's process group over ``axes``.  The first call for an
+        axis set creates the groups of all of them, every rank in the same
+        order (``new_group`` is collective over the world), as every rank
+        reaches it at the same collective."""
+        import torch.distributed as dist
+
+        key = tuple(sorted(axes))
+        if key not in self._groups:
+            for members in sorted({tuple(sorted(self.group(axes, r))) for r in range(self.size)}):
+                g = dist.new_group(list(members))
+                if self.rank in members:
+                    self._groups[key] = g
+        return self._groups[key]
 
     def broadcast_object(self, obj=None):
         """Rank 0's ``obj`` on every rank (pickled; sent by rank 0 of this
@@ -622,6 +659,17 @@ class ProcessMesh(Mesh):
         dev = self.device if self.backend == "nccl" else torch.device("cpu")
         dist.broadcast_object_list(box, src=0, device=dev)
         return box[0]
+
+
+def _unpack(buf: torch.Tensor, like: list[torch.Tensor]) -> list[torch.Tensor]:
+    """``buf``'s bytes as tensors of ``like``'s shapes and dtypes."""
+    off, parts = 0, []
+    for t in like:
+        n = t.numel() * t.element_size()
+        # a fresh tensor per part, so its dtype view is aligned
+        parts.append(buf[off:off + n].clone().view(t.dtype).reshape(t.shape))
+        off += n
+    return parts
 
 
 def _check_axes(shape: tuple[int, ...], axis_names: tuple[str, ...]):

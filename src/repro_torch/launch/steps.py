@@ -49,7 +49,7 @@ from repro_torch.launch.roofline import count_step
 from repro_torch.models import egnn as egnn_lib
 from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tf_lib
-from repro_torch.models.params import meta_tensor, param_shapes
+from repro_torch.models.params import meta_tensor, param_shapes, param_shardings
 from repro_torch.sharding.specs import named_sharding, use_sharding
 from repro_torch.train.loop import global_loss, make_train_step
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state, zero1_sharding
@@ -115,6 +115,15 @@ def moment_shardings(defs: dict, mesh) -> dict:
                     param_shapes(defs, mesh))
 
 
+def state_shardings(defs: dict, mesh) -> tuple:
+    """The shardings of a train cell's ``(params, opt_state)`` on
+    ``mesh``: the parameters' (``param_specs``), ``step`` whole, the
+    moments' :func:`moment_shardings`: what ``train.checkpoint`` and
+    ``train.loop.run`` take to save and restore each rank's blocks."""
+    ms = moment_shardings(defs, mesh)
+    return param_shardings(defs, mesh), {"step": None, "m": ms, "v": ms}
+
+
 def _train_step(loss, params: dict, defs: dict, mesh) -> tuple[Callable, dict]:
     """A real cell's :data:`TRAIN_OPT` step and zero state.  On a
     :class:`~repro_torch.core.distributed.ProcessMesh` the step is the
@@ -168,7 +177,11 @@ def build_lm_cell(
     :class:`~repro_torch.core.distributed.ProcessMesh` (on its device
     unless ``device`` is given) the train cell's step is data-parallel with
     ZeRO-1's moments: every rank holds the global batch and steps on its
-    rows."""
+    rows; with ``model`` > 1 it is also tensor-parallel, the rank holding
+    only its ``param_specs`` blocks (``cfg.init(seed, device, mesh)``) and
+    their ZeRO-1 moment blocks (checkpoint them with
+    :func:`state_shardings`).  The serving cells take no process mesh of
+    ``model`` > 1 (a KV cache across ranks is not ported)."""
     cfg = spec.config
     p = shape.params
     if "attn_window" in p:
@@ -180,8 +193,15 @@ def build_lm_cell(
     dev = _cell_device(device, mesh)
     meta = _is_meta(dev)
     B, S = p["global_batch"], p["seq_len"]
+    procs = isinstance(mesh, ProcessMesh)
+    if procs and mesh.shape.get("model", 1) > 1:
+        tf_lib.check_model_parallel(cfg, mesh.shape["model"])
+        if shape.kind != "lm_train":
+            raise NotImplementedError(f"{shape.kind} across model ranks (a KV cache split "
+                                      "over model) is not ported")
     if params is None:
-        params = param_shapes(cfg.param_defs(), mesh) if meta else cfg.init(seed, dev)
+        params = (param_shapes(cfg.param_defs(), mesh) if meta
+                  else cfg.init(seed, dev, mesh if procs else None))
 
     def tokens_of(seq_len: int) -> dict:
         if meta:
@@ -567,9 +587,15 @@ def build_recsys_cell(
     sharded on ``mesh``; on a
     :class:`~repro_torch.core.distributed.ProcessMesh` (on its device unless
     ``device`` is given) the train step is data-parallel with ZeRO-1's
-    moments."""
+    moments; a ``model`` axis > 1 raises ``NotImplementedError`` there (the
+    tables' ``rows`` and the ``ffn`` split over ``model`` are not ported)."""
     cfg = spec.config
     p = shape.params
+    if (shape.kind == "recsys_train" and isinstance(mesh, ProcessMesh)
+            and mesh.shape.get("model", 1) > 1):
+        raise NotImplementedError(
+            f"recsys training on {mesh.shape}: its rows and ffn over model are not ported "
+            "(the parameters would stay whole where the optimizer takes them as blocks)")
     if geo is not None and not (shape.kind == "recsys_retrieval"
                                 and type(cfg).__name__ == "TwoTowerConfig"):
         raise ValueError("geo applies to the two-tower retrieval cell only")

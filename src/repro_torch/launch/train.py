@@ -18,12 +18,15 @@ Started as ``WORLD_SIZE`` > 1 ranks of a process group (``torchrun``, or
 as the reference's ``make_host_mesh`` builds its mesh of the host's
 devices, and trains data-parallel (:func:`~repro_torch.train.loop.make_train_step`
 under ``use_sharding(mesh)``): every rank draws the global batch and steps
-on its rows; the gnn family runs EGNN's sharded loss on the rank's rows of
-the graph.  Rank 0 alone logs and writes checkpoints.
+on its rows, with ZeRO-1's moment blocks; the gnn family runs EGNN's
+sharded loss on the rank's rows of the graph.  Every rank takes part in a
+checkpoint (the moment blocks gathered into global arrays); rank 0 alone
+logs and writes the files.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import os
 
@@ -35,7 +38,13 @@ from repro_torch.core.distributed import make_process_mesh
 from repro_torch.data.graph import full_graph_batch, make_powerlaw_graph
 from repro_torch.data.lm import LMDataConfig, lm_batch
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import pad_rows, recsys_batch, recsys_loss
+from repro_torch.launch.steps import (
+    moment_shardings,
+    pad_rows,
+    recsys_batch,
+    recsys_loss,
+    state_shardings,
+)
 from repro_torch.models import egnn as egnn_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.sharding.specs import use_sharding
@@ -101,15 +110,21 @@ def main(argv=None) -> None:
         lr=args.lr, warmup_steps=min(20, args.steps // 5 + 1),
         total_steps=args.steps,
     )
+    ms = shardings = None
+    if mesh is not None:  # ZeRO-1 across the ranks, checkpointed as global arrays
+        opt = dataclasses.replace(opt, zero1=True)
+        ms = moment_shardings(cfg.param_defs(), mesh)
+        shardings = state_shardings(cfg.param_defs(), mesh)
     loss_fn, batch_fn = loss_and_batch_fns(
         spec, cfg, args.batch_size, args.seq_len, args.seed, device, mesh
     )
     with use_sharding(mesh):
-        step_fn = make_train_step(loss_fn, opt, microbatches=args.microbatches)
+        step_fn = make_train_step(loss_fn, opt, microbatches=args.microbatches,
+                                  moment_shardings=ms)
 
     def init_state():
         params = cfg.init(args.seed, device)
-        return params, init_opt_state(opt, params)
+        return params, init_opt_state(opt, params, ms)
 
     loop = LoopConfig(
         total_steps=args.steps, ckpt_every=args.ckpt_every,
@@ -117,7 +132,7 @@ def main(argv=None) -> None:
         simulate_failure_at=args.simulate_failure,
     )
     run(loop, step_fn, init_state, batch_fn, log=print if rank0 else lambda line: None,
-        writer=rank0, barrier=None if mesh is None else dist.barrier)
+        barrier=None if mesh is None else dist.barrier, shardings=shardings)
 
 
 def _process_mesh(device):

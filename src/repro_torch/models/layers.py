@@ -2,16 +2,32 @@
 flash attention, the attention block with its KV cache, and SwiGLU.
 
 Each function computes what the reference's does, op for op, on one
-device: the reference's logical-axis sharding constraints (``shard``) and
-its head-parallel branch only place data on a mesh and are dropped.
-Where the reference's einsum accumulates a low-precision product into f32
-(``preferred_element_type``), the port multiplies the operands upcast to
-f32, which gives the same exact products and an f32 sum.
+device: the reference's logical-axis sharding constraints (``shard``) only
+place data on a mesh and are dropped.  Where the reference's einsum
+accumulates a low-precision product into f32 (``preferred_element_type``),
+the port multiplies the operands upcast to f32, which gives the same exact
+products and an f32 sum.
+
+Given ``mesh``, a process mesh whose ``model`` axis M is > 1
+(:func:`~repro_torch.core.collectives.model_mesh`), the projections are
+the rank's ``param_specs`` blocks, as the reference's head-parallel branch
+lets XLA partition them: :func:`attention_block` runs the rank's H/M query
+and KVH/M kv heads (GQA groups stay whole) and :func:`swiglu` the rank's
+d_ff/M columns.  Each enters through
+:func:`~repro_torch.core.collectives.replicated` over ``model`` (its
+backward sums the input's cotangents over the group) and leaves its
+row-parallel ``wo`` through one :func:`~repro_torch.core.collectives.psum`
+over ``model``.  Heads that do not divide M (the reference's
+sequence-parallel attention) raise ``NotImplementedError``.  The mesh is
+passed, never read from the thread-local sharding context:
+``torch.utils.checkpoint`` recomputes a layer on autograd's device thread.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import collectives as col
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -120,6 +136,7 @@ def attention_block(
     v_cache: torch.Tensor | None = None,
     cache_pos: "torch.Tensor | int | None" = None,
     kv_valid_len: "torch.Tensor | int | None" = None,
+    mesh=None,
 ):
     """GQA attention with an optional KV cache (decode).
 
@@ -127,9 +144,19 @@ def attention_block(
     ``cache_pos`` in place (the reference's ``dynamic_update_slice``
     returns updated copies) and attention runs over the whole cache.
     Returns (out [B, S, D], (k, v): the cache, or this call's full k/v).
+    With a model-parallel ``mesh`` (module docstring; no cache) ``p``
+    holds the rank's heads and ``out`` is summed over ``model``.
     """
     B, S, D = x.shape
     H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if mesh is not None:
+        M = mesh.shape["model"]
+        check_head_parallel(H, KVH, M)
+        H, KVH = H // M, KVH // M
+        x = col.replicated(mesh, x, col.MODEL)[0]
+        if cfg.qk_norm:  # whole leaves applied to the rank's heads only
+            p = {**p, **col.replicated(mesh, {k: p[k] for k in ("q_norm", "k_norm")},
+                                       col.MODEL)[0]}
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
@@ -167,11 +194,29 @@ def attention_block(
         out = flash_attention(q, k, v, causal=True, window=cfg.attn_window, chunk=cfg.attn_chunk)
         new_kv = (k, v)
     out = _proj(out.reshape(B, S, H * Dh), p["wo"])
+    if mesh is not None:
+        out = col.psum(mesh, [out], col.MODEL)[0]
     return out, new_kv
 
 
-def swiglu(x: torch.Tensor, p: dict) -> torch.Tensor:
+def check_head_parallel(n_heads: int, n_kv_heads: int, model: int) -> None:
+    """Head-parallel attention needs both head counts to divide ``model``;
+    otherwise the reference switches to sequence-parallel attention
+    (``repro/models/layers.py:146-154``), which the port does not have."""
+    if n_heads % model or n_kv_heads % model:
+        raise NotImplementedError(
+            f"{n_heads} query / {n_kv_heads} kv heads do not divide model = {model}: the "
+            "reference's sequence-parallel attention for that case is not ported")
+
+
+def swiglu(x: torch.Tensor, p: dict, mesh=None) -> torch.Tensor:
+    """SwiGLU; with a model-parallel ``mesh`` column-parallel ``wi_gate`` /
+    ``wi_up`` and row-parallel ``wo`` (the rank's d_ff/M columns), summed
+    over ``model``."""
+    if mesh is not None:
+        x = col.replicated(mesh, x, col.MODEL)[0]
     gate = _proj(x, p["wi_gate"])
     up = _proj(x, p["wi_up"])
     h = F.silu(gate) * up
-    return _proj(h, p["wo"])
+    out = _proj(h, p["wo"])
+    return out if mesh is None else col.psum(mesh, [out], col.MODEL)[0]

@@ -7,7 +7,10 @@ with its sharding when a mesh is given: the dry-run's parameters, which
 allocate nothing), ``param_specs`` (the partition spec of every leaf) and
 ``param_count``.  ``params_from_numpy`` carries the reference's parameter
 arrays across, checked against the definitions, so that both packages
-compute with the same weights.
+compute with the same weights.  On a
+:class:`~repro_torch.core.distributed.ProcessMesh` a rank holds only its
+block of each leaf (``param_shardings``, ``place_params``,
+``init_params(..., mesh=...)``).
 """
 from __future__ import annotations
 
@@ -17,7 +20,13 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.sharding.specs import logical_spec, named_sharding
+from repro_torch.sharding.specs import (
+    NamedSharding,
+    local_block,
+    logical_spec,
+    named_sharding,
+    splits,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,19 +81,52 @@ def _param_seed(seed: int, i: int) -> int:
     return int(np.random.SeedSequence((seed, i)).generate_state(1, np.uint64)[0] >> 1)
 
 
-def init_params(defs: dict, seed: int = 0, device=None) -> dict:
+def init_params(defs: dict, seed: int = 0, device=None, mesh=None) -> dict:
     """Real tensors for ``defs`` on ``device`` (CUDA unless given).  Each
     parameter draws from its own ``torch.Generator`` on that device, seeded
     by (``seed``, its index in the flattened order).  The values are not the
     reference's threefry draws; carry those across with
-    :func:`params_from_numpy`."""
+    :func:`params_from_numpy`.
+
+    On a :class:`~repro_torch.core.distributed.ProcessMesh` ``mesh`` each
+    leaf is drawn whole, one at a time, and only this rank's block of it
+    (:func:`param_shardings`) is kept: the blocks are bitwise slices of the
+    one-card init on the same device type, and no rank holds the model."""
     dev = resolve_device(device)
+    shardings = dict(_flatten_shardings(defs, mesh)) if mesh is not None else {}
     leaves = {}
     for i, (path, d) in enumerate(_flatten(defs)):
         g = torch.Generator(device=dev)
         g.manual_seed(_param_seed(seed, i))
-        leaves[path] = d.initializer(g, dev)
+        x = d.initializer(g, dev)
+        sh = shardings.get(path)
+        leaves[path] = local_block(x, sh).clone() if splits(sh) else x
+        del x  # freed before the next leaf is drawn
     return _unflatten(leaves)
+
+
+def _flatten_shardings(defs: dict, mesh) -> list[tuple[str, NamedSharding]]:
+    return [(path, NamedSharding(mesh, logical_spec(d.logical, mesh.axis_names,
+                                                    shape=d.shape, mesh=mesh)))
+            for path, d in _flatten(defs)]
+
+
+def param_shardings(defs: dict, mesh) -> dict:
+    """The :class:`~repro_torch.sharding.specs.NamedSharding` of every leaf
+    of ``defs`` on ``mesh`` (its :func:`param_specs` entry)."""
+    return _unflatten(dict(_flatten_shardings(defs, mesh)))
+
+
+def place_params(params: dict, shardings: dict) -> dict:
+    """A global parameter tree placed on a process mesh: each leaf's block
+    that this rank's coordinates select under its sharding (a copy), a
+    leaf that its sharding leaves whole as it is."""
+    def walk(p, s):
+        if isinstance(p, dict):
+            return {k: walk(p[k], s[k]) for k in p}
+        return local_block(p, s).clone() if splits(s) else p
+
+    return walk(params, shardings)
 
 
 def params_from_numpy(defs: dict, arrays: dict, device=None) -> dict:

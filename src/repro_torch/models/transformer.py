@@ -17,6 +17,19 @@ Remat changes memory, never values.  ``scan_unroll`` shapes only the
 reference's compiled program.  Parameters are ``param_dtype`` (f32);
 activations run in ``compute_dtype`` (bf16), each weight cast to it where
 it is used.
+
+Tensor parallelism (the reference's ``model`` axis): under
+``use_sharding(ProcessMesh)`` with ``model`` = M > 1 the dense LM holds the
+blocks ``param_specs`` gives it (``cfg.init(seed, device, mesh)``), and
+:func:`loss_fn` reads the mesh once and passes it down to compute on them: head- and FFN-parallel layers (:mod:`~repro_torch.models.layers`),
+a vocab-parallel lookup (rows outside the rank's range give zero, then one
+``psum``) and a vocab-parallel loss (the rank's logit columns; ``logsumexp``
+from a ``pmax`` and an ordered ``psum`` of the exp sums, the label's logit
+a ``psum`` of the masked gather), so no rank builds the ``[B, S, Vp]``
+logits.  Remat "full" recomputes the collectives in the backward, in the
+same order on every rank.  A MoE config, heads that do not divide M and the
+KV cache across ranks raise ``NotImplementedError``
+(:func:`check_model_parallel`).
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch.core import collectives as col
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -129,8 +143,12 @@ class TransformerConfig:
             out["unembed"] = ParamDef((D, Vp), ("embed", "vocab"), pd)
         return out
 
-    def init(self, seed: int = 0, device=None) -> dict:
-        return init_params(self.param_defs(), seed, device)
+    def init(self, seed: int = 0, device=None, mesh=None) -> dict:
+        """Parameters from ``seed`` on ``device``; on a process mesh the
+        rank's blocks (:func:`~repro_torch.models.params.init_params`)."""
+        if mesh is not None:
+            check_model_parallel(self, mesh.shape.get("model", 1))
+        return init_params(self.param_defs(), seed, device, mesh)
 
     def n_params(self) -> int:
         return param_count(self.param_defs())
@@ -144,23 +162,69 @@ class TransformerConfig:
         return int(total - expert_p * (1 - self.top_k / self.n_experts))
 
 
+def check_model_parallel(cfg: TransformerConfig, model: int) -> None:
+    """Raise ``NotImplementedError`` unless the dense LM splits over
+    ``model`` ranks as its ``param_specs`` say: no experts (experts over
+    ``model`` are not ported), heads that divide it (else the reference's
+    sequence-parallel attention), and ``d_ff`` and the padded vocab that
+    divide it (else ``logical_spec`` leaves those leaves whole)."""
+    if model == 1:
+        return
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: a MoE config over model = {model} (experts "
+                                  "over the model axis) is not ported")
+    L.check_head_parallel(cfg.n_heads, cfg.n_kv_heads, model)
+    for what, n in (("d_ff", cfg.d_ff), ("the padded vocab", cfg.padded_vocab)):
+        if n % model:
+            raise NotImplementedError(f"{cfg.name}: {what} {n} does not divide model = {model}")
+
+
+def _model_mesh(cfg: TransformerConfig):
+    """:func:`~repro_torch.core.collectives.model_mesh`, checked for ``cfg``."""
+    mesh = col.model_mesh()
+    if mesh is not None:
+        check_model_parallel(cfg, mesh.shape["model"])
+    return mesh
+
+
+def _vocab_start(mesh, n_local: int) -> int:
+    """The first vocab row of this rank's block."""
+    return mesh.coords_of(mesh.rank)["model"] * n_local
+
+
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: TransformerConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
+           mesh=None) -> torch.Tensor:
     """Rows gathered, then cast: the reference's cast-then-gather values
     without a compute-dtype copy of the whole table per call.  (The
-    lookup's backward sums repeated rows in a fixed order on the card.)"""
-    return F.embedding(tokens.long(), params["embed"]).to(cfg.compute_dtype)
+    lookup's backward sums repeated rows in a fixed order on the card.)
+    Vocab-parallel on a model mesh: each rank looks up the tokens of its
+    rows, zero elsewhere, and one ``psum`` adds the one nonzero term."""
+    if mesh is None:
+        return F.embedding(tokens.long(), params["embed"]).to(cfg.compute_dtype)
+    table = params["embed"]
+    n = table.shape[0]
+    ids = tokens.long() - _vocab_start(mesh, n)
+    mine = (ids >= 0) & (ids < n)
+    x = F.embedding(ids.clamp(0, n - 1), table).to(cfg.compute_dtype)
+    return col.psum(mesh, [torch.where(mine[..., None], x, 0)], col.MODEL)[0]
 
 
-def _unembed(cfg: TransformerConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """f32 logits [..., padded_vocab] of ``x`` [..., D]; padded columns −1e9."""
+def _unembed(cfg: TransformerConfig, params: dict, x: torch.Tensor,
+             mesh=None) -> torch.Tensor:
+    """f32 logits [..., padded_vocab] of ``x`` [..., D]; padded columns −1e9.
+    On a model mesh the rank's vocab columns (``x`` entering the
+    region)."""
+    if mesh is not None:
+        x = col.replicated(mesh, x, col.MODEL)[0]
     w = (params["embed"].T if cfg.tie_embeddings else params["unembed"]).to(cfg.compute_dtype)
     logits = torch.matmul(x.float(), w.float())
-    if cfg.padded_vocab != cfg.vocab:  # mask padding columns
-        logits[..., cfg.vocab:] = -1e9
+    pad = cfg.vocab - (0 if mesh is None else _vocab_start(mesh, w.shape[1]))
+    if pad < logits.shape[-1]:  # mask padding columns
+        logits[..., max(pad, 0):] = -1e9
     return logits
 
 
@@ -169,19 +233,22 @@ def _layer(params: dict, i: int) -> dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in params.items()}
 
 
-def _ffn(cfg: TransformerConfig, x: torch.Tensor, lp: dict):
+def _ffn(cfg: TransformerConfig, x: torch.Tensor, lp: dict, mesh=None):
     """The FFN half of a layer: (x + FFN(norm(x)), aux)."""
     y = L.rms_norm(x, lp["ln2"])
     if cfg.is_moe:
         f, aux = moe_lib.moe_ffn(y, lp["moe"], cfg)
     else:  # a dense layer's aux loss is 0
-        f, aux = L.swiglu(y, lp["mlp"]), torch.zeros((), dtype=torch.float32, device=x.device)
+        f = L.swiglu(y, lp["mlp"], mesh)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + f, aux
 
 
-def _layer_body(cfg: TransformerConfig, x: torch.Tensor, lp: dict, positions: torch.Tensor):
-    h, _ = L.attention_block(L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions)
-    return _ffn(cfg, x + h, lp)
+def _layer_body(cfg: TransformerConfig, x: torch.Tensor, lp: dict, positions: torch.Tensor,
+                mesh=None):
+    """One layer; ``mesh``: a model mesh or None."""
+    h, _ = L.attention_block(L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions, mesh=mesh)
+    return _ffn(cfg, x + h, lp, mesh)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -204,35 +271,59 @@ def _remat(cfg: TransformerConfig, body):
     raise ValueError(f"remat {cfg.remat!r}: none | full | dots")
 
 
-def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
+def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, mesh=None):
     """tokens i32[B, S] → (logits f32[B, S, V], aux_loss: the sum over
-    layers)."""
+    layers).  ``mesh``: a model mesh (:func:`loss_fn` passes the sharding
+    context's), where ``params`` are the rank's blocks and the logits the
+    rank's vocab columns; the layers take it as an argument, as remat
+    recomputes them on autograd's device thread."""
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, mesh)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
-    body = _remat(cfg, functools.partial(_layer_body, cfg))
+    body = _remat(cfg, functools.partial(_layer_body, cfg, mesh=mesh))
     auxs = []
     for i in range(cfg.n_layers):
         x, a = body(x, _layer(params["layers"], i), positions)
         auxs.append(a)
     x = L.rms_norm(x, params["ln_f"])
-    return _unembed(cfg, params, x), torch.stack(auxs).sum()
+    return _unembed(cfg, params, x, mesh), torch.stack(auxs).sum()
 
 
 def loss_fn(cfg: TransformerConfig, params: dict, batch: dict):
     """batch: tokens i32[B, S], labels i32[B, S] (−1 = ignore).  Returns
-    (total, metrics): the reference's loss, z-loss and weighted aux loss."""
-    logits, aux = forward(cfg, params, batch["tokens"])
+    (total, metrics): the reference's loss, z-loss and weighted aux loss;
+    vocab-parallel under a model mesh, the sharding context's
+    (:func:`_vocab_parallel_terms`)."""
+    mesh = _model_mesh(cfg)
+    logits, aux = forward(cfg, params, batch["tokens"], mesh)
     labels = batch["labels"].long()
     mask = labels >= 0
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+    if mesh is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+    else:
+        lse, ll = _vocab_parallel_terms(mesh, logits, labels)
     nll = (lse - ll) * mask
     n = torch.clamp(mask.sum(), min=1)
     loss = nll.sum() / n
     zl = cfg.z_loss * ((lse * mask) ** 2).sum() / n
     total = loss + zl + cfg.aux_loss_weight * aux
     return total, {"nll": loss, "z_loss": zl, "aux": aux, "tokens": n.to(torch.int32)}
+
+
+def _vocab_parallel_terms(mesh, logits: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp, the label's logit) of the global logits from this rank's
+    columns: the row maximum by ``pmax`` (a constant to autograd, as
+    ``logsumexp``'s shift is), the exp sums by an ordered ``psum``, the
+    label's logit by a ``psum`` of the gather on the rank that holds it."""
+    n = logits.shape[-1]
+    top = col.pmax(mesh, [logits.detach().amax(dim=-1)], col.MODEL)[0]
+    sums = col.psum(mesh, [torch.exp(logits - top[..., None]).sum(dim=-1)], col.MODEL)[0]
+    lse = top + torch.log(sums)
+    ids = torch.clamp(labels, min=0) - _vocab_start(mesh, n)
+    mine = (ids >= 0) & (ids < n)
+    ll = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    return lse, col.psum(mesh, [torch.where(mine, ll, 0.0)], col.MODEL)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -259,12 +350,19 @@ def make_cache(cfg: TransformerConfig, batch: int, max_len: int, device=None) ->
             for k, d in cache_defs(cfg, batch, max_len).items()}
 
 
+def _no_cache_across_ranks() -> None:
+    if col.model_mesh() is not None:
+        raise NotImplementedError("LM prefill and decode across model ranks (a KV cache "
+                                  "split over model) are not ported")
+
+
 def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, cache: dict):
     """Fill the cache with the prompt; returns (logits_last f32[B, V], cache).
 
     Each layer's k/v are written into ``cache`` in place and its positions
     from S on are zeroed: the reference's stacked, zero-padded cache, without
     holding a second copy of it."""
+    _no_cache_across_ranks()
     B, S = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
@@ -290,6 +388,7 @@ def decode_step(
 ):
     """One token of batched decode, writing its k/v into ``cache`` in
     place.  Returns (logits f32[B, V], cache)."""
+    _no_cache_across_ranks()
     B = tokens.shape[0]
     x = _embed(cfg, params, tokens)[:, None, :]  # [B, 1, D]
     pos = int(pos)

@@ -13,8 +13,13 @@ The reference builds ``jax.sharding`` objects; here :class:`PartitionSpec`
 is a tuple of the same entries (``None``, an axis name, or a tuple of
 joined axis names) and :class:`NamedSharding` pairs it with the port's
 :class:`~repro_torch.core.distributed.Mesh` to give each device's
-``shard_shape``.  The port's models run on one card; the specs feed the
-dry-run (``repro_torch.launch.dryrun``) and the mesh across cards.
+``shard_shape`` and, on a
+:class:`~repro_torch.core.distributed.ProcessMesh`, each rank's ``block``
+(:func:`local_block`).  The specs feed the dry-run
+(``repro_torch.launch.dryrun``); on a process mesh the dense LM holds its
+parameters as those blocks (``models.params.init_params(..., mesh)``) and
+the checkpoint gathers and splits them.  :func:`shard` only annotates: the
+model code places nothing by it.
 """
 from __future__ import annotations
 
@@ -93,6 +98,73 @@ class NamedSharding:
     def n_shards(self) -> int:
         """The devices one tensor is split over (the others hold copies)."""
         return math.prod(self.mesh.shape[a] for a in self.spec.axes())
+
+    def _entries(self, ndim: int):
+        """(dim, its entry's axes, their sizes) of each dimension the spec
+        splits over more than one position."""
+        sizes = self.mesh.shape
+        for i in range(ndim):
+            e = self.spec[i] if i < len(self.spec) else None
+            names = (e,) if isinstance(e, str) else tuple(e or ())
+            if math.prod(sizes[a] for a in names) > 1:
+                yield i, names, [sizes[a] for a in names]
+
+    def block(self, shape: tuple[int, ...], pos: int | None = None,
+              axes: tuple[str, ...] | None = None) -> list[tuple[int, int, int]]:
+        """The block of a tensor of ``shape`` that mesh position ``pos``
+        (default: a process mesh's own rank) holds, as ``narrow`` arguments
+        ``(dim, start, length)``, one per dimension the spec splits: the
+        block's index on a dimension is row-major over its entry's axes, as
+        ``jax.sharding`` lays out shards.  With ``axes``, only the entries
+        made of those axes count: ``shape`` is then a block already split
+        on the others (ZeRO-1's ``data`` split of a ``model`` block)."""
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} has more entries than shape {tuple(shape)}")
+        coords = self.mesh.coords_of(self.mesh.rank if pos is None else pos)
+        out = []
+        for i, names, sizes in self._entries(len(shape)):
+            if axes is not None and not set(names) <= set(axes):
+                continue
+            n = math.prod(sizes)
+            if shape[i] % n:
+                raise ValueError(f"dimension {i} of {tuple(shape)} does not divide over "
+                                 f"{names} ({n})")
+            idx = 0
+            for a, s in zip(names, sizes):
+                idx = idx * s + coords[a]
+            k = shape[i] // n
+            out.append((i, idx * k, k))
+        return out
+
+    def global_shape(self, block_shape: tuple[int, ...]) -> tuple[int, ...]:
+        """The global shape whose blocks have ``block_shape``."""
+        out = list(block_shape)
+        for i, _, sizes in self._entries(len(out)):
+            out[i] *= math.prod(sizes)
+        return tuple(out)
+
+
+def splits(sharding) -> bool:
+    """Whether ``sharding`` (or None) splits its tensor across the ranks of
+    a :class:`~repro_torch.core.distributed.ProcessMesh`; on a plain mesh
+    one process holds every position, so nothing is split."""
+    from repro_torch.core.distributed import ProcessMesh
+
+    return (sharding is not None and isinstance(sharding.mesh, ProcessMesh)
+            and sharding.n_shards > 1)
+
+
+def local_block(x, sharding, pos: int | None = None):
+    """``x`` (a global tensor or array) narrowed to the block that mesh
+    position ``pos`` (default: a process mesh's rank) holds under
+    ``sharding`` (:meth:`NamedSharding.block`); a view, or ``x`` itself
+    where nothing is split."""
+    if sharding is None or sharding.n_shards == 1:
+        return x
+    idx = [slice(None)] * len(x.shape)
+    for dim, start, length in sharding.block(tuple(x.shape), pos):
+        idx[dim] = slice(start, start + length)
+    return x[tuple(idx)]
 
 
 @dataclass

@@ -8,12 +8,14 @@ update writes params and moments in place (:func:`adamw_update`, ZeRO-1's
 with ``moment_shardings`` on a process mesh).  Built under
 ``use_sharding(ProcessMesh)`` the step is data-parallel across the ranks
 (:func:`make_train_step`), where the reference's SPMD step lets XLA reduce
-the gradients over ``data``.
+the gradients over ``data``; with a ``model`` axis > 1 the dense LM is
+also tensor-parallel over it, each rank holding its parameter blocks.
 
 ``run(...)`` checkpoints every N steps (atomic, async), and on a failure
 (including an injected one) restores the latest checkpoint and replays —
 the batches being keyed by (seed, step), the replay is bit-identical to an
-uninterrupted run.
+uninterrupted run.  Given the state's shardings, every rank saves and
+restores its own blocks of the global arrays.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 
 from repro_torch.core import collectives as col
 from repro_torch.core.distributed import ProcessMesh
-from repro_torch.sharding.specs import DEFAULT_RULES, get_context
+from repro_torch.sharding.specs import DEFAULT_RULES, get_context, use_sharding
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.optimizer import OptimizerConfig, adamw_update
 from repro_torch.train.tree import leaves, tree_map, unflatten
@@ -82,24 +84,40 @@ def make_train_step(
     the ``microbatches=D`` step's operations, so a ``D``-rank step equals it
     bitwise.  A :func:`global_loss` is run on the batch as given.
 
+    With a ``model`` axis > 1 the parameters are the rank's blocks and
+    the loss is tensor-parallel over ``model`` (the dense LM's, under the
+    step's sharding context, which the step re-enters); ``moment_shardings``
+    must then be given, as they tell the update which leaves are blocks.
+
+    The step's ``value_and_grad(params, batch)`` attribute is its gradient
+    half: (loss, metrics, the reduced gradients) before the update.
+
     The reference's ``jit`` and ``donate`` have no counterpart: the step
     runs eagerly, and it updates params and moments in place, which is what
     donation buys."""
-    mesh = get_context().mesh
-    if isinstance(mesh, ProcessMesh):
-        return _data_parallel_step(mesh, loss_fn, opt_cfg, microbatches, moment_shardings)
-
-    def step(params, opt_state, batch):
-        if microbatches == 1:
-            loss, metrics, grads = value_and_grad(loss_fn, params, batch)
-        else:
+    ctx = get_context()
+    if isinstance(ctx.mesh, ProcessMesh):
+        grads_of = _data_parallel_grads(ctx.mesh, loss_fn, microbatches, moment_shardings)
+    else:
+        def grads_of(params, batch):
+            if microbatches == 1:
+                return value_and_grad(loss_fn, params, batch)
             loss, grads = _mean_over_microbatches(loss_fn, params, batch, microbatches,
                                                   microbatches)
-            metrics = {}
-        params, opt_state, opt_metrics = adamw_update(opt_cfg, grads, params, opt_state,
-                                                      moment_shardings)
+            return loss, {}, grads
+
+    def step(params, opt_state, batch):
+        with use_sharding(ctx.mesh, ctx.rules):
+            loss, metrics, grads = grads_of(params, batch)
+            params, opt_state, opt_metrics = adamw_update(opt_cfg, grads, params, opt_state,
+                                                          moment_shardings)
         return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
 
+    def value_and_grad_of(params, batch):
+        with use_sharding(ctx.mesh, ctx.rules):
+            return grads_of(params, batch)
+
+    step.value_and_grad = value_and_grad_of
     return step
 
 
@@ -127,8 +145,11 @@ def _mean_over_microbatches(loss_fn, params, batch, n: int, count: int,
     return loss_sum / count, grads
 
 
-def _data_parallel_step(mesh: ProcessMesh, loss_fn, opt_cfg, microbatches, moment_shardings):
-    """:func:`make_train_step` across the ranks of ``mesh``."""
+def _data_parallel_grads(mesh: ProcessMesh, loss_fn, microbatches, moment_shardings):
+    """:func:`make_train_step`'s gradients across the ranks of ``mesh``."""
+    if mesh.shape.get("model", 1) > 1 and moment_shardings is None:
+        raise ValueError(f"a step on {mesh.shape} splits the parameters over model: give "
+                         "it their moment_shardings (launch.steps.moment_shardings)")
     axes = batch_axes(mesh)
     D = col.group_size(mesh, axes)
     shard = mesh.group(axes, mesh.rank).index(mesh.rank)
@@ -139,23 +160,19 @@ def _data_parallel_step(mesh: ProcessMesh, loss_fn, opt_cfg, microbatches, momen
     def local_loss(params, batch):
         return loss_fn(col.replicated(mesh, params, axes)[0], batch)
 
-    def step(params, opt_state, batch):
+    def grads_of(params, batch):
         if is_global:
-            loss, metrics, grads = value_and_grad(loss_fn, params, batch)
-        else:
-            for x in leaves(batch):
-                if x.shape[0] % D:
-                    raise ValueError(f"a batch of {x.shape[0]} rows does not split over the "
-                                     f"{D} batch shards of {mesh.shape}")
-            loss, grads = _mean_over_microbatches(
-                local_loss, params, _microbatch(batch, D, shard), microbatches,
-                microbatches * D, lambda l: col.psum(mesh, [l], axes)[0])
-            metrics = {}
-        params, opt_state, opt_metrics = adamw_update(opt_cfg, grads, params, opt_state,
-                                                      moment_shardings)
-        return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
+            return value_and_grad(loss_fn, params, batch)
+        for x in leaves(batch):
+            if x.shape[0] % D:
+                raise ValueError(f"a batch of {x.shape[0]} rows does not split over the "
+                                 f"{D} batch shards of {mesh.shape}")
+        loss, grads = _mean_over_microbatches(
+            local_loss, params, _microbatch(batch, D, shard), microbatches,
+            microbatches * D, lambda l: col.psum(mesh, [l], axes)[0])
+        return loss, {}, grads
 
-    return step
+    return grads_of
 
 
 @dataclass
@@ -176,19 +193,21 @@ def run(
     batch_fn: Callable[[int], Any],  # step -> batch (deterministic)
     log: Callable[[str], None] = print,
     *,
-    writer: bool = True,
     barrier: Callable[[], None] | None = None,
+    shardings=None,
 ):
     """Fault-tolerant loop.  Returns (params, opt_state, history).  The
     step updates the state in place, so each restore rebinds it to the
     restored tensors.
 
-    Across ranks (the data-parallel step) every rank runs the loop; only
-    the ``writer`` saves checkpoints, and after a fault ``barrier`` (every
-    rank's) runs once the writer's save has landed, so that all ranks
-    restore the same step.  The state must then be the same on every rank:
-    ZeRO-1's moment blocks differ by rank, and the writer's alone would
-    restore wrong blocks on the others (the train CLI's moments are dense)."""
+    Across ranks (the data-parallel step) every rank runs the loop with
+    the state's ``shardings`` (a tree like ``(params, opt_state)`` on the
+    process mesh: ``launch.steps.state_shardings``): every rank takes part
+    in each save, which gathers the blocks into the global arrays (written
+    by the mesh's rank 0), and each restore gives every rank its own blocks
+    of them (ZeRO-1's moments, the ``model`` blocks).  After a fault
+    ``barrier`` (every rank's) runs once the last save has landed, so that
+    all ranks restore the same step."""
     params, opt_state = init_state()
     start = 0
     if loop_cfg.ckpt_dir:
@@ -196,7 +215,7 @@ def run(
         if latest is not None and ckpt_lib.verify_checkpoint(loop_cfg.ckpt_dir, latest):
             log(f"[restore] resuming from step {latest}")
             params, opt_state = ckpt_lib.restore_checkpoint(
-                loop_cfg.ckpt_dir, latest, (params, opt_state)
+                loop_cfg.ckpt_dir, latest, (params, opt_state), shardings
             )
             start = latest
 
@@ -218,12 +237,12 @@ def run(
                 history.append((step, loss))
                 log(f"step {step:5d}  loss {loss:.4f}  ({dt*1e3:.0f} ms)")
             step += 1
-            if writer and loop_cfg.ckpt_dir and step % loop_cfg.ckpt_every == 0:
+            if loop_cfg.ckpt_dir and step % loop_cfg.ckpt_every == 0:
                 if pending is not None:
                     pending.join()
                 pending = ckpt_lib.save_checkpoint(
                     loop_cfg.ckpt_dir, step, (params, opt_state),
-                    async_=loop_cfg.ckpt_async, keep=loop_cfg.ckpt_keep,
+                    async_=loop_cfg.ckpt_async, keep=loop_cfg.ckpt_keep, shardings=shardings,
                 )
         except Exception as e:  # fault path: restore + replay
             log(f"[fault] {e!r}")
@@ -242,7 +261,7 @@ def run(
             else:
                 log(f"[fault] restoring step {latest}")
                 params, opt_state = ckpt_lib.restore_checkpoint(
-                    loop_cfg.ckpt_dir, latest, (params, opt_state)
+                    loop_cfg.ckpt_dir, latest, (params, opt_state), shardings
                 )
                 step = latest
     if pending is not None:

@@ -27,6 +27,12 @@ block's bits are the dense update's.  The reference states the layout as
 a sharding constraint and lets XLA place the moments; on a plain
 :class:`~repro_torch.core.distributed.Mesh`, or without shardings, the
 update is dense.
+
+Tensor parallelism: where a leaf's sharding also splits it over other
+axes (``model``), the rank's parameter, gradient and moments are that
+block (``data`` then splits the block further), and the global norm adds
+each such leaf's squared sum over those axes first (:func:`global_norm`),
+so it is the global arrays' norm.
 """
 from __future__ import annotations
 
@@ -35,8 +41,8 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core.distributed import ProcessMesh
-from repro_torch.sharding.specs import NamedSharding, PartitionSpec
+from repro_torch.core import collectives as col
+from repro_torch.sharding.specs import NamedSharding, PartitionSpec, splits
 from repro_torch.train.tree import leaves, unflatten
 
 
@@ -100,11 +106,13 @@ def zero1_sharding(mesh, spec, shape) -> NamedSharding:
 
 
 def zero1_blocks(cfg: OptimizerConfig, params, moment_shardings) -> list:
-    """Per leaf of ``params``, this rank's ZeRO-1 block of its moments as
-    ``narrow`` arguments ``(dim, start, length)``, or None where the leaf
-    stays whole: the dimension whose sharding names ``data`` (as
-    :func:`zero1_sharding` adds it), split by the rank's ``data``
-    coordinate.  All None unless ``cfg.zero1`` and the shardings are on a
+    """Per leaf of ``params`` (this rank's blocks), this rank's ZeRO-1 block
+    of its moments as ``narrow`` arguments ``(dim, start, length)``, or None
+    where the leaf stays whole: the dimension whose sharding names ``data``
+    (as :func:`zero1_sharding` adds it), split by the rank's ``data``
+    coordinate (:meth:`~repro_torch.sharding.specs.NamedSharding.block`
+    over ``data`` alone: the parameter is already the block of its other
+    axes).  All None unless ``cfg.zero1`` and the shardings are on a
     :class:`~repro_torch.core.distributed.ProcessMesh`."""
     flat = leaves(params)
     if not cfg.zero1 or moment_shardings is None:
@@ -114,23 +122,42 @@ def zero1_blocks(cfg: OptimizerConfig, params, moment_shardings) -> list:
         raise ValueError(f"{len(shardings)} moment shardings for {len(flat)} parameters")
     out = []
     for p, sh in zip(flat, shardings):
-        mesh = sh.mesh
-        dims = [i for i, e in enumerate(sh.spec)
-                if e == "data" or (isinstance(e, tuple) and "data" in e)]
-        if not isinstance(mesh, ProcessMesh) or not dims:
-            out.append(None)
-            continue
-        dim, n = dims[0], mesh.shape["data"]
-        if p.shape[dim] % n:
-            raise ValueError(f"dimension {dim} of {tuple(p.shape)} does not divide over "
-                             f"data = {n}")
-        k = p.shape[dim] // n
-        out.append((dim, mesh.coords_of(mesh.rank)["data"] * k, k))
+        block = sh.block(tuple(p.shape), axes=("data",)) if splits(sh) else []
+        out.append(block[0] if block else None)
     return out
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves(tree)))
+def _model_axes(sharding) -> tuple[str, ...]:
+    """The axes other than ``data`` that ``sharding`` splits its leaf over
+    on a process mesh (the parameter's own split), in spec order."""
+    if not splits(sharding):
+        return ()
+    return tuple(a for a in sharding.spec.axes()
+                 if a != "data" and sharding.mesh.shape[a] > 1)
+
+
+def global_norm(tree, shardings=None) -> torch.Tensor:
+    """The global norm: the per-leaf f32 squared sums added in leaf order.
+    With ``shardings`` (a tree like ``tree``) a leaf split over process-mesh
+    axes other than ``data`` is the rank's block: its squared sum is first
+    summed over those axes (one ordered ``psum`` per axis set, all such
+    leaves stacked), so every rank gets the global arrays' norm; whole
+    leaves count once.  The shardings must describe the leaves as held: a
+    whole leaf under a sharding split over ``model`` would count M times
+    (``launch.steps.build_recsys_cell`` refuses such a mesh for training)."""
+    sq = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    if shardings is not None:
+        groups: dict[tuple, list[int]] = {}
+        for i, sh in enumerate(leaves(shardings)):
+            axes = _model_axes(sh)
+            if axes:
+                groups.setdefault(axes, []).append(i)
+        for axes, idx in groups.items():
+            mesh = leaves(shardings)[idx[0]].mesh
+            summed = col.psum(mesh, [torch.stack([sq[i] for i in idx])], axes)[0]
+            for j, i in enumerate(idx):
+                sq[i] = summed[j]
+    return torch.sqrt(sum(sq))
 
 
 @torch.no_grad()
@@ -142,10 +169,10 @@ def adamw_update(cfg: OptimizerConfig, grads, params, state, moment_shardings=No
     like ``params`` of :func:`zero1_sharding`'s layouts) makes the update
     ZeRO-1's under ``cfg.zero1`` on a process mesh (module docstring); the
     grads are then the full reduced ones, equal on every rank, and so is
-    the global norm."""
+    the global norm (:func:`global_norm`, over ``model`` blocks too)."""
     blocks = zero1_blocks(cfg, params, moment_shardings)
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, moment_shardings)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
