@@ -72,7 +72,10 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    queries of each trace open loop with Poisson stamps and a fixed service
    time through the kernel executor and its plain twin, whose reports and
    per-query ids and scores must be equal.  It runs after phase 4 and
-   before phase 5, so no profiler session precedes a timed serving run;
+   before phase 5, so no profiler session precedes a timed serving run.
+   Its zipf and mixture traces (phases 7 and 8 take the same) are made
+   from the corpus's seed on the host before phase 1, beside phase 7's
+   stacked index (``serve_traces``);
 7. shards the same corpus into 8 region shards behind footprint routing
    (``make_executor("sharded", corpus, n_shards=8,
    partitioner=RegionRangePartitioner(), routing="footprint", fused=True,
@@ -91,13 +94,16 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    exactly one per visited shard per live batch plus 8 per warm-up shape);
    and the mesh executor on an (8, 1) data × model mesh equals the sharded
    one on the trace and the narrow batch (ids and scores after sorting each
-   row by (−score, id), counter sums within rtol 1e-6).  The mesh's
-   stacked index (``shard_corpus_np`` of the same corpus and partitioner,
-   as ``make_executor("mesh", ...)`` builds it) is built on the host by a
-   subprocess with no card visible, started before phase 1 beside the
-   dry-run of phase 15 (a) and waited for at the end of the set-up, so
-   that its build is not on the timed path; phase 7 loads it onto the
-   card.  It runs after phase 6 and before phase 5.
+   row by (−score, id), counter sums within rtol 1e-6).  The sharded
+   executor's 8 engines (``make_executor("sharded", ...)`` with the
+   arguments above, on the host) and the mesh's stacked index
+   (``shard_corpus_np`` of the same corpus and partitioner, as
+   ``make_executor("mesh", ...)`` builds it) are built by two subprocesses
+   with no card visible, started before phase 1 beside the dry-run of
+   phase 15 (a) and waited for at the end of the set-up, so that their
+   builds are not on the timed path; phase 7 moves them onto the card
+   (the indexes are the host build's arrays on any device).  It runs
+   after phase 6 and before phase 5.
 8. puts telemetry (``repro_torch.obs.Telemetry``) to work: (a) serves
    phase 6's ``serve_auto_mixture`` (without its cache, whose wall-clock
    eviction credits could move a hit between runs) ``TEL_RUNS`` times each
@@ -294,8 +300,9 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    ``make_train_step``, ZeRO-1's ``adamw_update``, ``psum_compressed``,
    EGNN's ``make_sharded_loss``): one ``run_ranks`` call of 4 ``gloo``
    ranks, all on ``cuda:0``, on the (4, 1) data x model process mesh:
-   (a) SmolLM-135M ``train_4k`` at published widths, global batch 4 x
-   4,096 (one sequence per rank; the published batch is 256), remat full,
+   (a) SmolLM-135M ``train_4k`` at published widths, depth cut to
+   ``TRAIN_DP_LAYERS`` = 8 of 30, global batch 4 x 4,096 (one sequence per
+   rank; the published batch is 256), remat full,
    ``TRAIN_OPT`` (ZeRO-1), 2 steps: params (SHA-256 of their bytes), loss
    and grad_norm after each step bitwise equal on every rank and to the
    one-process ``microbatches=4`` step on the card; each rank's ms per
@@ -342,6 +349,30 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    its f32 step.
    It launches no kernel, and runs after phase 17 and before phase 5.  No
    run on several cards is possible on one card's host.
+19. runs sequence-parallel attention over the ``model`` axis (heads that
+   do not divide it): Qwen2.5-14B ``train_4k`` at published widths (d
+   5,120, 40 heads, kv 8, d_head 128, d_ff 13,824, vocab 152,064, QKV
+   bias; depth cut to ``SP_LAYERS`` = 1 of 48), f32 compute (the CPU
+   tests' tolerances), global batch 1 x 512 (published 256 x 4,096),
+   remat full, ZeRO-1, ``TP_OPT``: (a) one process on the card takes the
+   gradients and one AdamW step (29.3 GB of train state), saves the
+   gradients and the parameters after the step to a temporary directory
+   and frees them; (b) one ``run_ranks`` call of 16 ``gloo`` ranks on
+   ``cuda:0``, the (1, 16) data x model process mesh (the production
+   ``model`` size; 40 and 8 do not divide 16, the projection widths, d_ff
+   and the vocab do), each drawing its ``param_specs`` blocks in
+   ``SP_TURNS`` turns, takes one step as the train step does: its
+   ``value_and_grad``, with the ``model`` collectives counted, timed and
+   sized by caller, then its AdamW update; the ranks' losses and grad
+   norms equal, each within ``TP_LOSS_TOL`` of one process's, every rank's
+   gradient blocks within ``SP_GRAD_TOL`` and
+   parameter blocks after the step within ``TP_PARAM_ATOL`` of one
+   process's leaves' blocks, each rank's parameter and moment bytes the
+   dry-run's per-device count on (1, 16); ms a rank, peak a rank, the
+   collectives beside ``roofline.lm_activation_bytes``' count, the card's
+   name and power limit beside the times.  It launches no kernel, and runs
+   after phase 18 and before phase 5.  No run on several cards is possible
+   on one card's host.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -559,6 +590,8 @@ PROC_TIMEOUT_S = 300
 TRAIN_MESH = (4, 1)
 TRAIN_AXES = ("data", "model")
 TRAIN_DP_ARCH = "smollm-135m"
+# depth cut to 8 of 30 layers (the 1,200 s limit; PERF.md §6)
+TRAIN_DP_LAYERS = 8
 TRAIN_DP_CUT = (4, 4096)
 TRAIN_DP_STEPS = 2
 TRAIN_GNN_STEPS = 2
@@ -571,7 +604,7 @@ TRAIN_TIMEOUT_S = 600
 # tolerances hold (tests/test_torch_tensor_parallel.py)
 TP_ARCH = "qwen1.5-0.5b"
 TP_MESH = (2, 2)
-TP_LAYERS = 4
+TP_LAYERS = 2  # cut from 4 for the 1,200 s limit (PERF.md §6)
 TP_CUT = (2, 2048)
 TP_STEPS = 2
 TP_OPT = dict(lr=1e-3, warmup_steps=2, zero1=True)  # tests/test_elastic.py's, ZeRO-1
@@ -586,6 +619,25 @@ TP_TRAJ_TOL = LM_TRAJ_TOL
 # gaps from one process's f32 step (the test's BF16_GAP_FACTOR)
 TP_BF16_GAP_FACTOR = 2
 TP_TIMEOUT_S = 600
+# phase 19: sequence-parallel attention over the model axis: Qwen2.5-14B
+# train_4k at published widths (40 heads, kv 8: neither divides 16; d 5,120,
+# d_ff 13,824 and the vocab's 152,064 rows do) on the (1, 16) data x model
+# mesh of 16 gloo ranks on one card, the production model size.  Cuts:
+# depth 1 of 48 layers, global batch 1 x 512 (published 256 x 4,096; 1 x
+# 1,024 took the phase alone 124.8 s on an H100 80GB HBM3 at 700 W, past
+# its ~120 s: 32 rows a rank, one 512-key chunk), f32 compute so the CPU
+# tests' tolerances hold
+# (tests/test_torch_seq_parallel.py)
+SP_ARCH = "qwen2.5-14b"
+SP_MESH = (1, 16)
+SP_LAYERS = 1
+SP_CUT = (1, 512)
+SP_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)  # the CPU tests' GRAD_TOL
+# the ranks draw their leaves (each whole, 3.11 GB for the embedding, then
+# its block kept) in SP_TURNS turns, so that at most 16 / SP_TURNS whole
+# leaves are on the card at once
+SP_TURNS = 4
+SP_TIMEOUT_S = 600
 COMPRESS_REL = 0.05  # tests/test_distributed.py's bound on the int8 mean
 GNN_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)  # tests/test_torch_egnn.py's GRAD_TOL
 GNN_BF16_REL = 2.0**-5  # tests/test_torch_egnn.py's BF16_REL: the loss against loss_fn
@@ -714,19 +766,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
-    # phase 15 (a) and phase 7's stacked index start first: their CPU-only
+    # phase 15 (a) and phase 7's host builds start first: their CPU-only
     # subprocesses run beside phase 1 and the set-up, which time nothing
     dry = start_dryrun_cli()
-    stacked = start_stacked_index()
+    builds = start_host_builds()
     try:
-        return run_phases(dry, stacked)
+        return run_phases(dry, builds)
     finally:
-        stop_stacked_index(stacked)
+        stop_host_builds(builds)
         stop_dryrun_cli(dry)
 
 
-def run_phases(dry: dict, stacked: dict) -> int:
-    """Phases 1 to 18 and 5 (see the module docstring)."""
+def run_phases(dry: dict, builds: dict) -> int:
+    """Phases 1 to 19 and 5 (see the module docstring)."""
     import numpy as np
 
     import torch
@@ -806,7 +858,9 @@ def run_phases(dry: dict, stacked: dict) -> int:
             f"{tx.posting_bytes:.4f} B/posting, impacts {tx.impacts.dtype}")
 
     wait_dryrun_cli(dry)  # before anything is timed
-    wait_stacked_index(stacked)
+    wait_host_builds(builds)
+    _TRACES.update(pickle=Path(builds["dir"], "traces.pkl").read_bytes(),
+                   source="made on the host before phase 1")
     # ---- phase 2: each kernel against its plain version ------------------
     b0 = batches[0].to(dev)
     S = plain_ex.engine.budgets.sweep_budget
@@ -1340,7 +1394,7 @@ def run_phases(dry: dict, stacked: dict) -> int:
     serve_counts = serving_phase(corpus, plain_ex.engine.index, budgets)
     # ---- phase 7: document-sharded serving, before the profiler pass ----
     shard_counts, executors["sharded_footprint"], (mesh_ex, narrow) = sharded_phase(
-        corpus, budgets, batches, stacked["dir"])
+        corpus, budgets, batches, builds["dir"])
     # ---- phase 16: the serve step across processes, on phase 7's index --
     proc_counts = process_mesh_phase(mesh_ex, batches + [narrow], budgets)
     del mesh_ex
@@ -1375,6 +1429,9 @@ def run_phases(dry: dict, stacked: dict) -> int:
     torch.cuda.empty_cache()
     # ---- phase 18: the model axis across processes -----------------------
     tensor_parallel_phase()
+    torch.cuda.empty_cache()
+    # ---- phase 19: sequence-parallel attention over the model axis -------
+    seq_parallel_phase()
     torch.cuda.empty_cache()
     for row in table:
         main_counts[row["name"]] += (serve_counts[row["name"]] + shard_counts[row["name"]]
@@ -1414,22 +1471,16 @@ def serving_phase(corpus, index, budgets) -> dict[str, int]:
     import torch
 
     from repro_torch.core import GeoSearchEngine
-    from repro_torch.corpus import (
-        make_mixture_trace,
-        make_zipf_trace,
-        pad_trace_batch,
-        stamp_arrivals,
-    )
+    from repro_torch.corpus import pad_trace_batch, stamp_arrivals
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import DeadlineBatcher, GeoServer, SingleDeviceExecutor, make_cache
 
     t_phase = time.perf_counter()
     pr = replace(budgets, prune=True)
     t = time.perf_counter()
-    zipf = make_zipf_trace(corpus, n_queries=SERVE_QUERIES, pool_size=SERVE_POOL, seed=1)
-    mixture = make_mixture_trace(corpus, n_queries=SERVE_QUERIES, seed=1)
+    zipf, mixture = serve_traces(corpus)
     say(f"phase 6: zipf and mixture traces of {SERVE_QUERIES} queries in "
-        f"{time.perf_counter() - t:.1f} s")
+        f"{time.perf_counter() - t:.1f} s ({_TRACES['source']})")
     # (budgets, algorithm, trace, arrival): serve.py --fused;
     # --prune --fused --arrival poisson; --algorithm auto --prune --fused
     # --trace mixture
@@ -1550,8 +1601,10 @@ def serving_phase(corpus, index, budgets) -> dict[str, int]:
 
 def sharded_phase(corpus, budgets, batches, stacked_dir) -> tuple[dict[str, int], tuple, tuple]:
     """Phase 7: the sharded and mesh executors over 8 region shards of the
-    phase-3 corpus (see the module docstring), the mesh's stacked index
-    read from ``stacked_dir`` (:func:`build_stacked_index`).  Returns the kernel launches
+    phase-3 corpus (see the module docstring), the sharded executor's
+    engines and the mesh's stacked index read from ``stacked_dir``
+    (:func:`build_sharded_engines`, :func:`build_stacked_index`).  Returns
+    the kernel launches
     of the runs a user's entry points make — the footprint-routed trace,
     the one-batch kernel variants, the served trace and the mesh; the
     broadcast and plain-twin comparisons are not counted —, the sharded
@@ -1560,8 +1613,7 @@ def sharded_phase(corpus, budgets, batches, stacked_dir) -> tuple[dict[str, int]
     import numpy as np
     import torch
 
-    from repro_torch.core import QueryPlan, RegionRangePartitioner, ShardedGeoIndex, make_mesh
-    from repro_torch.corpus import make_zipf_trace
+    from repro_torch.core import QueryPlan, ShardedGeoIndex, make_mesh
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.geo_score.ops import geo_score_toeprints
     from repro_torch.serving import (
@@ -1570,7 +1622,6 @@ def sharded_phase(corpus, budgets, batches, stacked_dir) -> tuple[dict[str, int]
         MeshExecutor,
         ShardedExecutor,
         make_cache,
-        make_executor,
     )
 
     t_phase = time.perf_counter()
@@ -1612,13 +1663,16 @@ def sharded_phase(corpus, budgets, batches, stacked_dir) -> tuple[dict[str, int]
         return outs, launch_counts(), times
 
     t = time.perf_counter()
-    # serve.py --shards 8 --partition region --routing footprint --prune --fused
-    ex = make_executor("sharded", corpus, n_shards=8, partitioner=RegionRangePartitioner(),
-                       routing="footprint", fused=True, budgets=pr, device=DEVICE)
+    # serve.py --shards 8 --partition region --routing footprint --prune --fused,
+    # built on the host before phase 1 (build_sharded_engines)
+    ex = load_sharded_engines(stacked_dir, DEVICE)
+    check(ex.kw == {"fused": True} and ex.routing == "footprint"
+          and all(e.budgets.prune for e in ex.engines), "phase 7: the sharded executor's options")
     engines, gids = ex.engines, ex.global_ids
     sizes = [len(g) for g in gids]
     tps = [e.index.spatial.n_toeprints for e in engines]
-    say(f"phase 7: 8 region shards built in {time.perf_counter() - t:.1f} s; docs per shard "
+    say(f"phase 7: 8 region shards (make_executor('sharded', ...) on the host in a subprocess "
+        f"before phase 1) onto the card in {time.perf_counter() - t:.1f} s; docs per shard "
         f"{min(sizes)}-{max(sizes)}, toe prints per shard {min(tps)}-{max(tps)}")
     broadcast = ShardedExecutor(engines, gids, "k_sweep", routing="broadcast", fused=True)
     plain = ShardedExecutor(engines, gids, "k_sweep", routing="footprint")
@@ -1699,7 +1753,7 @@ def sharded_phase(corpus, budgets, batches, stacked_dir) -> tuple[dict[str, int]
             f"{kernel} launched {k_counts[kernel]} times ({n_vis} visited shards)")
 
     # GeoServer over the sharded executor at serve.py's defaults
-    zipf = make_zipf_trace(corpus, n_queries=SERVE_QUERIES, pool_size=SERVE_POOL, seed=1)
+    zipf, _ = serve_traces(corpus)
     srv = GeoServer(ex, cache=make_cache("landlord", CACHE_CAPACITY),
                     batcher=DeadlineBatcher(max_batch=BATCH, max_terms=8, max_rects=4,
                                             max_wait_s=float("inf")))
@@ -1981,7 +2035,6 @@ def telemetry_phase(corpus, index, budgets, sharded) -> dict[str, int]:
     import torch
 
     from repro_torch.core import GeoSearchEngine
-    from repro_torch.corpus import make_mixture_trace, make_zipf_trace
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.obs import Telemetry, validate_trace
     from repro_torch.serving import (
@@ -2044,7 +2097,7 @@ def telemetry_phase(corpus, index, budgets, sharded) -> dict[str, int]:
     # Landlord cache's credits are wall-clock service costs, so which entry
     # it evicts, and so a later hit, can move between two runs whatever the
     # telemetry (the mixture trace repeats almost nothing: 1 hit in 2048)
-    mixture = make_mixture_trace(corpus, n_queries=SERVE_QUERIES, seed=1)
+    _, mixture = serve_traces(corpus)
     off_ex = SingleDeviceExecutor(GeoSearchEngine.from_index(index, pr), "auto", fused=True)
     on_ex = SingleDeviceExecutor(GeoSearchEngine.from_index(index, pr), "auto", fused=True)
     # "no_audit": every sink but the planner audit, whose explain() repeats
@@ -2102,7 +2155,7 @@ def telemetry_phase(corpus, index, budgets, sharded) -> dict[str, int]:
     # (b) serve_sharded_footprint over phase 7's engines without and with a
     # handle (fresh executors: attaching one binds its registry to the
     # shared engines, detached again below)
-    zipf = make_zipf_trace(corpus, n_queries=SERVE_QUERIES, pool_size=SERVE_POOL, seed=1)
+    zipf, _ = serve_traces(corpus)
 
     def sharded_ex():
         return ShardedExecutor(sharded.engines, sharded.global_ids, sharded.algorithm,
@@ -3463,6 +3516,30 @@ def egnn_phase() -> None:
     say(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phases 6-8's traces, pickled: from the set-up's host build, or made on the
+# first call of serve_traces
+_TRACES: dict = {"pickle": None, "source": ""}
+
+
+def serve_traces(corpus) -> tuple:
+    """Phases 6-8's ``SERVE_QUERIES``-query zipf and mixture traces of
+    ``corpus`` (serve.py's seeds), new objects on every call:
+    :func:`build_stacked_index` makes them on the host before phase 1
+    (``run_phases`` loads them); a process that has not loaded them makes
+    them on its first call."""
+    import pickle
+
+    from repro_torch.corpus import make_mixture_trace, make_zipf_trace
+
+    if _TRACES["pickle"] is None:
+        t = time.perf_counter()
+        _TRACES["pickle"] = pickle.dumps((
+            make_zipf_trace(corpus, n_queries=SERVE_QUERIES, pool_size=SERVE_POOL, seed=1),
+            make_mixture_trace(corpus, n_queries=SERVE_QUERIES, seed=1)))
+        _TRACES["source"] = f"made in {time.perf_counter() - t:.1f} s"
+    return pickle.loads(_TRACES["pickle"])
+
+
 def build_stacked_index(out_dir: str) -> None:
     """Phase 7's stacked index, in a subprocess with no card: the set-up's
     corpus made again from its seed, split into 8 region shards and
@@ -3486,46 +3563,108 @@ def build_stacked_index(out_dir: str) -> None:
     build_s = time.perf_counter() - t
     torch.save({f.name: getattr(idx, f.name) for f in dataclasses.fields(idx)},
                Path(out_dir, "index.pt"))
+    serve_traces(corpus)
+    Path(out_dir, "traces.pkl").write_bytes(_TRACES["pickle"])
+    print(json.dumps({"corpus_s": corpus_s, "build_s": build_s,
+                      "traces": _TRACES["source"]}), flush=True)
+
+
+def build_sharded_engines(out_dir: str) -> None:
+    """Phase 7's sharded executor, in a subprocess with no card: the
+    set-up's corpus made again from its seed and ``make_executor("sharded",
+    ...)`` with phase 7's arguments on the host; its engines' indexes,
+    budgets and weights, global ids, algorithm, routing and options saved
+    to ``out_dir/engines.pt`` (phase 7 moves the indexes to the card:
+    their tensors are the host build's numpy arrays on any device); prints
+    its timings as JSON."""
+    import torch
+
+    from repro_torch.core import QueryBudgets, RegionRangePartitioner
+    from repro_torch.corpus import make_corpus
+    from repro_torch.serving import make_executor
+
+    t = time.perf_counter()
+    corpus = make_corpus(n_docs=N_DOCS, n_terms=N_TERMS, seed=0)
+    corpus_s = time.perf_counter() - t
+    t = time.perf_counter()
+    # serve.py --shards 8 --partition region --routing footprint --prune --fused
+    ex = make_executor("sharded", corpus, n_shards=8, partitioner=RegionRangePartitioner(),
+                       routing="footprint", fused=True,
+                       budgets=replace(QueryBudgets(**BUDGETS), prune=True), device="cpu")
+    build_s = time.perf_counter() - t
+    torch.save({"engines": [(e.index, e.budgets, e.weights) for e in ex.engines],
+                "global_ids": ex.global_ids, "algorithm": ex.algorithm, "routing": ex.routing,
+                "kw": ex.kw}, Path(out_dir, "engines.pt"))
     print(json.dumps({"corpus_s": corpus_s, "build_s": build_s}), flush=True)
 
 
-def start_stacked_index() -> dict:
-    """Start :func:`build_stacked_index` in a subprocess (before phase 1,
-    no card visible), writing into a temporary directory."""
+def load_sharded_engines(out_dir: str, device):
+    """:func:`build_sharded_engines`' executor with its indexes on
+    ``device``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import GeoIndex, GeoSearchEngine
+    from repro_torch.serving import ShardedExecutor
+
+    def moved(x):
+        return dataclasses.replace(x, **{f.name: getattr(x, f.name).to(device)
+                                         for f in dataclasses.fields(x)
+                                         if isinstance(getattr(x, f.name), torch.Tensor)})
+
+    saved = torch.load(Path(out_dir, "engines.pt"), weights_only=False)
+    engines = [GeoSearchEngine(GeoIndex(moved(ix.text), moved(ix.spatial),
+                                        ix.pagerank.to(device)), budgets, weights)
+               for ix, budgets, weights in saved["engines"]]
+    return ShardedExecutor(engines, saved["global_ids"], saved["algorithm"],
+                           routing=saved["routing"], **saved["kw"])
+
+
+def start_host_builds() -> dict:
+    """Start :func:`build_stacked_index` and :func:`build_sharded_engines`
+    in a subprocess each (before phase 1, no card visible), writing into
+    one temporary directory."""
     import os
     import tempfile
 
     out_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-stacked-"))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
-    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
-            "chip_smoke.build_stacked_index(sys.argv[2])")
-    with open(out_dir / "log", "w") as log:
-        proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT), str(out_dir)], cwd=ROOT,
-                                env=env, stdout=log, stderr=subprocess.STDOUT)
-    return {"dir": out_dir, "proc": proc, "t0": time.perf_counter()}
+    procs = {}
+    for fn in ("build_stacked_index", "build_sharded_engines"):
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+                f"chip_smoke.{fn}(sys.argv[2])")
+        with open(out_dir / f"{fn}.log", "w") as log:
+            procs[fn] = subprocess.Popen([sys.executable, "-c", code, str(ROOT), str(out_dir)],
+                                         cwd=ROOT, env=env, stdout=log,
+                                         stderr=subprocess.STDOUT)
+    return {"dir": out_dir, "procs": procs, "t0": time.perf_counter()}
 
 
-def wait_stacked_index(stacked: dict) -> None:
-    """Wait for :func:`start_stacked_index`'s subprocess (at the end of
-    the set-up); fails unless it exited 0."""
+def wait_host_builds(builds: dict) -> None:
+    """Wait for :func:`start_host_builds`'s subprocesses (at the end of
+    the set-up); fails unless each exited 0."""
     t = time.perf_counter()
-    rc = stacked["proc"].wait(timeout=DRYRUN_TIMEOUT_S)
-    log = (stacked["dir"] / "log").read_text()
-    check(rc == 0, f"phase 7's stacked index build exited {rc}: {log[-2000:]}")
-    say(f"set-up: phase 7's stacked index built on the host in a subprocess "
-        f"{log.strip().splitlines()[-1]}; it ended {time.perf_counter() - stacked['t0']:.1f} s "
-        f"after its start before phase 1, the set-up waited {time.perf_counter() - t:.1f} s")
+    for fn, proc in builds["procs"].items():
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        log = (builds["dir"] / f"{fn}.log").read_text()
+        check(rc == 0, f"phase 7's {fn} exited {rc}: {log[-2000:]}")
+        say(f"set-up: phase 7's {fn} on the host in a subprocess "
+            f"{log.strip().splitlines()[-1]}; ended by "
+            f"{time.perf_counter() - builds['t0']:.1f} s after its start before phase 1")
+    say(f"set-up: the set-up waited {time.perf_counter() - t:.1f} s for phase 7's host builds")
 
 
-def stop_stacked_index(stacked: dict) -> None:
-    """Kill :func:`start_stacked_index`'s subprocess if it is left and
-    remove its files."""
+def stop_host_builds(builds: dict) -> None:
+    """Kill :func:`start_host_builds`'s subprocesses if any is left and
+    remove their files."""
     import shutil
 
-    if stacked["proc"].poll() is None:
-        stacked["proc"].kill()
-        stacked["proc"].wait()
-    shutil.rmtree(stacked["dir"], ignore_errors=True)
+    for proc in builds["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(builds["dir"], ignore_errors=True)
 
 
 def start_dryrun_cli() -> dict:
@@ -3613,6 +3752,17 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
+def _dp_spec():
+    """Phase 17 (a)'s arch, ``TRAIN_DP_LAYERS`` deep."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+
+    spec = get_arch(TRAIN_DP_ARCH)
+    return dataclasses.replace(spec, config=dataclasses.replace(spec.config,
+                                                                n_layers=TRAIN_DP_LAYERS))
+
+
 def _lm_train_cut(spec):
     """SmolLM-135M's ``train_4k`` at ``TRAIN_DP_CUT`` (phase 17 (a))."""
     import dataclasses
@@ -3657,7 +3807,7 @@ def _train_rank(rank: int, device: str) -> dict:
     cuda = device == "cuda"
 
     # (a) SmolLM-135M train_4k, data-parallel with ZeRO-1
-    spec = get_arch(TRAIN_DP_ARCH)
+    spec = _dp_spec()
     cfg = spec.config
     cell = steps.build_lm_cell(spec, _lm_train_cut(spec), seed=LM_SEED, mesh=mesh)
     params, opt, batch = cell.args
@@ -3811,7 +3961,7 @@ def train_collectives_phase() -> None:
     dev = torch.device(DEVICE)
     n = math.prod(TRAIN_MESH)
     B, S = TRAIN_DP_CUT
-    spec = get_arch(TRAIN_DP_ARCH)
+    spec = _dp_spec()
     B0, S0 = (spec.shape("train_4k").params[k] for k in ("global_batch", "seq_len"))
     say(f"phase 17: {card_line()}")
 
@@ -3871,7 +4021,8 @@ def train_collectives_phase() -> None:
         "losses": [r[3] for r in outs[0]["lm_runs"]],
         "grad_norms": [r[4] for r in outs[0]["lm_runs"]],
         "compress_ms": [o["compress_ms"] for o in outs], "compress_rel_err": cc["rel_err"]}
-    say(f"phase 17 (a): {TRAIN_DP_ARCH} train_4k at published widths, global batch {B} x {S} "
+    say(f"phase 17 (a): {TRAIN_DP_ARCH} train_4k at published widths, {TRAIN_DP_LAYERS} of "
+        f"{get_arch(TRAIN_DP_ARCH).config.n_layers} layers, global batch {B} x {S} "
         f"(published {B0} x {S0}: cut to one sequence per rank), remat {spec.config.remat}, "
         f"TRAIN_OPT (ZeRO-1), {TRAIN_DP_STEPS} steps: params, loss and grad_norm after each "
         f"step bitwise equal on the {n} ranks and to the one-process microbatches={n} step "
@@ -3967,28 +4118,30 @@ def train_collectives_phase() -> None:
         "possible (one card on this host)")
 
 
-def _tp_spec(n_layers: int = TP_LAYERS):
-    """Phase 18's arch (f32 compute, ``n_layers`` deep) and its
-    ``train_4k`` at ``TP_CUT``."""
+def _tp_spec(n_layers: int | None = None, arch: str | None = None, cut: tuple | None = None):
+    """Phase 18's arch (phase 19's given ``SP_*``; f32 compute, ``n_layers``
+    deep, default ``TP_LAYERS``) and its ``train_4k`` at ``cut`` (default
+    ``TP_CUT``)."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs.base import get_arch
 
-    spec = get_arch(TP_ARCH)
-    cfg = dataclasses.replace(spec.config, n_layers=n_layers, compute_dtype=torch.float32)
+    spec = get_arch(arch or TP_ARCH)
+    cfg = dataclasses.replace(spec.config, n_layers=n_layers or TP_LAYERS,
+                              compute_dtype=torch.float32)
     spec = dataclasses.replace(spec, config=cfg)
     shape = spec.shape("train_4k")
-    B, S = TP_CUT
+    B, S = cut or TP_CUT
     return spec, dataclasses.replace(shape, params={**shape.params, "global_batch": B,
                                                     "seq_len": S})
 
 
-def _tp_batches(cfg, dev, n: int) -> list:
+def _tp_batches(cfg, dev, n: int, cut: tuple | None = None) -> list:
     from repro_torch.data.lm import LMDataConfig, lm_batch
 
-    B, S = TP_CUT
+    B, S = cut or TP_CUT
     return [lm_batch(LMDataConfig(cfg.vocab, S, B, LM_SEED), s, dev) for s in range(n)]
 
 
@@ -4395,6 +4548,246 @@ def tensor_parallel_phase() -> None:
         f"{nccl_ms / 1e3:.1f} s with the rank's start-up")
     say("phase 18: " + json.dumps(report))
     say(f"phase 18: {time.perf_counter() - t_phase:.1f} s; no run on several cards was "
+        "possible (one card on this host)")
+
+
+def _block_errors(got, ref_dir: str, shardings, tol: dict) -> dict:
+    """This rank's blocks ``got`` against the blocks of the one-process
+    leaves saved in ``ref_dir`` (``<j>.npy`` in flattened order): the
+    largest abs error, and the largest excess of ``|a - b|`` over ``atol +
+    rtol·|b|`` (<= 0: within ``tol``)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.sharding.specs import local_block
+    from repro_torch.train.tree import leaves
+
+    err = excess = 0.0
+    for j, (a, sh) in enumerate(zip(leaves(got), leaves(shardings), strict=True)):
+        b = np.load(os.path.join(ref_dir, f"{j}.npy"), mmap_mode="r")
+        b = torch.from_numpy(np.array(local_block(b, sh))).to(a.device)
+        check(tuple(b.shape) == tuple(a.shape), f"phase 19: leaf {j}'s block {tuple(a.shape)} "
+              f"against the reference's {tuple(b.shape)}")
+        d = (a.detach() - b).abs()
+        err = max(err, float(d.max()))
+        excess = max(excess, float((d - tol["atol"] - tol["rtol"] * b.abs()).max()))
+    return {"max_abs": err, "excess": excess}
+
+
+def _sp_rank(rank: int, device: str, ref_dir: str) -> dict:
+    """Phase 19, one rank of the (1, 16) process mesh: its blocks drawn in
+    turns, then one step as the train step takes it, its gradients (the
+    ``model`` collectives counted by kind) and then its AdamW update, each
+    against the one-process step's saved leaves."""
+    import sys as sys_lib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import ProcessMesh, make_process_mesh
+    from repro_torch.launch import steps
+    from repro_torch.models.params import param_shardings
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_update
+
+    torch.set_num_threads(1)
+    cuda = device == "cuda"
+    mesh = make_process_mesh(SP_MESH, TRAIN_AXES, device=None if cuda else device)
+    out = {"device": str(mesh.device), "ready": time.time()}
+    spec, shape = _tp_spec(SP_LAYERS, SP_ARCH, SP_CUT)
+    cfg = spec.config
+    t = time.perf_counter()
+    for turn in range(SP_TURNS):
+        if rank % SP_TURNS == turn:
+            params = cfg.init(LM_SEED, mesh.device, mesh)
+            if cuda:  # the whole leaves' cached blocks go back to the card
+                torch.cuda.empty_cache()
+        dist.barrier()
+    out["init_ms"] = (time.perf_counter() - t) * 1e3
+    cell = steps.build_lm_cell(spec, shape, seed=LM_SEED, params=params, mesh=mesh)
+    params, opt, _ = cell.args
+    del cell
+    out.update(_state_bytes(params, opt))
+    batch = _tp_batches(cfg, mesh.device, 1, SP_CUT)[0]
+    step = _tp_step(cfg, mesh)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    # the gradients, each model collective timed between syncs and labelled
+    # by the function that called collectives.gather
+    gather, stats = ProcessMesh.gather_axes, {}
+
+    def counted(self, tensors, axes):
+        if tuple(axes) != ("model",):
+            return gather(self, tensors, axes)
+        kind = sys_lib._getframe(2).f_code.co_qualname
+        got, ms = _timed(lambda: gather(self, tensors, axes), device)
+        st = stats.setdefault(kind, {"n": 0, "bytes": 0, "ms": 0.0})
+        st["n"] += 1
+        st["bytes"] += sum(x.nbytes for x in tensors)
+        st["ms"] += ms
+        return got
+
+    ProcessMesh.gather_axes = counted
+    try:
+        (loss, _, grads), out["grads_ms"] = _timed(lambda: step.value_and_grad(params, batch),
+                                                   device)
+    finally:
+        ProcessMesh.gather_axes = gather
+    out["model_collectives"] = stats
+    out["grad_loss"] = float(loss)
+    shardings = param_shardings(cfg.param_defs(), mesh)
+    out["grad_err"] = _block_errors(grads, f"{ref_dir}/grads", shardings, SP_GRAD_TOL)
+    # the step's second half (make_train_step's step is value_and_grad,
+    # then adamw_update with the moment shardings)
+    ms = steps.moment_shardings(cfg.param_defs(), mesh)
+    (params, opt, m), out["update_ms"] = _timed(lambda: adamw_update(
+        OptimizerConfig(**TP_OPT), grads, params, opt, ms), device)
+    del grads
+    out["step_ms"] = out["grads_ms"] + out["update_ms"]
+    out["norm"] = float(m["grad_norm"])
+    out["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+    out["param_err"] = _block_errors(params, f"{ref_dir}/params", shardings,
+                                     dict(rtol=0.0, atol=TP_PARAM_ATOL))
+    return out
+
+
+def seq_parallel_phase() -> None:
+    """Phase 19: sequence-parallel attention over the model axis (see the
+    module docstring)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import make_mesh
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch import steps
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models.layers import head_parallel
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.tree import leaves
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    n, M = math.prod(SP_MESH), SP_MESH[1]
+    spec, shape = _tp_spec(SP_LAYERS, SP_ARCH, SP_CUT)
+    cfg = spec.config
+    B0, S0 = (spec.shape("train_4k").params[k] for k in ("global_batch", "seq_len"))
+    L0 = get_arch(SP_ARCH).config.n_layers
+    check(not head_parallel(cfg.n_heads, cfg.n_kv_heads, M),
+          f"phase 19: {cfg.n_heads} / {cfg.n_kv_heads} heads divide model = {M}")
+    say(f"phase 19: {card_line()}")
+    tmp = tempfile.mkdtemp(prefix="sp-ref-")
+    try:
+        # (a) the one-process step on the card: its loss, gradients and the
+        # parameters after one AdamW step, saved for the ranks and freed
+        def save(tree, name):
+            os.makedirs(os.path.join(tmp, name))
+            for j, x in enumerate(leaves(tree)):
+                np.save(os.path.join(tmp, name, f"{j}.npy"), x.detach().cpu().numpy())
+
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        params = cfg.init(LM_SEED, dev)
+        opt = init_opt_state(OptimizerConfig(**TP_OPT), params)
+        whole = _state_bytes(params, opt)
+        batch = _tp_batches(cfg, dev, 1, SP_CUT)[0]
+        step = _tp_step(cfg, None)
+        (loss1, _, grads), one_grads_ms = _timed(lambda: step.value_and_grad(params, batch),
+                                                 DEVICE)
+        save(grads, "grads")
+        del grads
+        (params, opt, m1), one_step_ms = _timed(lambda: step(params, opt, batch), DEVICE)
+        save(params, "params")
+        del params, opt
+        one_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        one_s = time.perf_counter() - t
+        say(f"phase 19 (a): one process on {DEVICE}: {SP_ARCH} ({cfg.n_heads} heads, kv "
+            f"{cfg.n_kv_heads}, d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
+            f"{cfg.n_layers} layer (published {L0}), f32, {SP_CUT[0]} x {SP_CUT[1]}: gradients "
+            f"{one_grads_ms:.1f} ms, one AdamW step {one_step_ms:.1f} ms, loss "
+            f"{float(loss1):.6f}, peak {one_peak / 2**30:.2f} GiB; parameters "
+            f"{whole['param_bytes']:,} B; saved and freed in {one_s:.1f} s; {card_line()}")
+        # (b) 16 gloo ranks on the (1, 16) mesh
+        t0, t = time.time(), time.perf_counter()
+        outs = run_ranks(_sp_rank, n, args=(DEVICE, tmp), backend="gloo",
+                         timeout_s=SP_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    start_s = [o["ready"] - t0 for o in outs]
+    o0 = outs[0]
+    for o in outs[1:]:
+        check(o["grad_loss"] == o0["grad_loss"] and o["norm"] == o0["norm"],
+              "phase 19 (b): the ranks' losses or grad norms differ")
+    for what, got, one in (("loss", o0["grad_loss"], float(loss1)),
+                           ("grad norm", o0["norm"], float(m1["grad_norm"]))):
+        check(np.allclose(got, one, **TP_LOSS_TOL),
+              f"phase 19 (b): the ranks' {what} {got} vs one process's {one}")
+    for r, o in enumerate(outs):
+        check(o["grad_err"]["excess"] <= 0,
+              f"phase 19 (b): rank {r}'s gradients outside {SP_GRAD_TOL}: {o['grad_err']}")
+        check(o["param_err"]["max_abs"] <= TP_PARAM_ATOL,
+              f"phase 19 (b): rank {r}'s parameters {o['param_err']['max_abs']} from one "
+              "process's")
+    meta = make_mesh(SP_MESH, TRAIN_AXES, device="meta")
+    p_meta, o_meta, _ = steps.build_lm_cell(spec, shape, device="meta", mesh=meta).args
+    want = (rf.arg_counts((p_meta,), meta)["arg_bytes_dev"],
+            rf.arg_counts((o_meta["m"], o_meta["v"]), meta)["arg_bytes_dev"])
+    for r, o in enumerate(outs):
+        check((o["param_bytes"], o["moment_bytes"]) == want,
+              f"phase 19 (b): rank {r} holds {o['param_bytes']} parameter and "
+              f"{o['moment_bytes']} moment bytes, the dry-run {want}")
+    modeled = rf.lm_activation_bytes(cfg, "lm_train", SP_CUT[0], SP_CUT[1], p_meta, meta, 1)
+    mc = o0["model_collectives"]
+    kinds = {k: {"n": v["n"], "MB": round(v["bytes"] / 1e6, 3), "ms": round(v["ms"], 1)}
+             for k, v in sorted(mc.items())}
+    say(f"phase 19 (b): {SP_ARCH} train_4k at published widths, {cfg.n_layers} layer "
+        f"(published {L0}), f32 compute, global batch {SP_CUT[0]} x {SP_CUT[1]} (published "
+        f"{B0} x {S0}), remat {cfg.remat}, ZeRO-1, on {n} gloo ranks as "
+        f"{dict(zip(TRAIN_AXES, SP_MESH))} on {sorted({o['device'] for o in outs})}: "
+        f"sequence-parallel attention ({cfg.n_heads} / {cfg.n_kv_heads} heads on model {M}; "
+        f"{SP_CUT[1] // M} rows a rank); rank start-up {min(start_s):.1f}-{max(start_s):.1f} s, "
+        f"the leaves drawn in {SP_TURNS} turns in {max(o['init_ms'] for o in outs) / 1e3:.1f} s, "
+        f"the ranks' whole run {ranks_s:.1f} s; {card_line()}")
+    say(f"phase 19 (b): ms a rank: the step {[round(o['step_ms'], 1) for o in outs]}, of it "
+        f"the gradients {[round(o['grads_ms'], 1) for o in outs]} and the AdamW update "
+        f"{[round(o['update_ms'], 1) for o in outs]} (one process: gradients {one_grads_ms:.1f}, "
+        f"a step {one_step_ms:.1f}); parameters {o0['param_bytes']:,} B and moments "
+        f"{o0['moment_bytes']:,} B a rank (= the dry-run's per-device count; one process "
+        f"{whole['param_bytes']:,} / {whole['moment_bytes']:,}); peak "
+        f"{[round(o['peak'] / 2**30, 2) for o in outs]} GiB; {card_line()}")
+    say(f"phase 19 (b): rank 0's model collectives of the gradients by caller (count, MB sent "
+        f"a rank, ms): {json.dumps(kinds)}, {sum(v['n'] for v in mc.values())} in all, "
+        f"{sum(v['ms'] for v in mc.values()):.1f} ms of {o0['grads_ms']:.1f}; "
+        f"lm_activation_bytes' per-device count for the step (MB): "
+        f"{ {k: round(v / 1e6, 3) for k, v in modeled.items()} }; {card_line()}")
+    say(f"phase 19 (b): loss {o0['grad_loss']:.6f} (one process {float(loss1):.6f}), grad norm "
+        f"{o0['norm']:.6f} ({float(m1['grad_norm']):.6f}); gradients within {SP_GRAD_TOL} of "
+        f"one process's (largest abs error "
+        f"{max(o['grad_err']['max_abs'] for o in outs):.4g}), parameters after one AdamW step "
+        f"within {TP_PARAM_ATOL:g} (largest {max(o['param_err']['max_abs'] for o in outs):.4g})")
+    report = {
+        "mesh": dict(zip(TRAIN_AXES, SP_MESH)), "layers": cfg.n_layers,
+        "global_batch": [B0, S0], "run_batch": list(SP_CUT),
+        "grads_ms_per_rank": [o["grads_ms"] for o in outs],
+        "step_ms_per_rank": [o["step_ms"] for o in outs],
+        "update_ms_per_rank": [o["update_ms"] for o in outs],
+        "one_process_grads_ms": one_grads_ms, "one_process_step_ms": one_step_ms,
+        "model_collectives_rank0": mc, "lm_activation_bytes": modeled,
+        "param_bytes_per_rank": o0["param_bytes"], "moment_bytes_per_rank": o0["moment_bytes"],
+        "peak_gib_per_rank": [o["peak"] / 2**30 for o in outs],
+        "one_process_peak_gib": one_peak / 2**30,
+        "max_grad_err": max(o["grad_err"]["max_abs"] for o in outs),
+        "max_param_err": max(o["param_err"]["max_abs"] for o in outs),
+        "rank_start_s": start_s, "ranks_s": ranks_s, "one_process_s": one_s}
+    say("phase 19: " + json.dumps(report))
+    say(f"phase 19: {time.perf_counter() - t_phase:.1f} s; no run on several cards was "
         "possible (one card on this host)")
 
 

@@ -10,7 +10,8 @@ Modules (each the counterpart of ``repro/core/<name>.py``):
   planner        QueryPlan, cost model and the per-query Planner
   engine         GeoSearchEngine facade
   distributed    partitioners, coverage routing, ShardedGeoIndex, the meshes and their step
-  collectives    psum, pmax, all_gather, psum_scatter, replicated over mesh axes (port only)
+  collectives    psum, pmax, all_gather, psum_scatter, all_to_all, replicated over mesh
+                 axes (port only)
   convert        the reference's index arrays → the port's GeoIndex
 """
 from repro_torch.core.algorithms import (

@@ -1,8 +1,9 @@
 """Collectives over mesh axes: the port's ``jax.lax.psum``, ``pmax``,
-``all_gather(tiled=True)`` and ``psum_scatter(tiled=True)`` inside
-``shard_map`` (no reference module of its own: the reference calls
-``jax.lax``), for the train side's data-parallel step, ZeRO-1's update,
-``psum_compressed`` and EGNN's sharded loss.
+``all_gather(tiled=True)``, ``psum_scatter(tiled=True)`` and
+``all_to_all(tiled=True)`` inside ``shard_map`` (no reference module of its
+own: the reference calls ``jax.lax``), for the train side's data-parallel
+step, ZeRO-1's update, ``psum_compressed``, EGNN's sharded loss and the
+dense LM's tensor- and sequence-parallel layers.
 
 Every collective takes ``xs``, one tensor per mesh position this process
 holds (:func:`positions`), and returns one per position, as the serve
@@ -27,7 +28,11 @@ Gradients (``torch.autograd.Function``s), as JAX transposes the same
 collectives:
 
 * :func:`all_gather`'s backward is the :func:`psum_scatter` of the
-  cotangents, and :func:`psum_scatter`'s is the :func:`all_gather`;
+  cotangents along the same dim, and :func:`psum_scatter`'s is the
+  :func:`all_gather`;
+* :func:`all_to_all`'s backward is the inverse :func:`all_to_all` (its two
+  dims swapped): it moves blocks and adds nothing, so both directions are
+  bitwise the loop form's;
 * :func:`replicated` is the identity; its backward sums each leaf's
   cotangents over the group.  It is the one place gradients of replicated
   parameters are reduced: the data-parallel step and the sharded EGNN loss
@@ -110,46 +115,68 @@ def pmax(mesh: Mesh, xs: list[torch.Tensor], axes: tuple[str, ...]) -> list[torc
             for members in gather(mesh, [[x] for x in xs], axes)]
 
 
-def _rows(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
-    """Block ``i`` of ``n`` equal row blocks of ``x``."""
-    if x.shape[0] % n:
-        raise ValueError(f"{x.shape[0]} rows do not divide over a group of {n}")
-    k = x.shape[0] // n
-    return x[i * k:(i + 1) * k]
+def _block(x: torch.Tensor, n: int, i: int, dim: int = 0) -> torch.Tensor:
+    """Block ``i`` of ``n`` equal blocks of ``x`` along ``dim``."""
+    if x.shape[dim] % n:
+        raise ValueError(f"{x.shape[dim]} entries of dim {dim} do not divide over a group of {n}")
+    k = x.shape[dim] // n
+    return x.narrow(dim, i * k, k)
 
 
-def _all_gather(mesh, xs, axes) -> list[torch.Tensor]:
-    return [torch.cat([m[0] for m in members]) for members in gather(mesh, [[x] for x in xs], axes)]
+def _all_gather(mesh, xs, axes, dim) -> list[torch.Tensor]:
+    return [torch.cat([m[0] for m in members], dim=dim)
+            for members in gather(mesh, [[x] for x in xs], axes)]
 
 
-def _psum_scatter(mesh, xs, axes) -> list[torch.Tensor]:
+def _psum_scatter(mesh, xs, axes, dim) -> list[torch.Tensor]:
     out = []
     for p, members in zip(positions(mesh), gather(mesh, [[x] for x in xs], axes)):
         i, n = mesh.group(tuple(axes), p).index(p), len(members)
-        out.append(ordered_sum([_rows(m[0], n, i) for m in members]))
+        out.append(ordered_sum([_block(m[0], n, i, dim) for m in members]))
+    return out
+
+
+def _all_to_all(mesh, xs, axes, split_dim, concat_dim) -> list[torch.Tensor]:
+    out = []
+    for p, members in zip(positions(mesh), gather(mesh, [[x] for x in xs], axes)):
+        i, n = mesh.group(tuple(axes), p).index(p), len(members)
+        out.append(torch.cat([_block(m[0], n, i, split_dim) for m in members], dim=concat_dim))
     return out
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mesh, axes, *xs):
-        ctx.mesh, ctx.axes = mesh, axes
-        return tuple(_all_gather(mesh, list(xs), axes))
+    def forward(ctx, mesh, axes, dim, *xs):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return tuple(_all_gather(mesh, list(xs), axes, dim))
 
     @staticmethod
     def backward(ctx, *gs):
-        return (None, None, *_psum_scatter(ctx.mesh, list(gs), ctx.axes))
+        return (None, None, None, *_psum_scatter(ctx.mesh, list(gs), ctx.axes, ctx.dim))
 
 
 class _PsumScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mesh, axes, *xs):
-        ctx.mesh, ctx.axes = mesh, axes
-        return tuple(_psum_scatter(mesh, list(xs), axes))
+    def forward(ctx, mesh, axes, dim, *xs):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return tuple(_psum_scatter(mesh, list(xs), axes, dim))
 
     @staticmethod
     def backward(ctx, *gs):
-        return (None, None, *_all_gather(ctx.mesh, list(gs), ctx.axes))
+        return (None, None, None, *_all_gather(ctx.mesh, list(gs), ctx.axes, ctx.dim))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, split_dim, concat_dim, *xs):
+        ctx.mesh, ctx.axes, ctx.dims = mesh, axes, (split_dim, concat_dim)
+        return tuple(_all_to_all(mesh, list(xs), axes, split_dim, concat_dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        split_dim, concat_dim = ctx.dims
+        return (None,) * 4 + tuple(_all_to_all(ctx.mesh, list(gs), ctx.axes, concat_dim,
+                                               split_dim))
 
 
 class _Psum(torch.autograd.Function):
@@ -168,17 +195,29 @@ class _Psum(torch.autograd.Function):
         return (None, None) + (g,) * ctx.n
 
 
-def all_gather(mesh: Mesh, xs: list[torch.Tensor], axes: tuple[str, ...]) -> list[torch.Tensor]:
-    """``jax.lax.all_gather(x, axes, tiled=True)``: each position's group's
-    tensors concatenated along dim 0 in group order."""
-    return list(_AllGather.apply(mesh, tuple(axes), *xs))
+def all_gather(mesh: Mesh, xs: list[torch.Tensor], axes: tuple[str, ...],
+               dim: int = 0) -> list[torch.Tensor]:
+    """``jax.lax.all_gather(x, axes, axis=dim, tiled=True)``: each
+    position's group's tensors concatenated along ``dim`` in group order."""
+    return list(_AllGather.apply(mesh, tuple(axes), dim, *xs))
 
 
-def psum_scatter(mesh: Mesh, xs: list[torch.Tensor], axes: tuple[str, ...]) -> list[torch.Tensor]:
-    """``jax.lax.psum_scatter(x, axes, scatter_dimension=0, tiled=True)``:
+def psum_scatter(mesh: Mesh, xs: list[torch.Tensor], axes: tuple[str, ...],
+                 dim: int = 0) -> list[torch.Tensor]:
+    """``jax.lax.psum_scatter(x, axes, scatter_dimension=dim, tiled=True)``:
     the group's sum (from zero, in group order), each position keeping the
-    row block of its place in the group."""
-    return list(_PsumScatter.apply(mesh, tuple(axes), *xs))
+    block along ``dim`` of its place in the group."""
+    return list(_PsumScatter.apply(mesh, tuple(axes), dim, *xs))
+
+
+def all_to_all(mesh: Mesh, xs: list[torch.Tensor], axes: tuple[str, ...], split_dim: int,
+               concat_dim: int) -> list[torch.Tensor]:
+    """``jax.lax.all_to_all(x, axes, split_dim, concat_dim, tiled=True)``:
+    each member's tensor cut into G equal blocks along ``split_dim`` (G the
+    group's size); member i receives block i of every member, concatenated
+    along ``concat_dim`` in group order.  On a process mesh one gather of
+    the group's tensors, then each rank slices its blocks."""
+    return list(_AllToAll.apply(mesh, tuple(axes), split_dim, concat_dim, *xs))
 
 
 def psum(mesh: Mesh, xs: list[torch.Tensor], axes: tuple[str, ...]) -> list[torch.Tensor]:

@@ -344,10 +344,18 @@ def _model_split(t: torch.Tensor, dim: int) -> bool:
 
 
 def lm_activation_bytes(cfg, kind: str, B: int, S: int, params: dict, mesh, batch_split: int):
-    """Per-device tensor- and expert-parallel traffic of an LM step."""
+    """Per-device tensor- and expert-parallel traffic of an LM step: per
+    layer and pass, the all-reduce of each row-parallel ``wo``'s output;
+    where the heads do not divide ``model`` (the port's sequence-parallel
+    attention, ``models.layers``) also the all-gathers of k and v
+    (``B·S·KVH·Dh`` each) and two all-to-alls of ``B·S·H·Dh``, q to the
+    rank's rows and the output back to its columns (when ``model`` does not
+    divide S, one all-gather of q instead).  A model of the port's own
+    traffic, each all-to-all and gather at the bytes a rank receives."""
     out: dict = {}
     if "model" not in mesh.axis_names or mesh.shape["model"] == 1:
         return out
+    M = mesh.shape["model"]
     passes = 3 if kind == "lm_train" and cfg.remat == "full" else (2 if kind == "lm_train" else 1)
     item = torch.empty((), dtype=cfg.compute_dtype).element_size()
     act = B * S * cfg.d_model * item / batch_split
@@ -355,6 +363,14 @@ def lm_activation_bytes(cfg, kind: str, B: int, S: int, params: dict, mesh, batc
     per_layer = 0.0
     if _model_split(lay["attn"]["wo"], 1):
         per_layer += act
+        if cfg.n_heads % M or cfg.n_kv_heads % M:
+            q = B * S * cfg.n_heads * cfg.d_head * item / batch_split
+            kv = B * S * cfg.n_kv_heads * cfg.d_head * item / batch_split
+            if S % M:
+                _add(out, "all-gather", passes * cfg.n_layers * q)
+            else:
+                _add(out, "all-to-all", passes * cfg.n_layers * 2 * q)
+            _add(out, "all-gather", passes * cfg.n_layers * 2 * kv)
     if not cfg.is_moe and _model_split(lay["mlp"]["wo"], 1):
         per_layer += act
     _add(out, "all-reduce", passes * cfg.n_layers * per_layer)

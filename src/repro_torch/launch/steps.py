@@ -180,8 +180,10 @@ def build_lm_cell(
     rows; with ``model`` > 1 it is also tensor-parallel, the rank holding
     only its ``param_specs`` blocks (``cfg.init(seed, device, mesh)``) and
     their ZeRO-1 moment blocks (checkpoint them with
-    :func:`state_shardings`).  The serving cells take no process mesh of
-    ``model`` > 1 (a KV cache across ranks is not ported)."""
+    :func:`state_shardings`), its attention head-parallel when both head
+    counts divide ``model`` and sequence-parallel otherwise (Qwen2.5-14B's
+    40 / 8 heads on ``model`` = 16).  The serving cells take no process
+    mesh of ``model`` > 1 (a KV cache across ranks is not ported)."""
     cfg = spec.config
     p = shape.params
     if "attn_window" in p:

@@ -14,14 +14,18 @@ cpu``.  The port trains the LM, GNN and recsys families.
 Started as ``WORLD_SIZE`` > 1 ranks of a process group (``torchrun``, or
 ``main(argv)`` from each rank of
 :func:`repro_torch.launch.ranks.run_ranks`), the launcher builds the
-``(n, 1)`` data × model :class:`~repro_torch.core.distributed.ProcessMesh`,
-as the reference's ``make_host_mesh`` builds its mesh of the host's
-devices, and trains data-parallel (:func:`~repro_torch.train.loop.make_train_step`
-under ``use_sharding(mesh)``): every rank draws the global batch and steps
-on its rows, with ZeRO-1's moment blocks; the gnn family runs EGNN's
-sharded loss on the rank's rows of the graph.  Every rank takes part in a
-checkpoint (the moment blocks gathered into global arrays); rank 0 alone
-logs and writes the files.
+``(n / M, M)`` data × model :class:`~repro_torch.core.distributed.ProcessMesh`
+(``--model-parallel M``, default 1: the ``(n, 1)`` mesh, as the reference's
+``make_host_mesh`` builds its mesh of the host's devices), and trains
+data-parallel (:func:`~repro_torch.train.loop.make_train_step` under
+``use_sharding(mesh)``): every rank draws the global batch and steps on its
+rows, with ZeRO-1's moment blocks; the gnn family runs EGNN's sharded loss
+on the rank's rows of the graph.  With M > 1 the lm family is also
+tensor-parallel: each rank holds its ``param_specs`` blocks, and attention
+runs head-parallel where both head counts divide M and sequence-parallel
+otherwise (the Qwen2.5 configs' 5 / 1 and 40 / 8 heads).  Every rank takes
+part in a checkpoint (the blocks gathered into global arrays); rank 0
+alone logs and writes the files.
 """
 from __future__ import annotations
 
@@ -94,6 +98,8 @@ def main(argv=None) -> None:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--device", default="cuda",
                     help="where the state lives and the steps run (cuda or cpu)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="the model axis across WORLD_SIZE ranks (the lm family)")
     args = ap.parse_args(argv)
 
     spec = get_arch(args.arch)
@@ -101,7 +107,9 @@ def main(argv=None) -> None:
         raise SystemExit("geoweb is a serving system: use repro_torch.launch.serve")
     device = resolve_device(None if args.device == "cuda" else args.device)
     cfg = spec.config if args.full else spec.smoke_config
-    mesh = _process_mesh(device)
+    if args.model_parallel > 1 and spec.family != "lm":
+        raise SystemExit(f"--model-parallel: the {spec.family} family trains data-parallel only")
+    mesh = _process_mesh(device, args.model_parallel)
     if mesh is not None:
         device = mesh.device
     rank0 = mesh is None or mesh.rank == 0
@@ -123,7 +131,8 @@ def main(argv=None) -> None:
                                   moment_shardings=ms)
 
     def init_state():
-        params = cfg.init(args.seed, device)
+        tp = mesh is not None and mesh.shape["model"] > 1
+        params = cfg.init(args.seed, device, mesh) if tp else cfg.init(args.seed, device)
         return params, init_opt_state(opt, params, ms)
 
     loop = LoopConfig(
@@ -135,16 +144,20 @@ def main(argv=None) -> None:
         barrier=None if mesh is None else dist.barrier, shardings=shardings)
 
 
-def _process_mesh(device):
-    """The ``(n, 1)`` data × model process mesh when ``WORLD_SIZE`` > 1 (the
-    default group initialised from the environment if it is not yet: gloo
-    on the CPU, nccl on cards), else None."""
+def _process_mesh(device, model: int = 1):
+    """The ``(n / model, model)`` data × model process mesh when
+    ``WORLD_SIZE`` > 1 (the default group initialised from the environment
+    if it is not yet: gloo on the CPU, nccl on cards), else None."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world <= 1:
+        if model > 1:
+            raise SystemExit(f"--model-parallel {model} needs WORLD_SIZE ranks, got {world}")
         return None
+    if world % model:
+        raise SystemExit(f"--model-parallel {model} does not divide WORLD_SIZE {world}")
     if not dist.is_initialized():
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
-    return make_process_mesh((world, 1), ("data", "model"),
+    return make_process_mesh((world // model, model), ("data", "model"),
                              device=None if device.type == "cuda" else device)
 
 

@@ -10,16 +10,30 @@ products and an f32 sum.
 
 Given ``mesh``, a process mesh whose ``model`` axis M is > 1
 (:func:`~repro_torch.core.collectives.model_mesh`), the projections are
-the rank's ``param_specs`` blocks, as the reference's head-parallel branch
-lets XLA partition them: :func:`attention_block` runs the rank's H/M query
-and KVH/M kv heads (GQA groups stay whole) and :func:`swiglu` the rank's
-d_ff/M columns.  Each enters through
-:func:`~repro_torch.core.collectives.replicated` over ``model`` (its
-backward sums the input's cotangents over the group) and leaves its
-row-parallel ``wo`` through one :func:`~repro_torch.core.collectives.psum`
-over ``model``.  Heads that do not divide M (the reference's
-sequence-parallel attention) raise ``NotImplementedError``.  The mesh is
-passed, never read from the thread-local sharding context:
+the rank's ``param_specs`` blocks: column blocks of ``wq``/``wk``/``wv``
+(and their biases) over the flattened ``H·Dh``/``KVH·Dh`` outputs, a row
+block of ``wo``, the rank's d_ff/M columns of :func:`swiglu`.  Each block
+enters through :func:`~repro_torch.core.collectives.replicated` over
+``model`` (its backward sums the input's cotangents over the group) and
+leaves its row-parallel ``wo`` through one
+:func:`~repro_torch.core.collectives.psum` over ``model``.
+:func:`attention_block` splits attention as the reference's adaptive rule
+does (``repro/models/layers.py:136-154``, :func:`head_parallel`):
+
+* heads that divide M run head-parallel: the rank's H/M query and KVH/M kv
+  heads (GQA groups stay whole), with no other collective;
+* any other head count runs sequence-parallel (the reference's ``"seq"``
+  rule): the rank's column blocks cut through heads, so an
+  :func:`~repro_torch.core.collectives.all_to_all` sends q to the rank's
+  S/M contiguous rows with every head, k and v are gathered whole
+  (:func:`~repro_torch.core.collectives.all_gather` of the columns), the
+  norms and RoPE act on whole heads there, the rank's rows attend
+  causally from their offset, and a second ``all_to_all`` brings the
+  output back to the rank's column block for ``wo``.  When M does not
+  divide S the reference's shape-aware spec drops the axis: q is gathered
+  whole, every rank attends all rows and keeps its output columns.
+
+The mesh is passed, never read from the thread-local sharding context:
 ``torch.utils.checkpoint`` recomputes a layer on autograd's device thread.
 """
 from __future__ import annotations
@@ -145,25 +159,22 @@ def attention_block(
     returns updated copies) and attention runs over the whole cache.
     Returns (out [B, S, D], (k, v): the cache, or this call's full k/v).
     With a model-parallel ``mesh`` (module docstring; no cache) ``p``
-    holds the rank's heads and ``out`` is summed over ``model``.
+    holds the rank's blocks and ``out`` is summed over ``model``; the k/v
+    returned are the rank's heads (head-parallel) or whole
+    (sequence-parallel).
     """
     B, S, D = x.shape
     H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     if mesh is not None:
         M = mesh.shape["model"]
-        check_head_parallel(H, KVH, M)
-        H, KVH = H // M, KVH // M
         x = col.replicated(mesh, x, col.MODEL)[0]
-        if cfg.qk_norm:  # whole leaves applied to the rank's heads only
+        if cfg.qk_norm:  # whole leaves applied to the rank's heads or rows only
             p = {**p, **col.replicated(mesh, {k: p[k] for k in ("q_norm", "k_norm")},
                                        col.MODEL)[0]}
-    q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+        if not head_parallel(H, KVH, M):
+            return _sequence_parallel(x, p, cfg, positions, mesh)
+        H, KVH = H // M, KVH // M
+    q, k, v = _qkv(x, p, cfg)
     q = q.reshape(B, S, H, Dh)
     k = k.reshape(B, S, KVH, Dh)
     v = v.reshape(B, S, KVH, Dh)
@@ -199,14 +210,60 @@ def attention_block(
     return out, new_kv
 
 
-def check_head_parallel(n_heads: int, n_kv_heads: int, model: int) -> None:
-    """Head-parallel attention needs both head counts to divide ``model``;
-    otherwise the reference switches to sequence-parallel attention
-    (``repro/models/layers.py:146-154``), which the port does not have."""
-    if n_heads % model or n_kv_heads % model:
-        raise NotImplementedError(
-            f"{n_heads} query / {n_kv_heads} kv heads do not divide model = {model}: the "
-            "reference's sequence-parallel attention for that case is not ported")
+def _qkv(x: torch.Tensor, p: dict, cfg):
+    """The q, k, v projections (the rank's column blocks on a model mesh),
+    with their biases: ``[B, S, H·Dh]``, ``[B, S, KVH·Dh]`` twice."""
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return q, k, v
+
+
+def head_parallel(n_heads: int, n_kv_heads: int, model: int) -> bool:
+    """The reference's selector (``repro/models/layers.py:146``): attention
+    runs head-parallel when both head counts divide ``model``, else
+    sequence-parallel."""
+    return n_heads % model == 0 and n_kv_heads % model == 0
+
+
+def _sequence_parallel(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, mesh):
+    """Sequence-parallel attention on a model mesh (module docstring):
+    ``x`` [B, S, D] entered the region; returns (the ``psum`` of the rank's
+    ``wo`` rows, (k, v) whole)."""
+    B, S, _ = x.shape
+    H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    M = mesh.shape["model"]
+    r = mesh.coords_of(mesh.rank)["model"]
+    q, k, v = _qkv(x, p, cfg)
+    if S % M == 0:  # the rank's contiguous rows, every head
+        n = S // M
+        q = col.all_to_all(mesh, [q], col.MODEL, split_dim=1, concat_dim=2)[0]
+        q_pos, q_offset = positions[..., r * n:(r + 1) * n], r * n
+    else:  # the reference's spec drops "seq": every row on every rank
+        n = S
+        q = col.all_gather(mesh, [q], col.MODEL, dim=2)[0]
+        q_pos, q_offset = positions, 0
+    k = col.all_gather(mesh, [k], col.MODEL, dim=2)[0].reshape(B, S, KVH, Dh)
+    v = col.all_gather(mesh, [v], col.MODEL, dim=2)[0].reshape(B, S, KVH, Dh)
+    q = q.reshape(B, n, H, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    q = rope(q, q_pos, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    out = flash_attention(q, k, v, causal=True, q_offset=q_offset, window=cfg.attn_window,
+                          chunk=cfg.attn_chunk).reshape(B, n, H * Dh)
+    if S % M == 0:  # back to every row of the rank's column block
+        out = col.all_to_all(mesh, [out], col.MODEL, split_dim=2, concat_dim=1)[0]
+    else:
+        c = H * Dh // M
+        out = out[..., r * c:(r + 1) * c]
+    out = col.psum(mesh, [_proj(out, p["wo"])], col.MODEL)[0]
+    return out, (k, v)
 
 
 def swiglu(x: torch.Tensor, p: dict, mesh=None) -> torch.Tensor:

@@ -21,15 +21,19 @@ it is used.
 Tensor parallelism (the reference's ``model`` axis): under
 ``use_sharding(ProcessMesh)`` with ``model`` = M > 1 the dense LM holds the
 blocks ``param_specs`` gives it (``cfg.init(seed, device, mesh)``), and
-:func:`loss_fn` reads the mesh once and passes it down to compute on them: head- and FFN-parallel layers (:mod:`~repro_torch.models.layers`),
+:func:`loss_fn` reads the mesh once and passes it down to compute on them:
+head- or sequence-parallel attention and FFN-parallel layers
+(:mod:`~repro_torch.models.layers`),
 a vocab-parallel lookup (rows outside the rank's range give zero, then one
 ``psum``) and a vocab-parallel loss (the rank's logit columns; ``logsumexp``
 from a ``pmax`` and an ordered ``psum`` of the exp sums, the label's logit
 a ``psum`` of the masked gather), so no rank builds the ``[B, S, Vp]``
-logits.  Remat "full" recomputes the collectives in the backward, in the
-same order on every rank.  A MoE config, heads that do not divide M and the
-KV cache across ranks raise ``NotImplementedError``
-(:func:`check_model_parallel`).
+logits.  Attention is head-parallel when both head counts divide M and
+sequence-parallel otherwise (Qwen2.5-14B's 40 / 8 heads on M = 16), as
+the reference's adaptive rule chooses.  Remat "full" recomputes the
+collectives in the backward, in the same order on every rank.  A MoE
+config, projection widths that M does not divide and the KV cache across
+ranks raise ``NotImplementedError`` (:func:`check_model_parallel`).
 """
 from __future__ import annotations
 
@@ -165,16 +169,19 @@ class TransformerConfig:
 def check_model_parallel(cfg: TransformerConfig, model: int) -> None:
     """Raise ``NotImplementedError`` unless the dense LM splits over
     ``model`` ranks as its ``param_specs`` say: no experts (experts over
-    ``model`` are not ported), heads that divide it (else the reference's
-    sequence-parallel attention), and ``d_ff`` and the padded vocab that
-    divide it (else ``logical_spec`` leaves those leaves whole)."""
+    ``model`` are not ported), and projection widths ``H·Dh`` and
+    ``KVH·Dh``, ``d_ff`` and the padded vocab that divide it (else
+    ``logical_spec`` leaves those leaves whole).  Any head count is taken:
+    heads that do not divide ``model`` run sequence-parallel
+    (:func:`~repro_torch.models.layers.head_parallel`)."""
     if model == 1:
         return
     if cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: a MoE config over model = {model} (experts "
                                   "over the model axis) is not ported")
-    L.check_head_parallel(cfg.n_heads, cfg.n_kv_heads, model)
-    for what, n in (("d_ff", cfg.d_ff), ("the padded vocab", cfg.padded_vocab)):
+    for what, n in (("the q projection width H*Dh", cfg.n_heads * cfg.d_head),
+                    ("the kv projection width KVH*Dh", cfg.n_kv_heads * cfg.d_head),
+                    ("d_ff", cfg.d_ff), ("the padded vocab", cfg.padded_vocab)):
         if n % model:
             raise NotImplementedError(f"{cfg.name}: {what} {n} does not divide model = {model}")
 

@@ -166,6 +166,7 @@ def _lm_cfg(**kw):
     from types import SimpleNamespace
 
     base = dict(remat="full", compute_dtype=torch.bfloat16, d_model=16, n_layers=3,
+                n_heads=4, n_kv_heads=4, d_head=4,
                 is_moe=False, n_experts=4, top_k=2, capacity_factor=1.25)
     return SimpleNamespace(**{**base, **kw})
 
@@ -196,6 +197,11 @@ def _lm_params(mesh, mlp_split=True):
     # C = int(1.25·8·2/4 + 0.5) = 5: 4·4·5·16·2 / 2 = 1280 B
     ("lm_train", {"remat": "none", "is_moe": True}, True,
      {"all-reduce": 2 * 3 * 512, "all-to-all": 2 * 3 * 2 * 1280}),
+    # kv heads 2 on model 4: sequence-parallel attention adds, per layer and
+    # pass, two all-to-alls of q (4·8·4·4·2 / 2 = 512 B) and the all-gathers
+    # of k and v (256 B each)
+    ("lm_train", {"n_kv_heads": 2}, True,
+     {"all-reduce": 3 * 3 * 2 * 512, "all-to-all": 3 * 3 * 2 * 512, "all-gather": 3 * 3 * 2 * 256}),
 ])
 def test_lm_activation_bytes_by_hand(kind, cfg_kw, mlp_split, want):
     mesh = _mesh("2x4")

@@ -13,8 +13,8 @@ kv 2, d_ff 128, vocab 256, seq 32, batch 8, f32 compute), held to
   twice that step's own gaps from f32;
 * the ZeRO-1 checkpoint: a fault replayed by ``loop.run`` is bitwise the
   uninterrupted run, and every rank restores its own moment blocks;
-* the guards: heads that do not divide ``model``, MoE, recsys training
-  over ``model``, a restore onto other shapes;
+* the guards: a projection width that ``model`` does not divide, MoE,
+  recsys training over ``model``, a restore onto other shapes;
 * the elastic story of ``tests/test_elastic.py`` at 4 -> 2 ranks: train
   on (2, 2), checkpoint, resume on ``plan_elastic_mesh``'s (1, 2);
 * the reference, in subprocesses on fake XLA devices (``AxisType.Auto``):
@@ -217,7 +217,10 @@ def _rank4(rank: int, dirs: dict) -> dict:
 
 def _guards(mesh, ckpt_dir) -> dict:
     out = {}
-    for what, cfg in (("heads", dataclasses.replace(CFG, n_kv_heads=1)),
+    # d_head 15 and kv 1: a kv projection width of 15 that model = 2 does not
+    # divide (the heads that do not divide run sequence-parallel:
+    # tests/test_torch_seq_parallel.py)
+    for what, cfg in (("width", dataclasses.replace(CFG, d_model=60, n_kv_heads=1)),
                       ("moe", dataclasses.replace(CFG, n_experts=4, top_k=2))):
         try:
             cfg.init(SEED, "cpu", mesh)
@@ -689,15 +692,15 @@ def test_cell_bytes_equal_the_dry_run_per_device(world, name):
 
 
 def test_guards_raise(world):
-    """(h) Heads that do not divide ``model`` (the reference's
-    sequence-parallel attention) and a MoE config raise
+    """(h) A projection width that ``model`` does not divide (``logical_spec``
+    would leave the leaf whole) and a MoE config raise
     ``NotImplementedError`` at init and in the loss; a restore whose
     ``like`` blocks differ from the checkpoint's raises ``ValueError``; a
     model-parallel step without moment shardings raises too."""
     for o in world["two"]:
         g = o["guards"]
-        for k in ("heads_init", "heads_loss"):
-            assert "sequence-parallel attention" in g[k], g
+        for k in ("width_init", "width_loss"):
+            assert "kv projection width" in g[k], g
         for k in ("moe_init", "moe_loss"):
             assert "MoE" in g[k], g
         assert "expected" in g["restore"], g
