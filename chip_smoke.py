@@ -51,9 +51,9 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    max(bound, floor); the conjunction prefilter's one count-only launch
    against the kernel + ``counts.sum()`` it replaced; and ``geo_score``
    both ways at phase 9's retrieval shape;
-5. runs one profiler pass per variant (phase 7's sharded executor too):
-   each stage's host time and device time, and the device's idle share
-   over a batch; and one over each of phase 9's recsys cells (the
+5. runs one profiler pass per variant but the kernel variants' plain
+   twins (``UNPROFILED``; phase 7's sharded executor too): each stage's host time and device time, and the
+   device's idle share over a batch; and one over each of phase 9's recsys cells (the
    geo-blended retrieval, AutoInt's chunked retrieval and every serve
    shape), over a prefill (2,048
    tokens) and a decode step (4,096 cached tokens) of each of phases
@@ -340,13 +340,31 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    bitwise the checkpoint's global slice, one step, its loss within
    ``TP_LOSS_TOL`` of the one-process third step.  Then one ``nccl`` rank
    at world size 1 (the SMOKE config on a (1, 1) mesh): steps, a sharded
-   checkpoint, its restore and one more step, bitwise the one-card cell.
-   (e) The published bf16 compute, in the same ranks before their steps:
-   the initial blocks' gradients and loss against one process's
+   checkpoint, its restore and one more step, bitwise the one-card cell;
+   and the OLMoE SMOKE config's ``TP_STEPS`` steps, bitwise the one-card
+   steps.  (e) The published bf16 compute, in the same ranks before their
+   steps: the initial blocks' gradients and loss against one process's
    ``microbatches=2`` bf16 step (drawn on each rank), the loss's relative
    gap and the largest leaf's relative distance over the whole array
    within ``TP_BF16_GAP_FACTOR`` times one process's bf16 step's gaps from
-   its f32 step.
+   its f32 step.  (f) Experts over ``model``, in the same 4 ranks after
+   their steps: OLMoE-1B-7B ``train_4k`` at published widths (d 2,048, 16
+   heads, kv 16, qk-norm, 64 experts x d_ff 1,024, top-8, capacity factor
+   1.25, vocab 50,304; depth cut to ``EP_LAYERS`` = 1 of 16), f32 compute,
+   global batch 2 x 2,048 (C = 320), remat full, ZeRO-1, ``TP_OPT``, 32
+   experts a rank.  One process on the card first takes the step
+   (``value_and_grad``, then AdamW) and saves its gradients and updated
+   parameters to a temporary directory; each rank then draws its
+   ``param_specs`` blocks and takes one step as the train step does (its
+   ``value_and_grad``, every gather timed and sized by axes and caller,
+   then ``adamw_update``): the ranks' losses and grad norms equal and
+   within ``TP_LOSS_TOL`` of one process's, each rank's gradient blocks
+   within ``SP_GRAD_TOL`` and its parameter blocks after the update within
+   ``TP_PARAM_ATOL`` of one process's leaves' blocks, its parameter and
+   moment bytes the dry-run's per-device count on (2, 2); ms a rank, peak
+   a rank, one process's ms and peak, the gathers beside
+   ``roofline.lm_activation_bytes``' count, the card's name and power limit
+   beside the times.
    It launches no kernel, and runs after phase 17 and before phase 5.  No
    run on several cards is possible on one card's host.
 19. runs sequence-parallel attention over the ``model`` axis (heads that
@@ -374,7 +392,8 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    after phase 18 and before phase 5.  No run on several cards is possible
    on one card's host.
 
-The line before the last is the kernel table as JSON; the last line is
+Every phase ends with a line of its seconds (``phase N: T s``).  The line
+before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero without that line — as it does when CUDA is unavailable.
 """
@@ -533,6 +552,12 @@ LM_LONG = (0, 1)
 # last position, at full width in bf16.  The 513-token prefill runs as one
 # KV chunk (attn_chunk 513: Skv % chunk == 0 as the reference asserts)
 LM_CHECK_S = 512
+# phase 5 profiles no plain twin of a kernel variant (~6 s a pass on an
+# H100; cut for phase 18 (f)'s time): its stages are the kernel variant's
+# but the one the kernel replaces, which phase 4 times.  tf_plain, which
+# has no kernel twin, is profiled
+UNPROFILED = ("plain", "plain_et", "pruned_plain", "tf_pruned_plain", "tf_pruned_plain_impact",
+              "tf_pruned_plain_int8", "pruned_plain_int8")
 # phase 5's LM profiles: a prefill of 2,048 tokens and a decode step over
 # 4,096 cached ones, batch 1 (4 and 8 KV chunks per layer: the flash loop's
 # per-chunk work at a size whose profile stays small), and a train step of
@@ -619,6 +644,17 @@ TP_TRAJ_TOL = LM_TRAJ_TOL
 # gaps from one process's f32 step (the test's BF16_GAP_FACTOR)
 TP_BF16_GAP_FACTOR = 2
 TP_TIMEOUT_S = 600
+# phase 18 (f): experts over the model axis: OLMoE-1B-7B train_4k at
+# published widths (d 2,048, 16 heads, kv 16, qk-norm, 64 experts x d_ff
+# 1,024, top-8, capacity factor 1.25, vocab 50,304) on phase 18's (2, 2)
+# mesh, in its ranks after their own steps: 32 experts a rank.  Cuts: depth
+# 1 of 16 layers, global batch 2 x 2,048 (published 256 x 4,096; C = 320),
+# f32 compute so the CPU tests' tolerances hold
+# (tests/test_torch_expert_parallel.py), one step (value_and_grad, then
+# adamw_update)
+EP_ARCH = "olmoe-1b-7b"
+EP_LAYERS = 1
+EP_CUT = (2, 2048)
 # phase 19: sequence-parallel attention over the model axis: Qwen2.5-14B
 # train_4k at published widths (40 heads, kv 8: neither divides 16; d 5,120,
 # d_ff 13,824 and the vocab's 152,064 rows do) on the (1, 16) data x model
@@ -862,6 +898,7 @@ def run_phases(dry: dict, builds: dict) -> int:
     _TRACES.update(pickle=Path(builds["dir"], "traces.pkl").read_bytes(),
                    source="made on the host before phase 1")
     # ---- phase 2: each kernel against its plain version ------------------
+    t_phase = time.perf_counter()
     b0 = batches[0].to(dev)
     S = plain_ex.engine.budgets.sweep_budget
     starts, ends = sidx.gather_query_intervals(sp, b0.rects, budgets.max_tiles)
@@ -1021,8 +1058,10 @@ def run_phases(dry: dict, builds: dict) -> int:
     check(rec >= 0.99, f"oracle on the card vs numpy brute force: recall {rec}")
     say("phase 2: small corpus: card == CPU port (ids, stats; scores within 1e-5); "
         f"oracle vs numpy brute force recall@10 {rec:.4f}")
+    say(f"phase 2: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- phase 3: the main path at size ---------------------------------
+    t_phase = time.perf_counter()
     # (executor kwargs, the kernel it reaches); without early termination the
     # unpruned kernels' partial scores select nothing (the reference's
     # semantics), so the *_et variants are the ones whose answers depend on
@@ -1186,8 +1225,10 @@ def run_phases(dry: dict, builds: dict) -> int:
         check(int(got_n) == n_inter, f"prefilter {tup}: {int(got_n)} vs CSR intersection {n_inter}")
     say(f"phase 3: conjunction prefilter over {len(tuples)} term tuples ({n_trace} from the trace): "
         f"launches {counts}; every count equals the CSR intersection's size")
+    say(f"phase 3: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- phase 4: timings at the main path's shapes ---------------------
+    t_phase = time.perf_counter()
     rows = []
     # operations per position of each query: 11 per live slot, plus the
     # multiply by the amp
@@ -1390,6 +1431,7 @@ def run_phases(dry: dict, builds: dict) -> int:
     for name, times in latency.items():
         say(f"phase 4: {name}: batch latency median {1e3 * statistics.median(times):.2f} ms, "
             f"{len(times) * BATCH / sum(times):.1f} queries/s")
+    say(f"phase 4: {time.perf_counter() - t_phase:.1f} s")
     # ---- phase 6: the serving stack at size, before the profiler pass ----
     serve_counts = serving_phase(corpus, plain_ex.engine.index, budgets)
     # ---- phase 7: document-sharded serving, before the profiler pass ----
@@ -1441,18 +1483,22 @@ def run_phases(dry: dict, builds: dict) -> int:
         row["launches"] = main_counts[row["name"]]
     # ---- phase 5: one profiler pass per variant, after every timing, so
     # no profiler session runs before or during a timed run ---------------
+    t_phase = t_part = time.perf_counter()
+    parts = {}
     for name, (ex, algorithm) in executors.items():
+        if name in UNPROFILED:
+            continue
         for line in profile_batch(lambda: ex.run(batches[0]), torch, SPANS[algorithm]):
             say(f"phase 5: {name}: profile (batch 0): {line}")
-    for name, lines in recsys_profiles():
-        for line in lines:
-            say(f"phase 5: {name}: profile: {line}")
-    for name, lines in lm_profiles():
-        for line in lines:
-            say(f"phase 5: {name}: profile: {line}")
-    for name, lines in egnn_profiles():
-        for line in lines:
-            say(f"phase 5: {name}: profile: {line}")
+    parts["geo"], t_part = time.perf_counter() - t_part, time.perf_counter()
+    for part, profiles in (("recsys", recsys_profiles), ("LMs", lm_profiles),
+                           ("EGNN", egnn_profiles)):
+        for name, lines in profiles():
+            for line in lines:
+                say(f"phase 5: {name}: profile: {line}")
+        parts[part], t_part = time.perf_counter() - t_part, time.perf_counter()
+    say(f"phase 5: {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
     say(f"peak device memory of phases 1-8 {peak / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
@@ -4171,10 +4217,10 @@ def _state_bytes(params, opt) -> dict:
             "moment_bytes": sum(x.nbytes for x in leaves(opt["m"]) + leaves(opt["v"]))}
 
 
-def _tp_rank(rank: int, device: str, ckpt_dir: str) -> dict:
+def _tp_rank(rank: int, device: str, ckpt_dir: str, ep_dir: str) -> dict:
     """Phase 18, one rank of the (2, 2) process mesh: the cell's blocks,
     the steps, the ``model`` collectives of one step's gradients, the
-    sharded checkpoint."""
+    sharded checkpoint; then (f), OLMoE's step (:func:`_ep_rank`)."""
     import torch
 
     from repro_torch.core import ProcessMesh, make_process_mesh
@@ -4226,6 +4272,10 @@ def _tp_rank(rank: int, device: str, ckpt_dir: str) -> dict:
         ckpt_dir, TP_STEPS, (params, opt), shardings=steps.state_shardings(cfg.param_defs(),
                                                                            mesh)), device)
     out["coords"] = mesh.coords_of(mesh.rank)
+    del cell, params, opt, step, batches
+    if cuda:
+        torch.cuda.empty_cache()
+    out["ep"] = _ep_rank(mesh, device, ep_dir)
     return out
 
 
@@ -4342,7 +4392,243 @@ def _tp_nccl_rank(rank: int, device: str, ckpt_dir: str) -> dict:
             params, opt = ckpt.restore_checkpoint(ckpt_dir, i, (params, opt), shardings)
         params, opt, m = step(params, opt, batch)
         runs.append((_digest(leaves(params)), m["loss"].cpu().numpy().tobytes()))
-    return {"device": str(mesh.device), "backend": mesh.backend, "runs": runs}
+    return {"device": str(mesh.device), "backend": mesh.backend, "runs": runs,
+            "moe_runs": _ep_smoke_runs(mesh.device, mesh)}
+
+
+def _ep_smoke_runs(dev, mesh=None) -> list:
+    """Phase 18 (d)'s MoE half: the OLMoE SMOKE config's ``TP_STEPS`` steps
+    (f32, ``LM_SMOKE_BATCH``, ZeRO-1) on a (1, 1) process mesh, or on one
+    card with ``mesh`` None: each step's parameter digest and loss."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.train.tree import leaves
+
+    spec = get_arch(EP_ARCH)
+    spec = dataclasses.replace(spec, config=dataclasses.replace(
+        spec.smoke_config, compute_dtype=torch.float32))
+    cell = steps.build_lm_cell(spec, _smoke_train_cut(spec), dev, LM_SEED, mesh=mesh)
+    params, opt, batch = cell.args
+    step = _tp_step(spec.config, mesh)
+    runs = []
+    for _ in range(TP_STEPS):
+        params, opt, m = step(params, opt, batch)
+        runs.append((_digest(leaves(params)), m["loss"].cpu().numpy().tobytes()))
+    return runs
+
+
+class _CountedGathers:
+    """While entered, every :meth:`ProcessMesh.gather_axes` call of this
+    process is timed between syncs and added to ``stats`` under its axes
+    and the collective that called it (the first autograd Function's
+    ``forward`` or ``backward`` on the stack, else the function that called
+    ``collectives.gather``): count, bytes sent, ms."""
+
+    def __init__(self, stats: dict, device: str):
+        self.stats, self.device = stats, device
+
+    def __enter__(self):
+        from repro_torch.core import ProcessMesh
+
+        self.gather = gather = ProcessMesh.gather_axes
+
+        def counted(mesh, tensors, axes):
+            # the backward runs on autograd's device thread, whose stack
+            # can be shallow
+            frames, f = [], sys._getframe(2)
+            while f is not None and len(frames) < 4:
+                frames.append(f.f_code.co_qualname)
+                f = f.f_back
+            kind = next((f for f in frames if f.endswith((".forward", ".backward"))),
+                        frames[0])
+            got, ms = _timed(lambda: gather(mesh, tensors, axes), self.device)
+            st = self.stats.setdefault(",".join(axes), {}).setdefault(
+                kind, {"n": 0, "bytes": 0, "ms": 0.0})
+            st["n"] += 1
+            st["bytes"] += sum(x.nbytes for x in tensors)
+            st["ms"] += ms
+            return got
+
+        ProcessMesh.gather_axes = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import ProcessMesh
+
+        ProcessMesh.gather_axes = self.gather
+
+
+def _save_leaves(tree, path: str) -> None:
+    """Each leaf of ``tree`` as ``<path>/<j>.npy``, in flattened order."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.train.tree import leaves
+
+    os.makedirs(path)
+    for j, x in enumerate(leaves(tree)):
+        np.save(os.path.join(path, f"{j}.npy"), x.detach().cpu().numpy())
+
+
+def _ep_one_process(ref_dir: str) -> dict:
+    """Phase 18 (f)'s reference: one process's step of OLMoE (``EP_*``) on
+    the card, its gradients and the parameters after its AdamW update saved
+    to ``ref_dir`` for the ranks, then freed."""
+    import os
+
+    import torch
+
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.tree import leaves
+
+    dev = torch.device(DEVICE)
+    cfg = _tp_spec(EP_LAYERS, EP_ARCH, EP_CUT)[0].config
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = cfg.init(LM_SEED, dev)
+    opt = init_opt_state(OptimizerConfig(**TP_OPT), params)
+    out = {**_state_bytes(params, opt), "n_params": sum(x.numel() for x in leaves(params))}
+    batch = _tp_batches(cfg, dev, 1, EP_CUT)[0]
+    step = _tp_step(cfg, None)
+    (loss, _, grads), out["grads_ms"] = _timed(lambda: step.value_and_grad(params, batch), DEVICE)
+    _save_leaves(grads, os.path.join(ref_dir, "grads"))
+    del grads
+    (params, opt, m), out["step_ms"] = _timed(lambda: step(params, opt, batch), DEVICE)
+    _save_leaves(params, os.path.join(ref_dir, "params"))
+    out.update(loss=float(loss), norm=float(m["grad_norm"]),
+               peak=torch.cuda.max_memory_allocated())
+    del params, opt, m
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t
+    return out
+
+
+def _ep_rank(mesh, device: str, ref_dir: str) -> dict:
+    """Phase 18 (f), one rank of the (2, 2) mesh: OLMoE's ``param_specs``
+    blocks (32 of 64 experts) and one step as the train step takes it: its
+    gradients (every gather counted by axes and caller) and then its AdamW
+    update, each against the one-process step's saved leaves."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models.params import param_shardings
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_update
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    spec, shape = _tp_spec(EP_LAYERS, EP_ARCH, EP_CUT)
+    cfg = spec.config
+    cell, init_ms = _timed(lambda: steps.build_lm_cell(spec, shape, seed=LM_SEED, mesh=mesh),
+                           device)
+    params, opt, batch = cell.args
+    del cell
+    out = {"init_ms": init_ms, **_state_bytes(params, opt), "collectives": {}}
+    step = _tp_step(cfg, mesh)
+    with _CountedGathers(out["collectives"], device):
+        (loss, _, grads), out["grads_ms"] = _timed(lambda: step.value_and_grad(params, batch),
+                                                   device)
+    out["grad_loss"] = float(loss)
+    shardings = param_shardings(cfg.param_defs(), mesh)
+    out["grad_err"] = _block_errors(grads, f"{ref_dir}/grads", shardings, SP_GRAD_TOL,
+                                    "phase 18 (f)")
+    (params, opt, m), out["update_ms"] = _timed(lambda: adamw_update(
+        OptimizerConfig(**TP_OPT), grads, params, opt,
+        steps.moment_shardings(cfg.param_defs(), mesh)), device)
+    del grads
+    out["step_ms"] = out["grads_ms"] + out["update_ms"]
+    out["norm"] = float(m["grad_norm"])
+    out["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+    out["param_err"] = _block_errors(params, f"{ref_dir}/params", shardings,
+                                     dict(rtol=0.0, atol=TP_PARAM_ATOL), "phase 18 (f)")
+    return out
+
+
+def _ep_report(outs: list, one: dict) -> dict:
+    """Phase 18 (f)'s checks and lines: the ranks' OLMoE step against one
+    process's and the dry-run's bytes; returns the phase report's part."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import make_mesh
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch import steps
+
+    spec, shape = _tp_spec(EP_LAYERS, EP_ARCH, EP_CUT)
+    cfg = spec.config
+    pub = get_arch(EP_ARCH)
+    B0, S0 = (pub.shape("train_4k").params[k] for k in ("global_batch", "seq_len"))
+    eps = [o["ep"] for o in outs]
+    e0 = eps[0]
+    for e in eps[1:]:
+        check(e["grad_loss"] == e0["grad_loss"] and e["norm"] == e0["norm"],
+              "phase 18 (f): the ranks' losses or grad norms differ")
+    for what, got, want in (("loss", e0["grad_loss"], one["loss"]),
+                            ("grad norm", e0["norm"], one["norm"])):
+        check(np.allclose(got, want, **TP_LOSS_TOL),
+              f"phase 18 (f): the ranks' {what} {got} vs one process's {want}")
+    for r, e in enumerate(eps):
+        check(e["grad_err"]["excess"] <= 0,
+              f"phase 18 (f): rank {r}'s gradients outside {SP_GRAD_TOL}: {e['grad_err']}")
+        check(e["param_err"]["max_abs"] <= TP_PARAM_ATOL,
+              f"phase 18 (f): rank {r}'s parameters {e['param_err']['max_abs']} from one "
+              "process's")
+    meta = make_mesh(TP_MESH, TRAIN_AXES, device="meta")
+    p_meta, o_meta, _ = steps.build_lm_cell(spec, shape, device="meta", mesh=meta).args
+    want = (rf.arg_counts((p_meta,), meta)["arg_bytes_dev"],
+            rf.arg_counts((o_meta["m"], o_meta["v"]), meta)["arg_bytes_dev"])
+    for r, e in enumerate(eps):
+        check((e["param_bytes"], e["moment_bytes"]) == want,
+              f"phase 18 (f): rank {r} holds {e['param_bytes']} parameter and "
+              f"{e['moment_bytes']} moment bytes, the dry-run {want}")
+    modeled = rf.lm_activation_bytes(cfg, "lm_train", EP_CUT[0], EP_CUT[1], p_meta, meta,
+                                     TP_MESH[0])
+    kinds = {axes: {k: {"n": v["n"], "MB": round(v["bytes"] / 1e6, 3), "ms": round(v["ms"], 1)}
+                    for k, v in sorted(by.items())} for axes, by in sorted(e0["collectives"].items())}
+    model_ms = sum(v["ms"] for v in e0["collectives"].get("model", {}).values())
+    say(f"phase 18 (f): {EP_ARCH} train_4k at published widths (d {cfg.d_model}, "
+        f"{cfg.n_heads} heads, kv {cfg.n_kv_heads}, {cfg.n_experts} experts x d_ff {cfg.d_ff}, "
+        f"top-{cfg.top_k}, capacity {cfg.capacity_factor}, vocab {cfg.vocab}), {cfg.n_layers} "
+        f"layer (published {pub.config.n_layers}), f32 compute, global batch {EP_CUT[0]} x "
+        f"{EP_CUT[1]} (published {B0} x {S0}), remat {cfg.remat}, ZeRO-1, one step on "
+        f"{math.prod(TP_MESH)} gloo ranks as {dict(zip(TRAIN_AXES, TP_MESH))}: "
+        f"{cfg.n_experts // TP_MESH[1]} experts a rank; parameters {e0['param_bytes']:,} B and "
+        f"moments {e0['moment_bytes']:,} B a rank (= the dry-run's per-device count; one process "
+        f"{one['n_params']:,} parameters, {one['param_bytes']:,} / {one['moment_bytes']:,} B); "
+        f"{card_line()}")
+    say(f"phase 18 (f): ms a rank: the blocks drawn {[round(e['init_ms'], 1) for e in eps]}, "
+        f"the step {[round(e['step_ms'], 1) for e in eps]}, of it the gradients "
+        f"{[round(e['grads_ms'], 1) for e in eps]} and the AdamW update "
+        f"{[round(e['update_ms'], 1) for e in eps]}; peak "
+        f"{[round(e['peak'] / 2**30, 2) for e in eps]} GiB a rank; one process: gradients "
+        f"{one['grads_ms']:.1f} ms, a step {one['step_ms']:.1f} ms, peak "
+        f"{one['peak'] / 2**30:.2f} GiB, saved and freed in {one['s']:.1f} s; {card_line()}")
+    say(f"phase 18 (f): rank 0's gathers of the gradients by axes and caller (count, MB sent "
+        f"a rank, ms): {json.dumps(kinds)}; model {model_ms:.1f} ms of {e0['grads_ms']:.1f}; "
+        f"lm_activation_bytes' per-device count for the step (MB): "
+        f"{ {k: round(v / 1e6, 3) for k, v in modeled.items()} }; {card_line()}")
+    say(f"phase 18 (f): loss {e0['grad_loss']:.6f} (one process {one['loss']:.6f}), grad norm "
+        f"{e0['norm']:.6f} ({one['norm']:.6f}); gradients within {SP_GRAD_TOL} of one "
+        f"process's (largest abs error {max(e['grad_err']['max_abs'] for e in eps):.4g}), "
+        f"parameters after one AdamW step within {TP_PARAM_ATOL:g} (largest "
+        f"{max(e['param_err']['max_abs'] for e in eps):.4g})")
+    return {"arch": EP_ARCH, "layers": cfg.n_layers, "run_batch": list(EP_CUT),
+            "step_ms_per_rank": [e["step_ms"] for e in eps],
+            "grads_ms_per_rank": [e["grads_ms"] for e in eps],
+            "update_ms_per_rank": [e["update_ms"] for e in eps],
+            "init_ms_per_rank": [e["init_ms"] for e in eps],
+            "one_process_grads_ms": one["grads_ms"], "one_process_step_ms": one["step_ms"],
+            "one_process_peak_gib": one["peak"] / 2**30, "one_process_s": one["s"],
+            "collectives_rank0": e0["collectives"], "lm_activation_bytes": modeled,
+            "param_bytes_per_rank": e0["param_bytes"], "moment_bytes_per_rank": e0["moment_bytes"],
+            "peak_gib_per_rank": [e["peak"] / 2**30 for e in eps],
+            "max_grad_err": max(e["grad_err"]["max_abs"] for e in eps),
+            "max_param_err": max(e["param_err"]["max_abs"] for e in eps)}
 
 
 def tensor_parallel_phase() -> None:
@@ -4375,9 +4661,13 @@ def tensor_parallel_phase() -> None:
     say(f"phase 18: {card_line()}")
     tmp = tempfile.mkdtemp(prefix="tp-ckpt-")
     try:
-        # (a) 4 gloo ranks on the (2, 2) mesh: steps and the sharded checkpoint
+        # (f)'s reference, before the ranks start: one process's OLMoE step
+        ep_dir = os.path.join(tmp, "ep")
+        ep_one = _ep_one_process(ep_dir)
+        # (a) 4 gloo ranks on the (2, 2) mesh: steps and the sharded
+        # checkpoint, then (f)'s step
         t0, t = time.time(), time.perf_counter()
-        outs = run_ranks(_tp_rank, n, args=(DEVICE, tmp), backend="gloo",
+        outs = run_ranks(_tp_rank, n, args=(DEVICE, tmp, ep_dir), backend="gloo",
                          timeout_s=TP_TIMEOUT_S)
         ranks_s = time.perf_counter() - t
         start_s = [o["ready"] - t0 for o in outs]
@@ -4409,6 +4699,8 @@ def tensor_parallel_phase() -> None:
             f"it {mc['n']} model collectives {mc['ms']:.1f} ms moving {mc['bytes'] / 1e6:.1f} MB "
             f"a rank; save {o0['save_ms'] / 1e3:.2f} s; peak "
             f"{[round(o['peak'] / 2**30, 2) for o in outs]} GiB; {card_line()}")
+        shutil.rmtree(ep_dir)
+        ep = _ep_report(outs, ep_one)
         # (b) one process's microbatches=2 step on the card, against the
         # ranks' losses and the checkpoint's gathered parameters
         cell = steps.build_lm_cell(spec, shape, dev, LM_SEED)
@@ -4519,6 +4811,9 @@ def tensor_parallel_phase() -> None:
             runs.append((_digest(leaves(params)), m["loss"].cpu().numpy().tobytes()))
         check(got["runs"] == runs, "phase 18 (d): the (1, 1) process mesh's steps around its "
                                    "sharded checkpoint differ from the one-card cell's")
+        check(got["moe_runs"] == _ep_smoke_runs(dev),
+              f"phase 18 (d): the (1, 1) process mesh's {EP_ARCH} SMOKE steps differ from the "
+              "one-card steps")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     report = {
@@ -4541,17 +4836,18 @@ def tensor_parallel_phase() -> None:
         "resumed_loss": res[0]["loss"], "max_param_err": param_err, "max_traj_ratio": traj,
         "bf16_gaps": bf, "bf16_one_process_gaps": floor,
         "rank_start_s": start_s, "ranks_s": ranks_s, "resume_s": resume_s,
-        "nccl_s": nccl_ms / 1e3}
+        "nccl_s": nccl_ms / 1e3, "experts": ep}
     say(f"phase 18 (d): {got['backend']} at world size 1 on {got['device']}: the SMOKE config "
         f"({LM_SMOKE_BATCH[0]} x {LM_SMOKE_BATCH[1]}, ZeRO-1), {TP_STEPS} steps, a sharded "
         f"checkpoint, its restore and a step == the one-card cell bitwise (params, loss); "
+        f"{EP_ARCH} SMOKE, {TP_STEPS} steps == the one-card steps bitwise (params, loss); "
         f"{nccl_ms / 1e3:.1f} s with the rank's start-up")
     say("phase 18: " + json.dumps(report))
     say(f"phase 18: {time.perf_counter() - t_phase:.1f} s; no run on several cards was "
         "possible (one card on this host)")
 
 
-def _block_errors(got, ref_dir: str, shardings, tol: dict) -> dict:
+def _block_errors(got, ref_dir: str, shardings, tol: dict, phase: str = "phase 19") -> dict:
     """This rank's blocks ``got`` against the blocks of the one-process
     leaves saved in ``ref_dir`` (``<j>.npy`` in flattened order): the
     largest abs error, and the largest excess of ``|a - b|`` over ``atol +
@@ -4568,7 +4864,7 @@ def _block_errors(got, ref_dir: str, shardings, tol: dict) -> dict:
     for j, (a, sh) in enumerate(zip(leaves(got), leaves(shardings), strict=True)):
         b = np.load(os.path.join(ref_dir, f"{j}.npy"), mmap_mode="r")
         b = torch.from_numpy(np.array(local_block(b, sh))).to(a.device)
-        check(tuple(b.shape) == tuple(a.shape), f"phase 19: leaf {j}'s block {tuple(a.shape)} "
+        check(tuple(b.shape) == tuple(a.shape), f"{phase}: leaf {j}'s block {tuple(a.shape)} "
               f"against the reference's {tuple(b.shape)}")
         d = (a.detach() - b).abs()
         err = max(err, float(d.max()))
@@ -4581,12 +4877,10 @@ def _sp_rank(rank: int, device: str, ref_dir: str) -> dict:
     turns, then one step as the train step takes it, its gradients (the
     ``model`` collectives counted by kind) and then its AdamW update, each
     against the one-process step's saved leaves."""
-    import sys as sys_lib
-
     import torch
     import torch.distributed as dist
 
-    from repro_torch.core import ProcessMesh, make_process_mesh
+    from repro_torch.core import make_process_mesh
     from repro_torch.launch import steps
     from repro_torch.models.params import param_shardings
     from repro_torch.train.optimizer import OptimizerConfig, adamw_update
@@ -4614,27 +4908,12 @@ def _sp_rank(rank: int, device: str, ref_dir: str) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     # the gradients, each model collective timed between syncs and labelled
-    # by the function that called collectives.gather
-    gather, stats = ProcessMesh.gather_axes, {}
-
-    def counted(self, tensors, axes):
-        if tuple(axes) != ("model",):
-            return gather(self, tensors, axes)
-        kind = sys_lib._getframe(2).f_code.co_qualname
-        got, ms = _timed(lambda: gather(self, tensors, axes), device)
-        st = stats.setdefault(kind, {"n": 0, "bytes": 0, "ms": 0.0})
-        st["n"] += 1
-        st["bytes"] += sum(x.nbytes for x in tensors)
-        st["ms"] += ms
-        return got
-
-    ProcessMesh.gather_axes = counted
-    try:
+    # by its caller
+    stats = {}
+    with _CountedGathers(stats, device):
         (loss, _, grads), out["grads_ms"] = _timed(lambda: step.value_and_grad(params, batch),
                                                    device)
-    finally:
-        ProcessMesh.gather_axes = gather
-    out["model_collectives"] = stats
+    out["model_collectives"] = stats.get("model", {})
     out["grad_loss"] = float(loss)
     shardings = param_shardings(cfg.param_defs(), mesh)
     out["grad_err"] = _block_errors(grads, f"{ref_dir}/grads", shardings, SP_GRAD_TOL)
@@ -4669,7 +4948,6 @@ def seq_parallel_phase() -> None:
     from repro_torch.launch.ranks import run_ranks
     from repro_torch.models.layers import head_parallel
     from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
-    from repro_torch.train.tree import leaves
 
     t_phase = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -4685,11 +4963,6 @@ def seq_parallel_phase() -> None:
     try:
         # (a) the one-process step on the card: its loss, gradients and the
         # parameters after one AdamW step, saved for the ranks and freed
-        def save(tree, name):
-            os.makedirs(os.path.join(tmp, name))
-            for j, x in enumerate(leaves(tree)):
-                np.save(os.path.join(tmp, name, f"{j}.npy"), x.detach().cpu().numpy())
-
         t = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         params = cfg.init(LM_SEED, dev)
@@ -4699,10 +4972,10 @@ def seq_parallel_phase() -> None:
         step = _tp_step(cfg, None)
         (loss1, _, grads), one_grads_ms = _timed(lambda: step.value_and_grad(params, batch),
                                                  DEVICE)
-        save(grads, "grads")
+        _save_leaves(grads, os.path.join(tmp, "grads"))
         del grads
         (params, opt, m1), one_step_ms = _timed(lambda: step(params, opt, batch), DEVICE)
-        save(params, "params")
+        _save_leaves(params, os.path.join(tmp, "params"))
         del params, opt
         one_peak = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()

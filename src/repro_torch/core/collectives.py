@@ -1,9 +1,11 @@
 """Collectives over mesh axes: the port's ``jax.lax.psum``, ``pmax``,
-``all_gather(tiled=True)``, ``psum_scatter(tiled=True)`` and
-``all_to_all(tiled=True)`` inside ``shard_map`` (no reference module of its
-own: the reference calls ``jax.lax``), for the train side's data-parallel
-step, ZeRO-1's update, ``psum_compressed``, EGNN's sharded loss and the
-dense LM's tensor- and sequence-parallel layers.
+``all_gather(tiled=True)``, ``psum_scatter(tiled=True)``,
+``all_to_all(tiled=True)``, ``all_gather_invariant(tiled=True)`` and its
+transpose, a block slice of a replicated tensor, inside ``shard_map`` (no
+reference module of its own: the reference calls ``jax.lax``), for the
+train side's data-parallel step, ZeRO-1's update, ``psum_compressed``,
+EGNN's sharded loss, the dense LM's tensor- and sequence-parallel layers
+and the MoE layer's experts over ``model``.
 
 Every collective takes ``xs``, one tensor per mesh position this process
 holds (:func:`positions`), and returns one per position, as the serve
@@ -33,6 +35,16 @@ collectives:
 * :func:`all_to_all`'s backward is the inverse :func:`all_to_all` (its two
   dims swapped): it moves blocks and adds nothing, so both directions are
   bitwise the loop form's;
+* :func:`split` takes the position's block of a tensor replicated over the
+  group and moves nothing; its backward is the tiled all-gather of the
+  group's block cotangents (the replicated input's whole cotangent, on
+  every member, with nothing added);
+* :func:`all_gather_invariant` is :func:`split`'s transpose: the tiled
+  all-gather of the blocks, whose output is replicated over the group, so
+  its cotangent is too and the backward keeps the position's block of it,
+  adding nothing (:func:`all_gather`'s backward, a ``psum_scatter``, would
+  count a replicated cotangent G times).  On a plain mesh the members of a
+  group share one output, as :func:`psum`'s;
 * :func:`replicated` is the identity; its backward sums each leaf's
   cotangents over the group.  It is the one place gradients of replicated
   parameters are reduced: the data-parallel step and the sharded EGNN loss
@@ -57,13 +69,13 @@ from repro_torch.train.tree import leaves, unflatten
 MODEL = ("model",)
 
 
-def model_mesh() -> ProcessMesh | None:
-    """The sharding context's :class:`ProcessMesh` when its ``model`` axis
-    splits the model (size > 1), else None: the dense LM's layers then
-    compute on their parameter blocks, entering each parallel region
-    through :func:`replicated` and leaving it through a :func:`psum` over
-    :data:`MODEL`."""
-    mesh = get_context().mesh
+def model_mesh(mesh=None) -> ProcessMesh | None:
+    """``mesh`` (default: the sharding context's) when it is a
+    :class:`ProcessMesh` whose ``model`` axis splits the model (size > 1),
+    else None: the LM's layers then compute on their parameter blocks,
+    entering each parallel region through :func:`replicated` and leaving it
+    through a :func:`psum` over :data:`MODEL`."""
+    mesh = get_context().mesh if mesh is None else mesh
     if isinstance(mesh, ProcessMesh) and mesh.shape.get("model", 1) > 1:
         return mesh
     return None
@@ -218,6 +230,66 @@ def all_to_all(mesh: Mesh, xs: list[torch.Tensor], axes: tuple[str, ...], split_
     along ``concat_dim`` in group order.  On a process mesh one gather of
     the group's tensors, then each rank slices its blocks."""
     return list(_AllToAll.apply(mesh, tuple(axes), split_dim, concat_dim, *xs))
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, dim, *xs):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return tuple(_block(x, group_size(mesh, axes), mesh.group(axes, p).index(p), dim)
+                     for p, x in zip(_check_entries(mesh, xs), xs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, None, *_all_gather(ctx.mesh, list(gs), ctx.axes, ctx.dim))
+
+
+class _GatherInvariant(torch.autograd.Function):
+    """One group's tiled gather from its local members (every member on a
+    plain mesh, this rank on a process mesh); the backward hands each
+    member its block of the one cotangent."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, dim, *xs):
+        ctx.dim = dim
+        if isinstance(mesh, ProcessMesh):
+            ctx.places = [mesh.group(axes, mesh.rank).index(mesh.rank)]
+            ctx.n = group_size(mesh, axes)
+            return _all_gather(mesh, list(xs), axes, dim)[0]
+        ctx.places, ctx.n = list(range(len(xs))), len(xs)
+        return torch.cat(xs, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, None, *(_block(g, ctx.n, i, ctx.dim) for i in ctx.places))
+
+
+def split(mesh: Mesh, xs: list[torch.Tensor], axes: tuple[str, ...],
+          dim: int = 0) -> list[torch.Tensor]:
+    """Each position's block along ``dim`` of its tensor, which is
+    replicated over the group: block i of G for the member at place i (the
+    inverse of a tiled all-gather).  No communication; the backward
+    all-gathers the block cotangents along ``dim``."""
+    return list(_Split.apply(mesh, tuple(axes), dim, *xs))
+
+
+def all_gather_invariant(mesh: Mesh, xs: list[torch.Tensor], axes: tuple[str, ...],
+                         dim: int = 0) -> list[torch.Tensor]:
+    """``jax.lax.all_gather_invariant(x, axes, axis=dim, tiled=True)``: the
+    group's tensors concatenated along ``dim`` in group order, replicated
+    over the group; the backward keeps each member's block of the
+    cotangent (:func:`split`'s transpose).  On a plain mesh the members of
+    a group share one output."""
+    axes = tuple(axes)
+    local = _check_entries(mesh, xs)
+    if isinstance(mesh, ProcessMesh):
+        return [_GatherInvariant.apply(mesh, axes, dim, xs[0])]
+    outs: dict[tuple, torch.Tensor] = {}
+    for p in local:
+        members = tuple(mesh.group(axes, p))
+        if members not in outs:
+            outs[members] = _GatherInvariant.apply(mesh, axes, dim, *[xs[q] for q in members])
+    return [outs[tuple(mesh.group(axes, p))] for p in local]
 
 
 def psum(mesh: Mesh, xs: list[torch.Tensor], axes: tuple[str, ...]) -> list[torch.Tensor]:

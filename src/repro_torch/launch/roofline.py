@@ -51,10 +51,13 @@ moves nothing), per device and step:
   shard over "pod"; otherwise an ``all-reduce`` of the gradient shard;
 * LMs, per layer, an ``all-reduce`` of the ``[B, S, D]`` activations (in
   the compute dtype) after each projection whose contracted dimension is
-  split over "model" (attention's ``wo``, the dense FFN's ``wo``), and an
-  ``all-to-all`` of the MoE dispatch buffer ``[B, E·C, D]`` each way
-  when the experts are split; forward once, and in a train step the
-  backward and the remat recompute (``remat="full"``) once more each;
+  split over "model" (attention's ``wo``, the dense FFN's ``wo``); forward
+  once, and in a train step the backward and the remat recompute
+  (``remat="full"``) once more each.  Where the experts are split, the
+  port's own traffic (``models.moe``): an ``all-gather`` of the MoE
+  dispatch buffer ``[B, E·C, D]`` each pass (the expert outputs in the
+  forward and the recompute, the dispatched tokens' cotangent in the
+  backward), and of the ``[D, E]`` f32 router in each forward pass;
 * EGNN, per layer, an ``all-reduce`` of the receivers' sum ``[N, H + 3]``
   of edge-split messages (nodes replicated), or an ``all-gather`` of the
   node state and a ``reduce-scatter`` of the sum (``gnn_full``, nodes
@@ -350,13 +353,21 @@ def lm_activation_bytes(cfg, kind: str, B: int, S: int, params: dict, mesh, batc
     attention, ``models.layers``) also the all-gathers of k and v
     (``B·S·KVH·Dh`` each) and two all-to-alls of ``B·S·H·Dh``, q to the
     rank's rows and the output back to its columns (when ``model`` does not
-    divide S, one all-gather of q instead).  A model of the port's own
-    traffic, each all-to-all and gather at the bytes a rank receives."""
+    divide S, one all-gather of q instead); where the experts are split
+    (``models.moe``), an all-gather of the dispatch buffer ``B·E·C·D`` each
+    pass (the expert outputs, forward and recompute; the dispatched tokens'
+    cotangent, backward) and of the ``D·E`` f32 router each forward pass
+    (its backward keeps the rank's block and moves nothing).  A model of the
+    port's own traffic, each all-to-all and gather at the bytes of its
+    output (each rank receives (M − 1)/M of a gather's).  The MoE aux
+    loss's gather over the batch axes (``2·E`` f32 a rank per layer and
+    forward pass) is not counted."""
     out: dict = {}
     if "model" not in mesh.axis_names or mesh.shape["model"] == 1:
         return out
     M = mesh.shape["model"]
-    passes = 3 if kind == "lm_train" and cfg.remat == "full" else (2 if kind == "lm_train" else 1)
+    train = kind == "lm_train"
+    passes = 3 if train and cfg.remat == "full" else (2 if train else 1)
     item = torch.empty((), dtype=cfg.compute_dtype).element_size()
     act = B * S * cfg.d_model * item / batch_split
     lay = params["layers"]
@@ -378,7 +389,9 @@ def lm_activation_bytes(cfg, kind: str, B: int, S: int, params: dict, mesh, batc
         from repro_torch.models.moe import capacity
 
         buf = B * cfg.n_experts * capacity(cfg, S) * cfg.d_model * item / batch_split
-        _add(out, "all-to-all", passes * cfg.n_layers * 2 * buf)
+        forwards = passes - 1 if train else 1
+        _add(out, "all-gather", cfg.n_layers * (passes * buf
+                                                 + forwards * cfg.d_model * cfg.n_experts * 4))
     return out
 
 

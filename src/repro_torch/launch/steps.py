@@ -182,7 +182,8 @@ def build_lm_cell(
     their ZeRO-1 moment blocks (checkpoint them with
     :func:`state_shardings`), its attention head-parallel when both head
     counts divide ``model`` and sequence-parallel otherwise (Qwen2.5-14B's
-    40 / 8 heads on ``model`` = 16).  The serving cells take no process
+    40 / 8 heads on ``model`` = 16), a MoE config's experts split over
+    ``model`` (OLMoE's 64 experts, 32 a rank on ``model`` = 2).  The serving cells take no process
     mesh of ``model`` > 1 (a KV cache across ranks is not ported)."""
     cfg = spec.config
     p = shape.params

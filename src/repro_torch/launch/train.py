@@ -23,9 +23,11 @@ rows, with ZeRO-1's moment blocks; the gnn family runs EGNN's sharded loss
 on the rank's rows of the graph.  With M > 1 the lm family is also
 tensor-parallel: each rank holds its ``param_specs`` blocks, and attention
 runs head-parallel where both head counts divide M and sequence-parallel
-otherwise (the Qwen2.5 configs' 5 / 1 and 40 / 8 heads).  Every rank takes
-part in a checkpoint (the blocks gathered into global arrays); rank 0
-alone logs and writes the files.
+otherwise (the Qwen2.5 configs' 5 / 1 and 40 / 8 heads); a MoE arch's
+experts split over M too.  Where the data axis is > 1 a MoE arch's aux
+loss is the global batch's, and ``--microbatches`` must stay 1.  Every
+rank takes part in a checkpoint (the blocks gathered into global arrays);
+rank 0 alone logs and writes the files.
 """
 from __future__ import annotations
 

@@ -29,13 +29,40 @@ bit.
 
 The load-balance loss (Switch) is ``E · Σ_e mean_prob_e · assign_frac_e``
 over all ``B · S · K`` assignments.
+
+Across the ranks of a :class:`~repro_torch.core.distributed.ProcessMesh`
+(``mesh``, which ``transformer.loss_fn`` passes down), as the reference's
+``shard`` annotations lay the layer out (``"experts": ("model",)``, groups
+on the batch axes):
+
+* **the aux loss over the global batch.**  Each rank holds its rows of the
+  batch; where the batch axes (pod, data) have more than one position, the
+  rank's ``mean_prob`` and ``assign_frac`` ([E] each) are all-gathered
+  over them and averaged in group order, so every rank computes the aux of
+  the whole batch, as the reference's step on a data-split mesh does.  The
+  gather's backward (a ``psum_scatter``), then the step's sum of the
+  ranks' gradients ÷ D, gives the global aux's gradient.
+* **experts over ``model``.**  The batch does not split over ``model``, so
+  ``x``, the routing and the dispatch maps are the same on every rank of a
+  ``model`` group: the rank's ``[D, E/M]`` router block enters through
+  ``all_gather_invariant`` (its backward keeps the rank's block), the
+  dispatch runs whole and :func:`~repro_torch.core.collectives.split`
+  keeps the rank's E/M experts' slots, the expert products run on the
+  rank's ``[E/M, D, F]`` blocks, and ``all_gather_invariant`` brings the
+  expert outputs back whole before the combine.  So every value and
+  cotangent outside the expert products is one process's, on every rank,
+  and the combine adds in ascending slot order as one process does (no
+  combine on each rank followed by a ``psum``, which would reorder the
+  sums).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collectives as col
 from repro_torch.core.ranking import select_top
+from repro_torch.train.loop import batch_axes
 
 
 def capacity(cfg, S: int) -> int:
@@ -135,10 +162,16 @@ def _route(x: torch.Tensor, p: dict, cfg):
     return probs, top_p, top_e
 
 
-def moe_ffn(x: torch.Tensor, p: dict, cfg) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, D] → (out [B, S, D], aux_loss f32 scalar)."""
+def moe_ffn(x: torch.Tensor, p: dict, cfg, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, D] → (out [B, S, D], aux_loss f32 scalar).  ``mesh``: a
+    process mesh (module docstring), where ``x`` is the rank's rows and
+    ``p`` the rank's blocks; None on one process."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
+    M = 1 if mesh is None else mesh.shape.get("model", 1)
+    if M > 1:
+        p = {**p, "router": col.all_gather_invariant(mesh, [p["router"]], col.MODEL,
+                                                     dim=1)[0]}
     probs, top_p, top_e = _route(x, p, cfg)
 
     # load-balance aux loss (Switch): E · Σ_e f_e · p_e over all assignments
@@ -150,18 +183,27 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     counts = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
         0, flat_e, torch.ones_like(flat_e))
     ce = counts.float() / (B * S * K)
+    axes = () if mesh is None else batch_axes(mesh)
+    if axes and col.group_size(mesh, axes) > 1:  # the global batch's me and ce
+        parts = col.all_gather(mesh, [torch.stack([me, ce])], axes)[0].reshape(-1, 2, E)
+        me, ce = col.ordered_sum(list(parts)) / parts.shape[0]
     aux = E * torch.sum(me * ce)
 
     C = capacity(cfg, S)
     slot_token, slot_used, slot_w, tok_slot = _dispatch_maps(top_e, top_p, E, C)
     xe = _Dispatch.apply(x, slot_token, slot_used, tok_slot)  # [B, E·C, D]
+    El = E // M
+    if M > 1:  # the rank's experts' slots [B, E/M·C, D]
+        xe = col.split(mesh, [xe], col.MODEL, dim=1)[0]
 
-    # batched expert SwiGLU, expert-major: [E, B·C, D]
-    xe = xe.reshape(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
+    # batched expert SwiGLU, expert-major: [E/M, B·C, D]
+    xe = xe.reshape(B, El, C, D).transpose(0, 1).reshape(El, B * C, D)
     gate = torch.bmm(xe, p["wi_gate"].to(x.dtype))
     up = torch.bmm(xe, p["wi_up"].to(x.dtype))
     ye = torch.bmm(F.silu(gate) * up, p["wo"].to(x.dtype))
-    ye = ye.reshape(E, B, C, D).transpose(0, 1).reshape(B, E * C, D)
+    ye = ye.reshape(El, B, C, D).transpose(0, 1).reshape(B, El * C, D)
+    if M > 1:  # every expert's outputs, in slot order, on every rank
+        ye = col.all_gather_invariant(mesh, [ye], col.MODEL, dim=1)[0]
 
     # unused slots hold 0 (a zero row through the SwiGLU, weight 0) and
     # no token reads them

@@ -19,7 +19,7 @@ activations run in ``compute_dtype`` (bf16), each weight cast to it where
 it is used.
 
 Tensor parallelism (the reference's ``model`` axis): under
-``use_sharding(ProcessMesh)`` with ``model`` = M > 1 the dense LM holds the
+``use_sharding(ProcessMesh)`` with ``model`` = M > 1 the LM holds the
 blocks ``param_specs`` gives it (``cfg.init(seed, device, mesh)``), and
 :func:`loss_fn` reads the mesh once and passes it down to compute on them:
 head- or sequence-parallel attention and FFN-parallel layers
@@ -30,10 +30,15 @@ from a ``pmax`` and an ordered ``psum`` of the exp sums, the label's logit
 a ``psum`` of the masked gather), so no rank builds the ``[B, S, Vp]``
 logits.  Attention is head-parallel when both head counts divide M and
 sequence-parallel otherwise (Qwen2.5-14B's 40 / 8 heads on M = 16), as
-the reference's adaptive rule chooses.  Remat "full" recomputes the
-collectives in the backward, in the same order on every rank.  A MoE
-config, projection widths that M does not divide and the KV cache across
-ranks raise ``NotImplementedError`` (:func:`check_model_parallel`).
+the reference's adaptive rule chooses.  A MoE config splits its experts
+over ``model`` (:mod:`~repro_torch.models.moe`: the rank's E/M experts
+and router columns), and on any process mesh whose batch axes split the
+batch its aux loss is the global batch's: :func:`loss_fn` then passes the
+process mesh to the MoE layers.  Remat "full" recomputes the collectives
+in the backward, in the same order on every rank.  Projection widths or
+expert counts that M does not divide raise ``NotImplementedError``
+(:func:`check_model_parallel`), as do prefill and decode across ranks (a
+KV cache split over ``model``).
 """
 from __future__ import annotations
 
@@ -50,10 +55,13 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.core import collectives as col
+from repro_torch.core.distributed import ProcessMesh
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.params import ParamDef, init_params, param_count
+from repro_torch.sharding.specs import get_context
+from repro_torch.train.loop import batch_axes, rank_microbatches
 
 
 @dataclass(frozen=True)
@@ -167,30 +175,51 @@ class TransformerConfig:
 
 
 def check_model_parallel(cfg: TransformerConfig, model: int) -> None:
-    """Raise ``NotImplementedError`` unless the dense LM splits over
-    ``model`` ranks as its ``param_specs`` say: no experts (experts over
-    ``model`` are not ported), and projection widths ``H·Dh`` and
-    ``KVH·Dh``, ``d_ff`` and the padded vocab that divide it (else
-    ``logical_spec`` leaves those leaves whole).  Any head count is taken:
-    heads that do not divide ``model`` run sequence-parallel
-    (:func:`~repro_torch.models.layers.head_parallel`)."""
+    """Raise ``NotImplementedError`` unless the LM splits over ``model``
+    ranks as its ``param_specs`` say: projection widths ``H·Dh`` and
+    ``KVH·Dh``, the padded vocab, and ``d_ff`` (a dense config) or the
+    expert count (a MoE config; ``expert_ffn`` is never split) that divide
+    it.  Else the reference's ``logical_spec`` leaves those leaves whole,
+    which the port does not do yet (ROADMAP Queue 1, item 6h).  Any head
+    count is taken: heads that do not divide ``model`` run
+    sequence-parallel (:func:`~repro_torch.models.layers.head_parallel`)."""
     if model == 1:
         return
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: a MoE config over model = {model} (experts "
-                                  "over the model axis) is not ported")
+    split = (("the expert count", cfg.n_experts) if cfg.is_moe else ("d_ff", cfg.d_ff),)
     for what, n in (("the q projection width H*Dh", cfg.n_heads * cfg.d_head),
                     ("the kv projection width KVH*Dh", cfg.n_kv_heads * cfg.d_head),
-                    ("d_ff", cfg.d_ff), ("the padded vocab", cfg.padded_vocab)):
+                    *split, ("the padded vocab", cfg.padded_vocab)):
         if n % model:
-            raise NotImplementedError(f"{cfg.name}: {what} {n} does not divide model = {model}")
+            raise NotImplementedError(
+                f"{cfg.name}: {what} {n} does not divide model = {model} (a leaf the "
+                "reference keeps whole: ROADMAP Queue 1, item 6h)")
 
 
-def _model_mesh(cfg: TransformerConfig):
-    """:func:`~repro_torch.core.collectives.model_mesh`, checked for ``cfg``."""
-    mesh = col.model_mesh()
+def _model_mesh(cfg: TransformerConfig, mesh):
+    """:func:`~repro_torch.core.collectives.model_mesh` of ``mesh``,
+    checked for ``cfg``."""
+    mesh = col.model_mesh(mesh)
     if mesh is not None:
         check_model_parallel(cfg, mesh.shape["model"])
+    return mesh
+
+
+def _moe_mesh(cfg: TransformerConfig, mesh):
+    """The process mesh a MoE config's layers take (:func:`moe_lib.moe_ffn`):
+    the sharding context's ``mesh`` when it splits the batch or the
+    experts, else None.  A data-split step that cuts each rank's rows into
+    microbatches raises ``NotImplementedError``: its aux loss would be
+    over other rows than the reference's microbatches."""
+    if not cfg.is_moe or not isinstance(mesh, ProcessMesh):
+        return None
+    D = col.group_size(mesh, batch_axes(mesh))
+    if D == 1 and mesh.shape.get("model", 1) == 1:
+        return None
+    if D > 1 and rank_microbatches() > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: a MoE step with microbatches > 1 on the data-split mesh "
+            f"{mesh.shape} (the aux loss over each rank's microbatches is not the "
+            "reference's)")
     return mesh
 
 
@@ -240,11 +269,13 @@ def _layer(params: dict, i: int) -> dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in params.items()}
 
 
-def _ffn(cfg: TransformerConfig, x: torch.Tensor, lp: dict, mesh=None):
-    """The FFN half of a layer: (x + FFN(norm(x)), aux)."""
+def _ffn(cfg: TransformerConfig, x: torch.Tensor, lp: dict, mesh=None, moe_mesh=None):
+    """The FFN half of a layer: (x + FFN(norm(x)), aux).  ``mesh``: a
+    model mesh or None; ``moe_mesh``: the process mesh of a MoE config's
+    layers (:func:`_moe_mesh`) or None."""
     y = L.rms_norm(x, lp["ln2"])
     if cfg.is_moe:
-        f, aux = moe_lib.moe_ffn(y, lp["moe"], cfg)
+        f, aux = moe_lib.moe_ffn(y, lp["moe"], cfg, moe_mesh)
     else:  # a dense layer's aux loss is 0
         f = L.swiglu(y, lp["mlp"], mesh)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -252,10 +283,11 @@ def _ffn(cfg: TransformerConfig, x: torch.Tensor, lp: dict, mesh=None):
 
 
 def _layer_body(cfg: TransformerConfig, x: torch.Tensor, lp: dict, positions: torch.Tensor,
-                mesh=None):
-    """One layer; ``mesh``: a model mesh or None."""
+                mesh=None, moe_mesh=None):
+    """One layer; ``mesh``: a model mesh or None; ``moe_mesh`` as
+    :func:`_ffn`'s."""
     h, _ = L.attention_block(L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions, mesh=mesh)
-    return _ffn(cfg, x + h, lp, mesh)
+    return _ffn(cfg, x + h, lp, mesh, moe_mesh)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -278,16 +310,18 @@ def _remat(cfg: TransformerConfig, body):
     raise ValueError(f"remat {cfg.remat!r}: none | full | dots")
 
 
-def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, mesh=None):
+def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, mesh=None,
+            moe_mesh=None):
     """tokens i32[B, S] → (logits f32[B, S, V], aux_loss: the sum over
     layers).  ``mesh``: a model mesh (:func:`loss_fn` passes the sharding
     context's), where ``params`` are the rank's blocks and the logits the
-    rank's vocab columns; the layers take it as an argument, as remat
-    recomputes them on autograd's device thread."""
+    rank's vocab columns; ``moe_mesh``: the process mesh of a MoE config's
+    layers (:func:`_moe_mesh`).  The layers take both as arguments, as
+    remat recomputes them on autograd's device thread."""
     B, S = tokens.shape
     x = _embed(cfg, params, tokens, mesh)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
-    body = _remat(cfg, functools.partial(_layer_body, cfg, mesh=mesh))
+    body = _remat(cfg, functools.partial(_layer_body, cfg, mesh=mesh, moe_mesh=moe_mesh))
     auxs = []
     for i in range(cfg.n_layers):
         x, a = body(x, _layer(params["layers"], i), positions)
@@ -300,9 +334,11 @@ def loss_fn(cfg: TransformerConfig, params: dict, batch: dict):
     """batch: tokens i32[B, S], labels i32[B, S] (−1 = ignore).  Returns
     (total, metrics): the reference's loss, z-loss and weighted aux loss;
     vocab-parallel under a model mesh, the sharding context's
-    (:func:`_vocab_parallel_terms`)."""
-    mesh = _model_mesh(cfg)
-    logits, aux = forward(cfg, params, batch["tokens"], mesh)
+    (:func:`_vocab_parallel_terms`); a MoE config's aux over the global
+    batch on a data-split process mesh (:func:`_moe_mesh`)."""
+    ctx_mesh = get_context().mesh
+    mesh = _model_mesh(cfg, ctx_mesh)
+    logits, aux = forward(cfg, params, batch["tokens"], mesh, _moe_mesh(cfg, ctx_mesh))
     labels = batch["labels"].long()
     mask = labels >= 0
     if mesh is None:

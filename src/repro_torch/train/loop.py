@@ -8,8 +8,9 @@ update writes params and moments in place (:func:`adamw_update`, ZeRO-1's
 with ``moment_shardings`` on a process mesh).  Built under
 ``use_sharding(ProcessMesh)`` the step is data-parallel across the ranks
 (:func:`make_train_step`), where the reference's SPMD step lets XLA reduce
-the gradients over ``data``; with a ``model`` axis > 1 the dense LM is
-also tensor-parallel over it, each rank holding its parameter blocks.
+the gradients over ``data``; with a ``model`` axis > 1 the LM is also
+tensor-parallel over it (a MoE config's experts split over it too), each
+rank holding its parameter blocks.
 
 ``run(...)`` checkpoints every N steps (atomic, async), and on a failure
 (including an injected one) restores the latest checkpoint and replays —
@@ -19,6 +20,7 @@ restores its own blocks of the global arrays.
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -61,6 +63,18 @@ def batch_axes(mesh) -> tuple[str, ...]:
     return tuple(a for a in DEFAULT_RULES["batch"] if a in mesh.axis_names)
 
 
+_STEP = threading.local()
+
+
+def rank_microbatches() -> int:
+    """The microbatches each rank's rows are cut into by the data-parallel
+    step running on this thread (1 outside one).  A loss whose terms are
+    statistics of the global batch reads it: the rank's rows-then-
+    microbatches order groups other rows than the reference's
+    microbatches-then-devices order."""
+    return getattr(_STEP, "microbatches", 1)
+
+
 def make_train_step(
     loss_fn: Callable,  # (params, batch) -> (loss, metrics)
     opt_cfg: OptimizerConfig,
@@ -81,12 +95,18 @@ def make_train_step(
     :func:`~repro_torch.core.collectives.replicated`, whose backward adds
     the ranks' gradients from zero in rank order, and the step divides by
     the ``D`` batch shards; the losses are added the same way.  Those are
-    the ``microbatches=D`` step's operations, so a ``D``-rank step equals it
-    bitwise.  A :func:`global_loss` is run on the batch as given.
+    the ``microbatches=D`` step's operations, so a ``D``-rank step of a
+    dense config equals it bitwise.  A MoE config's aux loss is a
+    statistic of the global batch, which its layer gathers over the batch
+    axes (:mod:`~repro_torch.models.moe`): its ``D``-rank step equals the
+    one-process ``microbatches=1`` step within rounding, and with
+    ``microbatches`` > 1 on a data-split mesh its loss raises
+    ``NotImplementedError`` (:func:`rank_microbatches`).  A
+    :func:`global_loss` is run on the batch as given.
 
     With a ``model`` axis > 1 the parameters are the rank's blocks and
-    the loss is tensor-parallel over ``model`` (the dense LM's, under the
-    step's sharding context, which the step re-enters); ``moment_shardings``
+    the loss is tensor-parallel over ``model`` (the LM's, its experts too,
+    under the step's sharding context, which the step re-enters); ``moment_shardings``
     must then be given, as they tell the update which leaves are blocks.
 
     The step's ``value_and_grad(params, batch)`` attribute is its gradient
@@ -167,9 +187,13 @@ def _data_parallel_grads(mesh: ProcessMesh, loss_fn, microbatches, moment_shardi
             if x.shape[0] % D:
                 raise ValueError(f"a batch of {x.shape[0]} rows does not split over the "
                                  f"{D} batch shards of {mesh.shape}")
-        loss, grads = _mean_over_microbatches(
-            local_loss, params, _microbatch(batch, D, shard), microbatches,
-            microbatches * D, lambda l: col.psum(mesh, [l], axes)[0])
+        _STEP.microbatches = microbatches
+        try:
+            loss, grads = _mean_over_microbatches(
+                local_loss, params, _microbatch(batch, D, shard), microbatches,
+                microbatches * D, lambda l: col.psum(mesh, [l], axes)[0])
+        finally:
+            _STEP.microbatches = 1
         return loss, {}, grads
 
     return grads_of

@@ -193,10 +193,13 @@ def _lm_params(mesh, mlp_split=True):
     ("lm_prefill", {}, True, {"all-reduce": 1 * 3 * 2 * 512}),
     # an FFN whose wo is not split over model needs no all-reduce
     ("lm_train", {}, False, {"all-reduce": 3 * 3 * 512}),
-    # MoE: attention's wo, and the dispatch buffer [B, E·C, D] each way,
-    # C = int(1.25·8·2/4 + 0.5) = 5: 4·4·5·16·2 / 2 = 1280 B
+    # MoE: attention's wo, and the port's expert gathers: the dispatch
+    # buffer [B, E·C, D] once a pass (the expert outputs forward, the
+    # dispatched tokens' cotangent backward), C = int(1.25·8·2/4 + 0.5) = 5:
+    # 4·4·5·16·2 / 2 = 1280 B, and the [D, E] f32 router once a forward
+    # pass: 16·4·4 = 256 B
     ("lm_train", {"remat": "none", "is_moe": True}, True,
-     {"all-reduce": 2 * 3 * 512, "all-to-all": 2 * 3 * 2 * 1280}),
+     {"all-reduce": 2 * 3 * 512, "all-gather": 3 * (2 * 1280 + 256)}),
     # kv heads 2 on model 4: sequence-parallel attention adds, per layer and
     # pass, two all-to-alls of q (4·8·4·4·2 / 2 = 512 B) and the all-gathers
     # of k and v (256 B each)

@@ -13,8 +13,8 @@ kv 2, d_ff 128, vocab 256, seq 32, batch 8, f32 compute), held to
   twice that step's own gaps from f32;
 * the ZeRO-1 checkpoint: a fault replayed by ``loop.run`` is bitwise the
   uninterrupted run, and every rank restores its own moment blocks;
-* the guards: a projection width that ``model`` does not divide, MoE,
-  recsys training over ``model``, a restore onto other shapes;
+* the guards: a projection width or an expert count that ``model`` does
+  not divide, recsys training over ``model``, a restore onto other shapes;
 * the elastic story of ``tests/test_elastic.py`` at 4 -> 2 ranks: train
   on (2, 2), checkpoint, resume on ``plan_elastic_mesh``'s (1, 2);
 * the reference, in subprocesses on fake XLA devices (``AxisType.Auto``):
@@ -221,7 +221,9 @@ def _guards(mesh, ckpt_dir) -> dict:
     # divide (the heads that do not divide run sequence-parallel:
     # tests/test_torch_seq_parallel.py)
     for what, cfg in (("width", dataclasses.replace(CFG, d_model=60, n_kv_heads=1)),
-                      ("moe", dataclasses.replace(CFG, n_experts=4, top_k=2))):
+                      # 3 experts that model = 2 does not divide (experts that
+                      # divide it split: tests/test_torch_expert_parallel.py)
+                      ("moe", dataclasses.replace(CFG, n_experts=3, top_k=2))):
         try:
             cfg.init(SEED, "cpu", mesh)
         except NotImplementedError as e:
@@ -692,8 +694,8 @@ def test_cell_bytes_equal_the_dry_run_per_device(world, name):
 
 
 def test_guards_raise(world):
-    """(h) A projection width that ``model`` does not divide (``logical_spec``
-    would leave the leaf whole) and a MoE config raise
+    """(h) A projection width and an expert count that ``model`` does not
+    divide (``logical_spec`` would leave the leaf whole) raise
     ``NotImplementedError`` at init and in the loss; a restore whose
     ``like`` blocks differ from the checkpoint's raises ``ValueError``; a
     model-parallel step without moment shardings raises too."""
@@ -702,7 +704,7 @@ def test_guards_raise(world):
         for k in ("width_init", "width_loss"):
             assert "kv projection width" in g[k], g
         for k in ("moe_init", "moe_loss"):
-            assert "MoE" in g[k], g
+            assert "the expert count 3 does not divide model = 2" in g[k], g
         assert "expected" in g["restore"], g
         assert "moment_shardings" in g["no_shardings"], g
         assert "rows and ffn over model" in g["recsys"], g
