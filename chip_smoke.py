@@ -56,8 +56,9 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    device's idle share over a batch; and one over each of phase 9's recsys cells (the
    geo-blended retrieval, AutoInt's chunked retrieval and every serve
    shape), over a prefill (2,048
-   tokens) and a decode step (4,096 cached tokens) of each of phases
-   12–13's five LMs, over a train step (2,048 tokens) of Granite-MoE and
+   tokens) of each of phases 12–13's five LMs and a decode step (4,096
+   cached tokens) of its two MoE LMs (``LM_PROFILE_DECODE``), over a train
+   step (2,048 tokens) of Granite-MoE and
    over a train step of each of phase 14's EGNN cells:
    the device's busy time, idle share and top device ops;
 6. serves 2048-query traces through ``GeoServer`` over the phase-3 index,
@@ -391,6 +392,29 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    name and power limit beside the times.  It launches no kernel, and runs
    after phase 18 and before phase 5.  No run on several cards is possible
    on one card's host.
+20. runs LM prefill and decode across ranks, each rank holding its block
+   of the KV cache as the reference's ``cache_defs`` spec places it, in
+   phase 18's 4 ``gloo`` ranks on the (2, 2) mesh after (f) (no rank
+   start-up of its own): ``KV_CASES`` at published widths, f32 compute,
+   SmolLM-135M at 8 of 30 layers (``head_dim`` over ``model``,
+   sequence-parallel attention) and OLMoE-1B-7B at 1 of 16 (``kv_heads``
+   and experts over ``model``), each at global batch 2 (``batch`` over
+   data) and 1 (``kv_seq`` over data; the decode steps write into data
+   rank 1's block): a prefill of ``KV_PROMPT`` tokens into a
+   ``KV_MAX_LEN``-position cache, then ``KV_STEPS`` decode steps.  One
+   process on the card runs the same first, its logits and caches saved to
+   a temporary directory; each rank's logits (its rows, every vocab
+   column) within ``KV_TOL`` of one process's, its cache block within rtol
+   1e-4 and ``KV_CACHE_ATOL`` of the block's largest value, its
+   parameter and cache bytes the dry-run's per-device count on (2, 2); ms
+   per prefill and per decode step a rank and in one process, the gathers
+   by axes and caller (count, bytes, ms), peak a rank, the bytes of one
+   layer's gathered cache, the card's name and power limit beside the
+   times.  Then, in phase 18 (d)'s ``nccl`` rank at world size 1, the two
+   SMOKE configs' prefill and decode on a (1, 1) process mesh, bitwise the
+   one-card runs.  It launches no kernel.  Alone: :func:`kv_parallel_phase`
+   (4 ranks of its own).  No run on several cards is possible on one
+   card's host.
 
 Every phase ends with a line of its seconds (``phase N: T s``).  The line
 before the last is the kernel table as JSON; the last line is
@@ -562,9 +586,14 @@ UNPROFILED = ("plain", "plain_et", "pruned_plain", "tf_pruned_plain", "tf_pruned
 # 4,096 cached ones, batch 1 (4 and 8 KV chunks per layer: the flash loop's
 # per-chunk work at a size whose profile stays small), and a train step of
 # 2,048 tokens of the MoE train cell only (a train step's profile takes
-# ~30 s to gather; the dense train cells' splits are phase 13 (c)'s)
+# ~30 s to gather; the dense train cells' splits are phase 13 (c)'s).  The
+# decode step is profiled for the LM_PROFILE_DECODE archs only (cut for
+# phase 20's time: the dense LMs' steps run the same flash loop over 8
+# chunks a layer, 25.7 s of profiles on an H100 80GB HBM3 at 700 W; phase
+# 12 times each)
 LM_PROFILE_CUT = (2048, 4096)
 LM_PROFILE_TRAIN = "granite-moe-1b-a400m"
+LM_PROFILE_DECODE = ("olmoe-1b-7b", "granite-moe-1b-a400m")
 # H100 SXM dense bf16 tensor-core peak (NVIDIA H100 data sheet, SXM)
 BF16_FLOPS_PER_S = 989e12
 # bf16 keeps 8 significant bits; the two paths run other GEMM shapes
@@ -674,6 +703,31 @@ SP_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)  # the CPU tests' GRAD_TOL
 # leaves are on the card at once
 SP_TURNS = 4
 SP_TIMEOUT_S = 600
+# phase 20: LM prefill and decode across ranks, in phase 18's 4 gloo ranks
+# on the (2, 2) data x model mesh after (f), each cache held in the
+# reference's blocks: (arch, layers) at published widths, f32 compute so
+# the CPU tests' tolerances hold.  SmolLM-135M at phase 17's 8 of 30 layers
+# (9 heads, 3 kv heads: head_dim over model, attention sequence-parallel)
+# and OLMoE-1B-7B at 1 of 16 (kv_heads and 32 of 64 experts a rank over
+# model), each at global batch 2 (batch over data) and 1 (kv_seq over
+# data: positions 0-2,047 on data rank 0, 2,048-4,095 on data rank 1, where
+# the decode steps write): a prefill of KV_PROMPT tokens into a
+# KV_MAX_LEN-position cache (published 32 x 32,768 prefill, 128 x 32,768
+# decode), then KV_STEPS decode steps
+KV_CASES = (("smollm-135m", TRAIN_DP_LAYERS), ("olmoe-1b-7b", EP_LAYERS))
+KV_BATCHES = (2, 1)
+KV_PROMPT = 2048
+KV_MAX_LEN = 4096
+KV_STEPS = 4
+KV_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_torch_kv_parallel.py's LOGIT_TOL
+# the cache blocks: rtol 1e-4 and an atol of 1e-5 of the block's largest
+# |value| in one process (the caches reach 5.8 where the logits reach 2.2,
+# and the rounding of two summation orders through 8 layers reached 3.1e-6
+# of a block's largest value on an H100 80GB HBM3 at 700 W, 1.514e-5 abs,
+# past the logits' atol by at most 7.8e-7)
+KV_CACHE_ATOL = 1e-5
+# the world-size-1 nccl rank's SMOKE serving runs: prefill and cache length
+KV_SMOKE = (64, 128)
 COMPRESS_REL = 0.05  # tests/test_distributed.py's bound on the int8 mean
 GNN_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)  # tests/test_torch_egnn.py's GRAD_TOL
 GNN_BF16_REL = 2.0**-5  # tests/test_torch_egnn.py's BF16_REL: the loss against loss_fn
@@ -814,7 +868,7 @@ def main() -> int:
 
 
 def run_phases(dry: dict, builds: dict) -> int:
-    """Phases 1 to 19 and 5 (see the module docstring)."""
+    """Phases 1 to 20 and 5 (see the module docstring)."""
     import numpy as np
 
     import torch
@@ -1469,7 +1523,8 @@ def run_phases(dry: dict, builds: dict) -> int:
     # ---- phase 17: the train-side collectives across processes -----------
     train_collectives_phase()
     torch.cuda.empty_cache()
-    # ---- phase 18: the model axis across processes -----------------------
+    # ---- phase 18: the model axis across processes, and in its ranks
+    # phase 20: LM prefill and decode across ranks -------------------------
     tensor_parallel_phase()
     torch.cuda.empty_cache()
     # ---- phase 19: sequence-parallel attention over the model axis -------
@@ -4217,10 +4272,11 @@ def _state_bytes(params, opt) -> dict:
             "moment_bytes": sum(x.nbytes for x in leaves(opt["m"]) + leaves(opt["v"]))}
 
 
-def _tp_rank(rank: int, device: str, ckpt_dir: str, ep_dir: str) -> dict:
+def _tp_rank(rank: int, device: str, ckpt_dir: str, ep_dir: str, kv_dir: str) -> dict:
     """Phase 18, one rank of the (2, 2) process mesh: the cell's blocks,
     the steps, the ``model`` collectives of one step's gradients, the
-    sharded checkpoint; then (f), OLMoE's step (:func:`_ep_rank`)."""
+    sharded checkpoint; then (f), OLMoE's step (:func:`_ep_rank`), and
+    phase 20's serving (:func:`_kv_rank`)."""
     import torch
 
     from repro_torch.core import ProcessMesh, make_process_mesh
@@ -4276,6 +4332,9 @@ def _tp_rank(rank: int, device: str, ckpt_dir: str, ep_dir: str) -> dict:
     if cuda:
         torch.cuda.empty_cache()
     out["ep"] = _ep_rank(mesh, device, ep_dir)
+    if cuda:
+        torch.cuda.empty_cache()
+    out["kv"] = _kv_rank(mesh, device, kv_dir)
     return out
 
 
@@ -4393,7 +4452,8 @@ def _tp_nccl_rank(rank: int, device: str, ckpt_dir: str) -> dict:
         params, opt, m = step(params, opt, batch)
         runs.append((_digest(leaves(params)), m["loss"].cpu().numpy().tobytes()))
     return {"device": str(mesh.device), "backend": mesh.backend, "runs": runs,
-            "moe_runs": _ep_smoke_runs(mesh.device, mesh)}
+            "moe_runs": _ep_smoke_runs(mesh.device, mesh),
+            "kv_runs": _kv_smoke_runs(mesh.device, mesh)}
 
 
 def _ep_smoke_runs(dev, mesh=None) -> list:
@@ -4661,13 +4721,16 @@ def tensor_parallel_phase() -> None:
     say(f"phase 18: {card_line()}")
     tmp = tempfile.mkdtemp(prefix="tp-ckpt-")
     try:
-        # (f)'s reference, before the ranks start: one process's OLMoE step
+        # (f)'s and phase 20's references, before the ranks start: one
+        # process's OLMoE step, then its serving runs
         ep_dir = os.path.join(tmp, "ep")
         ep_one = _ep_one_process(ep_dir)
+        kv_dir = os.path.join(tmp, "kv")
+        kv_one = _kv_one_process(kv_dir)
         # (a) 4 gloo ranks on the (2, 2) mesh: steps and the sharded
-        # checkpoint, then (f)'s step
+        # checkpoint, then (f)'s step, then phase 20's serving
         t0, t = time.time(), time.perf_counter()
-        outs = run_ranks(_tp_rank, n, args=(DEVICE, tmp, ep_dir), backend="gloo",
+        outs = run_ranks(_tp_rank, n, args=(DEVICE, tmp, ep_dir, kv_dir), backend="gloo",
                          timeout_s=TP_TIMEOUT_S)
         ranks_s = time.perf_counter() - t
         start_s = [o["ready"] - t0 for o in outs]
@@ -4701,6 +4764,7 @@ def tensor_parallel_phase() -> None:
             f"{[round(o['peak'] / 2**30, 2) for o in outs]} GiB; {card_line()}")
         shutil.rmtree(ep_dir)
         ep = _ep_report(outs, ep_one)
+        shutil.rmtree(kv_dir)
         # (b) one process's microbatches=2 step on the card, against the
         # ranks' losses and the checkpoint's gathered parameters
         cell = steps.build_lm_cell(spec, shape, dev, LM_SEED)
@@ -4814,6 +4878,9 @@ def tensor_parallel_phase() -> None:
         check(got["moe_runs"] == _ep_smoke_runs(dev),
               f"phase 18 (d): the (1, 1) process mesh's {EP_ARCH} SMOKE steps differ from the "
               "one-card steps")
+        check(got["kv_runs"] == _kv_smoke_runs(dev),
+              "phase 20: the (1, 1) process mesh's SMOKE prefill and decode differ from the "
+              "one-card runs")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     report = {
@@ -4836,15 +4903,342 @@ def tensor_parallel_phase() -> None:
         "resumed_loss": res[0]["loss"], "max_param_err": param_err, "max_traj_ratio": traj,
         "bf16_gaps": bf, "bf16_one_process_gaps": floor,
         "rank_start_s": start_s, "ranks_s": ranks_s, "resume_s": resume_s,
-        "nccl_s": nccl_ms / 1e3, "experts": ep}
+        "nccl_s": nccl_ms / 1e3, "experts": ep,
+        "serving_s_per_rank": [o["kv"]["s"] for o in outs]}
     say(f"phase 18 (d): {got['backend']} at world size 1 on {got['device']}: the SMOKE config "
         f"({LM_SMOKE_BATCH[0]} x {LM_SMOKE_BATCH[1]}, ZeRO-1), {TP_STEPS} steps, a sharded "
         f"checkpoint, its restore and a step == the one-card cell bitwise (params, loss); "
         f"{EP_ARCH} SMOKE, {TP_STEPS} steps == the one-card steps bitwise (params, loss); "
         f"{nccl_ms / 1e3:.1f} s with the rank's start-up")
     say("phase 18: " + json.dumps(report))
-    say(f"phase 18: {time.perf_counter() - t_phase:.1f} s; no run on several cards was "
+    t = time.perf_counter()
+    kv = _kv_report([o["kv"] for o in outs], kv_one)
+    kv_report_s = time.perf_counter() - t
+    kv_rank_s = max(o["kv"]["s"] for o in outs)
+    say(f"phase 20: {got['backend']} at world size 1 on {got['device']}: the SmolLM and OLMoE "
+        f"SMOKE prefills of {KV_SMOKE[0]} tokens into {KV_SMOKE[1]} positions and "
+        f"{KV_STEPS} decode steps on a (1, 1) process mesh == the one-card runs bitwise "
+        "(logits, cache)")
+    say("phase 20: " + json.dumps(kv))
+    say(f"phase 20: {kv_one['s'] + kv_rank_s + kv_report_s:.1f} s (one process "
+        f"{kv_one['s']:.1f} s before phase 18's ranks, the ranks' serving {kv_rank_s:.1f} s "
+        f"inside them, the checks {kv_report_s:.1f} s); no run on several cards was possible "
+        "(one card on this host)")
+    say(f"phase 18: {time.perf_counter() - t_phase:.1f} s with phase 20's "
+        f"{kv_one['s'] + kv_rank_s + kv_report_s:.1f} s; no run on several cards was "
         "possible (one card on this host)")
+
+
+def _kv_cfg(arch: str, layers: int):
+    """Phase 20's config: ``arch`` at published widths, ``layers`` deep,
+    f32 compute."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+
+    return dataclasses.replace(get_arch(arch).config, n_layers=layers,
+                               compute_dtype=torch.float32)
+
+
+def _kv_serve(cfg, params, tokens, cache, device: str, prompt: int | None = None) -> dict:
+    """``prompt`` (default ``KV_PROMPT``) tokens of ``tokens`` prefilled into ``cache``, then
+    ``KV_STEPS`` decode steps, each timed between syncs: the logits of
+    every step ([KV_STEPS + 1, rows, padded vocab], on the host), the
+    prefill's and each step's ms."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    prompt = KV_PROMPT if prompt is None else prompt
+    with torch.no_grad():
+        (lg, _), pre_ms = _timed(lambda: tf.prefill(cfg, params, tokens[:, :prompt], cache),
+                                 device)
+        logits, dec_ms = [lg.cpu()], []
+        for i in range(KV_STEPS):
+            (lg, _), ms = _timed(lambda: tf.decode_step(cfg, params, cache,
+                                                        tokens[:, prompt + i], prompt + i),
+                                 device)
+            logits.append(lg.cpu())
+            dec_ms.append(ms)
+    return {"logits": torch.stack(logits), "prefill_ms": pre_ms, "decode_ms": dec_ms}
+
+
+def _kv_tokens(cfg, B: int, dev):
+    """Phase 20's global batch: ``B`` sequences of ``KV_PROMPT + KV_STEPS``
+    tokens (``lm_batch``, step 0)."""
+    from repro_torch.data.lm import LMDataConfig, lm_batch
+
+    return lm_batch(LMDataConfig(cfg.vocab, KV_PROMPT + KV_STEPS, B, LM_SEED), 0, dev)["tokens"]
+
+
+def _kv_one_process(kv_dir: str) -> dict:
+    """Phase 20's reference: one process's serving runs on the card, their
+    logits and final caches saved to ``kv_dir`` for the ranks, then
+    freed."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.tree import leaves
+
+    dev = torch.device(DEVICE)
+    t = time.perf_counter()
+    os.makedirs(kv_dir)
+    out = {}
+    for arch, layers in KV_CASES:
+        cfg = _kv_cfg(arch, layers)
+        params = cfg.init(LM_SEED, dev)
+        for B in KV_BATCHES:
+            torch.cuda.reset_peak_memory_stats()
+            cache = tf.make_cache(cfg, B, KV_MAX_LEN, dev)
+            run = _kv_serve(cfg, params, _kv_tokens(cfg, B, dev), cache, DEVICE)
+            tag = f"{arch}_b{B}"
+            np.save(os.path.join(kv_dir, f"{tag}_logits.npy"), run.pop("logits").numpy())
+            for k, x in cache.items():
+                np.save(os.path.join(kv_dir, f"{tag}_{k}.npy"), x.cpu().numpy())
+            out[tag] = {**run, "peak": torch.cuda.max_memory_allocated(),
+                        "param_bytes": sum(x.nbytes for x in leaves(params)),
+                        "cache_bytes": sum(x.nbytes for x in cache.values())}
+            del cache
+        del params
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t
+    return out
+
+
+def _kv_rank(mesh, device: str, kv_dir: str) -> dict:
+    """Phase 20, one rank of the (2, 2) mesh: each case's parameter blocks,
+    its rows of the batch and its cache block; the prefill and decode
+    steps under ``use_sharding`` (every gather counted by axes and
+    caller), their logits and the final cache block against one process's
+    saved ones."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding.specs import local_block, named_sharding, use_sharding
+    from repro_torch.train.tree import leaves
+
+    cuda = device == "cuda"
+    t0 = time.perf_counter()
+    out = {}
+    for arch, layers in KV_CASES:
+        cfg = _kv_cfg(arch, layers)
+        params, init_ms = _timed(lambda: cfg.init(LM_SEED, mesh.device, mesh), device)
+        for B in KV_BATCHES:
+            tag = f"{arch}_b{B}"
+            tokens = _kv_tokens(cfg, B, mesh.device)
+            tokens = local_block(tokens, named_sharding(mesh, ("batch", None),
+                                                        shape=tuple(tokens.shape))).clone()
+            cache = tf.make_cache(cfg, B, KV_MAX_LEN, mesh.device, mesh)
+            block = tf.cache_block(cache)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            stats: dict = {}
+            with _CountedGathers(stats, device), use_sharding(mesh):
+                run = _kv_serve(cfg, params, tokens, cache, device)
+            e = {"init_ms": init_ms, "prefill_ms": run["prefill_ms"], "decode_ms": run["decode_ms"],
+                 "collectives": stats, "peak": torch.cuda.max_memory_allocated() if cuda else 0,
+                 "param_bytes": sum(x.nbytes for x in leaves(params)),
+                 "cache_bytes": sum(x.nbytes for x in cache.values()),
+                 "spec": list(cache["k"].sharding.spec), "rows": int(tokens.shape[0])}
+            # one layer's gathered cache (k and v, every position, the
+            # block's heads, every head_dim column), 0 where nothing is gathered
+            e["gathered_layer_bytes"] = 0 if not (block.axes[2] or block.axes[4]) else (
+                2 * block.size[1] * block.shape[2] * block.size[3] * block.shape[4]
+                * cache["k"].element_size())
+            e["positions"] = [block.start[2], block.start[2] + block.size[2]]
+            want = np.load(os.path.join(kv_dir, f"{tag}_logits.npy"))
+            want = local_block(want, named_sharding(mesh, (None, "batch"), shape=want.shape[:2]))
+            errs = [_tol_error(run["logits"], np.ascontiguousarray(want), KV_TOL)]
+            for k in ("k", "v"):
+                full = np.load(os.path.join(kv_dir, f"{tag}_{k}.npy"), mmap_mode="r")
+                blk = np.ascontiguousarray(local_block(full, cache[k].sharding))
+                tol = dict(rtol=KV_TOL["rtol"], atol=KV_CACHE_ATOL * float(np.abs(blk).max()))
+                errs.append(_tol_error(cache[k].cpu(), blk, tol))
+            e["logits_err"], e["k_err"], e["v_err"] = errs
+            out[tag] = e
+            del cache, run
+        del params
+        if cuda:
+            torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _tol_error(a, b, tol: dict) -> dict:
+    """``a`` (a host tensor) against ``b`` (numpy): the largest abs error
+    and the largest excess of ``|a - b|`` over ``atol + rtol·|b|`` (<= 0:
+    within ``tol``)."""
+    import torch
+
+    b = torch.from_numpy(b)
+    check(tuple(a.shape) == tuple(b.shape), f"phase 20: {tuple(a.shape)} against the one "
+          f"process's {tuple(b.shape)}")
+    d = (a.double() - b.double()).abs()
+    return {"max_abs": float(d.max()), "scale": float(b.abs().max()),
+            "excess": float((d - tol["atol"] - tol["rtol"] * b.double().abs()).max())}
+
+
+def _kv_smoke_runs(dev, mesh=None) -> list:
+    """Phase 20's world-size-1 check: the SmolLM and OLMoE SMOKE configs
+    (f32) prefilled with ``KV_SMOKE[0]`` tokens into a ``KV_SMOKE[1]``-
+    position cache and ``KV_STEPS`` decode steps, on a (1, 1) process mesh
+    under its sharding context, or on one card with ``mesh`` None: each
+    run's logits' and cache's digest."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.lm import LMDataConfig, lm_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding.specs import use_sharding
+
+    runs = []
+    for arch, _ in KV_CASES:
+        cfg = dataclasses.replace(get_arch(arch).smoke_config, compute_dtype=torch.float32)
+        params = cfg.init(LM_SEED, dev, mesh)
+        tokens = lm_batch(LMDataConfig(cfg.vocab, KV_SMOKE[0] + KV_STEPS, 2, LM_SEED), 0,
+                          dev)["tokens"]
+        cache = tf.make_cache(cfg, 2, KV_SMOKE[1], dev, mesh)
+        with use_sharding(mesh):
+            run = _kv_serve(cfg, params, tokens, cache, "cpu", KV_SMOKE[0])
+        runs.append(_digest([run["logits"], cache["k"], cache["v"]]))
+    return runs
+
+
+def _kv_report(kvs: list, one: dict) -> dict:
+    """Phase 20's checks and lines: each rank's serving runs against one
+    process's and the dry-run's bytes; returns the phase report."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import make_mesh
+    from repro_torch.launch import roofline as rf
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import param_shapes
+
+    meta = make_mesh(TP_MESH, TRAIN_AXES, device="meta")
+    report, failed = {}, []
+    for arch, layers in KV_CASES:
+        cfg = _kv_cfg(arch, layers)
+        pub = get_arch(arch).config
+        want_p = rf.arg_counts((param_shapes(cfg.param_defs(), meta),), meta)["arg_bytes_dev"]
+        for B in KV_BATCHES:
+            tag = f"{arch}_b{B}"
+            es = [k[tag] for k in kvs]
+            o = one[tag]
+            want_c = rf.arg_counts((param_shapes(tf.cache_defs(cfg, B, KV_MAX_LEN), meta),),
+                                   meta)["arg_bytes_dev"]
+            e0 = es[0]
+            cache_err = max(max(e["k_err"]["max_abs"], e["v_err"]["max_abs"]) for e in es)
+            kinds = {axes: {k: {"n": v["n"], "MB": round(v["bytes"] / 1e6, 3),
+                                "ms": round(v["ms"], 1)} for k, v in sorted(by.items())}
+                     for axes, by in sorted(e0["collectives"].items())}
+            say(f"phase 20: {arch} at published widths (d {cfg.d_model}, {cfg.n_heads} heads, kv "
+                f"{cfg.n_kv_heads}, d_head {cfg.d_head}, vocab {cfg.vocab}), {cfg.n_layers} of "
+                f"{pub.n_layers} layers, f32 compute, global batch {B}: prefill {KV_PROMPT} tokens "
+                f"into {KV_MAX_LEN} positions, {KV_STEPS} decode steps on {len(kvs)} gloo ranks "
+                f"as {dict(zip(TRAIN_AXES, TP_MESH))}: cache spec {tuple(e0['spec'])}, "
+                f"{e0['rows']} row(s) a rank, positions a rank "
+                f"{[e['positions'] for e in es]}; parameters "
+                f"{e0['param_bytes']:,} B and cache {e0['cache_bytes']:,} B a rank (= the "
+                f"dry-run's per-device count; one process {o['param_bytes']:,} / "
+                f"{o['cache_bytes']:,} B); {card_line()}")
+            say(f"phase 20: {tag}: ms a rank: prefill {[round(e['prefill_ms'], 1) for e in es]}, "
+                f"decode steps {[[round(x, 1) for x in e['decode_ms']] for e in es]}; one process: "
+                f"prefill {o['prefill_ms']:.1f}, decode steps "
+                f"{[round(x, 1) for x in o['decode_ms']]}; peak "
+                f"{[round(e['peak'] / 2**30, 3) for e in es]} GiB a rank (one process "
+                f"{o['peak'] / 2**30:.3f}); one layer's gathered cache "
+                f"{e0['gathered_layer_bytes']:,} B a rank; rank 0's gathers by axes and caller "
+                f"(count, MB sent a rank, ms): {json.dumps(kinds)}; logits within {KV_TOL} of one "
+                f"process's (largest abs error {max(e['logits_err']['max_abs'] for e in es):.4g}), "
+                f"cache blocks within rtol {KV_TOL['rtol']:g}, atol {KV_CACHE_ATOL:g} x their "
+                f"largest value ({cache_err:.4g}); "
+                f"{card_line()}")
+            say(f"phase 20: {tag}: each rank's largest abs error / one process's largest abs "
+                "value: " + json.dumps({w: [[e[f'{w}_err']['max_abs'], e[f'{w}_err']['scale']]
+                                            for e in es] for w in ("logits", "k", "v")}))
+            report[tag] = {
+                "spec": e0["spec"], "rows_per_rank": e0["rows"],
+                "prefill_ms_per_rank": [e["prefill_ms"] for e in es],
+                "decode_ms_per_rank": [e["decode_ms"] for e in es],
+                "one_process_prefill_ms": o["prefill_ms"],
+                "one_process_decode_ms": o["decode_ms"],
+                "peak_gib_per_rank": [e["peak"] / 2**30 for e in es],
+                "one_process_peak_gib": o["peak"] / 2**30,
+                "param_bytes_per_rank": e0["param_bytes"],
+                "cache_bytes_per_rank": e0["cache_bytes"],
+                "one_process_param_bytes": o["param_bytes"],
+                "one_process_cache_bytes": o["cache_bytes"],
+                "gathered_layer_bytes": e0["gathered_layer_bytes"],
+                "collectives_rank0": e0["collectives"],
+                "max_logit_err": max(e["logits_err"]["max_abs"] for e in es),
+                "max_cache_err": cache_err}
+            for r, e in enumerate(es):
+                failed += [f"{tag} rank {r}'s {w} outside its tolerance of one process's: "
+                           f"{e[f'{w}_err']}" for w in ("logits", "k", "v")
+                           if e[f"{w}_err"]["excess"] > 0]
+                if (e["param_bytes"], e["cache_bytes"]) != (want_p, want_c):
+                    failed.append(f"{tag} rank {r} holds {e['param_bytes']} parameter and "
+                                  f"{e['cache_bytes']} cache bytes, the dry-run "
+                                  f"{(want_p, want_c)}")
+    check(not failed, "phase 20: " + "; ".join(failed))
+    return report
+
+
+def _kv_alone_rank(rank: int, device: str, kv_dir: str) -> dict:
+    """Phase 20 alone: one rank of the (2, 2) mesh (:func:`_kv_rank`)."""
+    import torch
+
+    from repro_torch.core import make_process_mesh
+
+    torch.set_num_threads(1)
+    mesh = make_process_mesh(TP_MESH, TRAIN_AXES, device=None if device == "cuda" else device)
+    return {"device": str(mesh.device), "kv": _kv_rank(mesh, device, kv_dir)}
+
+
+def kv_parallel_phase() -> None:
+    """Phase 20 alone, in 4 ranks of its own (the script runs it inside
+    phase 18's ranks, :func:`tensor_parallel_phase`)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.ranks import run_ranks
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="kv-")
+    try:
+        kv_dir = os.path.join(tmp, "kv")
+        one = _kv_one_process(kv_dir)
+        outs = run_ranks(_kv_alone_rank, math.prod(TP_MESH), args=(DEVICE, kv_dir),
+                         backend="gloo", timeout_s=TP_TIMEOUT_S)
+        say("phase 20: " + json.dumps(_kv_report([o["kv"] for o in outs], one)))
+        backend = "nccl" if DEVICE == "cuda" else "gloo"
+        (got,), _ = _timed(lambda: run_ranks(_kv_nccl_rank, 1, args=(DEVICE,), backend=backend,
+                                             timeout_s=TP_TIMEOUT_S), DEVICE)
+        check(got == _kv_smoke_runs(torch.device(DEVICE)),
+              "phase 20: the (1, 1) process mesh's SMOKE prefill and decode differ from the "
+              "one-card runs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"phase 20: {time.perf_counter() - t_phase:.1f} s alone (its own rank start-up)")
+
+
+def _kv_nccl_rank(rank: int, device: str) -> list:
+    from repro_torch.core import make_process_mesh
+
+    mesh = make_process_mesh((1, 1), TRAIN_AXES, device=None if device == "cuda" else device)
+    return _kv_smoke_runs(mesh.device, mesh)
 
 
 def _block_errors(got, ref_dir: str, shardings, tol: dict, phase: str = "phase 19") -> dict:
@@ -5391,11 +5785,11 @@ def recsys_profiles():
 
 def lm_profiles():
     """Phase 5 for phases 12–13's LMs: one profiler pass over a prefill of
-    ``LM_PROFILE_CUT[0]`` tokens and one over a decode step at
-    ``LM_PROFILE_CUT[1]`` cached tokens (batch 1) of each published
-    config, and one over a train step of ``LM_PROFILE_CUT[0]`` tokens of
-    ``LM_PROFILE_TRAIN``, each model built anew and freed after.
-    Yields (name, lines)."""
+    ``LM_PROFILE_CUT[0]`` tokens of each published config, one over a
+    decode step at ``LM_PROFILE_CUT[1]`` cached tokens (batch 1) of the
+    ``LM_PROFILE_DECODE`` ones, and one over a train step of
+    ``LM_PROFILE_CUT[0]`` tokens of ``LM_PROFILE_TRAIN``, each model built
+    anew and freed after.  Yields (name, lines)."""
     import dataclasses
 
     import torch
@@ -5407,7 +5801,9 @@ def lm_profiles():
     for name in LM_ARCHS + MOE_ARCHS:
         spec = get_arch(name)
         params = spec.config.init(LM_SEED, dev)
-        shapes = [("prefill_32k", LM_PROFILE_CUT[0]), ("decode_32k", LM_PROFILE_CUT[1])]
+        shapes = [("prefill_32k", LM_PROFILE_CUT[0])]
+        if name in LM_PROFILE_DECODE:
+            shapes.append(("decode_32k", LM_PROFILE_CUT[1]))
         if name == LM_PROFILE_TRAIN:
             shapes.append(("train_4k", LM_PROFILE_CUT[0]))
         for shape_name, S in shapes:

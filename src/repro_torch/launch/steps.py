@@ -50,7 +50,7 @@ from repro_torch.models import egnn as egnn_lib
 from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.params import meta_tensor, param_shapes, param_shardings
-from repro_torch.sharding.specs import named_sharding, use_sharding
+from repro_torch.sharding.specs import local_block, named_sharding, use_sharding
 from repro_torch.train.loop import global_loss, make_train_step
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state, zero1_sharding
 from repro_torch.train.tree import leaves, tree_map, unflatten
@@ -175,16 +175,17 @@ def build_lm_cell(
     replace config fields (the dry-run's ``n_layers`` and ``attn_chunk``).
     On ``meta`` the cell is shapes-only, sharded on ``mesh``.  On a
     :class:`~repro_torch.core.distributed.ProcessMesh` (on its device
-    unless ``device`` is given) the train cell's step is data-parallel with
-    ZeRO-1's moments: every rank holds the global batch and steps on its
-    rows; with ``model`` > 1 it is also tensor-parallel, the rank holding
-    only its ``param_specs`` blocks (``cfg.init(seed, device, mesh)``) and
-    their ZeRO-1 moment blocks (checkpoint them with
-    :func:`state_shardings`), its attention head-parallel when both head
-    counts divide ``model`` and sequence-parallel otherwise (Qwen2.5-14B's
-    40 / 8 heads on ``model`` = 16), a MoE config's experts split over
-    ``model`` (OLMoE's 64 experts, 32 a rank on ``model`` = 2).  The serving cells take no process
-    mesh of ``model`` > 1 (a KV cache across ranks is not ported)."""
+    unless ``device`` is given) every cell holds the rank's ``param_specs``
+    blocks (``cfg.init(seed, device, mesh)``; whole leaves where ``model``
+    is 1), its attention head-parallel when both head counts divide
+    ``model`` and sequence-parallel otherwise (Qwen2.5-14B's 40 / 8 heads
+    on ``model`` = 16), a MoE config's experts split over ``model``
+    (OLMoE's 64 experts, 32 a rank on ``model`` = 2).  The train cell's
+    step is data-parallel with ZeRO-1's moment blocks (checkpoint them
+    with :func:`state_shardings`): every rank holds the global batch and
+    steps on its rows.  The serving cells hold the rank's rows of the
+    tokens (the ``batch`` spec's block) and its block of the cache
+    (``make_cache(..., mesh)``), and run under ``use_sharding(mesh)``."""
     cfg = spec.config
     p = shape.params
     if "attn_window" in p:
@@ -199,9 +200,6 @@ def build_lm_cell(
     procs = isinstance(mesh, ProcessMesh)
     if procs and mesh.shape.get("model", 1) > 1:
         tf_lib.check_model_parallel(cfg, mesh.shape["model"])
-        if shape.kind != "lm_train":
-            raise NotImplementedError(f"{shape.kind} across model ranks (a KV cache split "
-                                      "over model) is not ported")
     if params is None:
         params = (param_shapes(cfg.param_defs(), mesh) if meta
                   else cfg.init(seed, dev, mesh if procs else None))
@@ -228,7 +226,25 @@ def build_lm_cell(
     if meta:
         cache = param_shapes(tf_lib.cache_defs(cfg, B, S), mesh)
     else:
-        cache = tf_lib.make_cache(cfg, B, S, dev)
+        cache = tf_lib.make_cache(cfg, B, S, dev, mesh if procs else None)
+
+    def rows(t: torch.Tensor) -> torch.Tensor:
+        """The rank's rows of ``t`` (a copy) on a process mesh."""
+        if not procs:
+            return t
+        sh = named_sharding(mesh, ("batch",) + (None,) * (t.dim() - 1), shape=tuple(t.shape))
+        return local_block(t, sh).clone()
+
+    def serving(f):
+        """``f`` under the process mesh's sharding context."""
+        if not procs:
+            return f
+
+        def fn(*args):
+            with use_sharding(mesh):
+                return f(*args)
+
+        return fn
 
     if shape.kind == "lm_prefill":
         def fn(params, tokens, cache):
@@ -236,7 +252,7 @@ def build_lm_cell(
 
         tokens = tokens_of(S)["tokens"]
         return Cell(
-            spec.name, shape.name, fn, (params, tokens, cache), donate=(2,),
+            spec.name, shape.name, serving(fn), (params, rows(tokens), cache), donate=(2,),
             model_flops=_lm_flops(cfg, B * S, "prefill"),
         )
 
@@ -246,7 +262,8 @@ def build_lm_cell(
     if meta:
         tokens = meta_tensor((B,), torch.int32, mesh, ("batch",))
     else:
-        tokens = lm_batch(LMDataConfig(cfg.vocab, 1, B, seed), 0, dev)["tokens"][:, 0]
+        tokens = rows(lm_batch(LMDataConfig(cfg.vocab, 1, B, seed), 0, dev)["tokens"][:, 0])
+    fn = serving(fn)
     return Cell(
         spec.name, shape.name, fn, (params, cache, tokens, S - 1), donate=(1,),
         model_flops=_lm_flops(cfg, B, "decode", kv_len=S, batch=B),

@@ -31,12 +31,25 @@ does (``repro/models/layers.py:136-154``, :func:`head_parallel`):
   causally from their offset, and a second ``all_to_all`` brings the
   output back to the rank's column block for ``wo``.  When M does not
   divide S the reference's shape-aware spec drops the axis: q is gathered
-  whole, every rank attends all rows and keeps its output columns.
+  whole, every rank attends all rows and keeps its output columns.  A
+  decode step (S = 1) with a cache always takes this branch.
+
+A KV cache across the ranks of a process mesh is held as the reference's
+``cache_defs`` spec places it (:class:`CacheBlock`: ``batch`` over (pod,
+data), ``kv_heads`` over ``model`` or, when M does not divide them,
+``head_dim``, and ``kv_seq`` over (pod, data) when the batch does not
+divide).  A step writes its new k/v into the rank's block only, then
+all-gathers the layer's blocks over the split ``kv_seq`` and ``head_dim``
+axes in rank order (exact), so :func:`flash_attention` sees one process's
+layer: every position, whole heads.  Head-parallel attention attends its
+own kv heads, which are the block's.
 
 The mesh is passed, never read from the thread-local sharding context:
 ``torch.utils.checkpoint`` recomputes a layer on autograd's device thread.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -140,6 +153,72 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype))
 
 
+@dataclass(frozen=True)
+class CacheBlock:
+    """The block of a KV cache ``[layers, batch, max_len, kv_heads,
+    head_dim]`` (global ``shape``) that this rank of ``mesh`` holds: on
+    each dim its first global index (``start``), its length (``size``) and
+    the mesh axes that split it (``axes``, empty where it is whole), as the
+    cache's :class:`~repro_torch.sharding.specs.NamedSharding` places it.
+    Its methods take one layer's block ``[rows, positions, heads, dims]``."""
+
+    mesh: object  # repro_torch.core.distributed.ProcessMesh, or None
+    shape: tuple[int, ...]
+    start: tuple[int, ...]
+    size: tuple[int, ...]
+    axes: tuple[tuple[str, ...], ...]
+
+    @classmethod
+    def whole(cls, shape: tuple[int, ...]) -> "CacheBlock":
+        """A cache of ``shape`` held whole (one process)."""
+        shape = tuple(shape)
+        return cls(None, shape, (0,) * len(shape), shape, ((),) * len(shape))
+
+    @classmethod
+    def of(cls, sharding, shape: tuple[int, ...]) -> "CacheBlock":
+        """The block of a cache of global ``shape`` under ``sharding`` at
+        its process mesh's rank."""
+        start, size = [0] * len(shape), list(shape)
+        for dim, s, n in sharding.block(tuple(shape)):
+            start[dim], size[dim] = s, n
+        axes = []
+        for i in range(len(shape)):
+            e = sharding.spec[i] if i < len(sharding.spec) else None
+            names = (e,) if isinstance(e, str) else tuple(e or ())
+            axes.append(names if size[i] < shape[i] else ())
+        return cls(sharding.mesh, tuple(shape), tuple(start), tuple(size), tuple(axes))
+
+    def write(self, dst: torch.Tensor, src: torch.Tensor, at: int) -> None:
+        """Write ``src`` [rows, S, heads, head_dim] (the global positions
+        ``at`` … ``at + S``; every kv head, or the block's own) into the
+        layer block ``dst`` where the two overlap; nothing where they do
+        not."""
+        s0, n = self.start[2], self.size[2]
+        lo, hi = max(at, s0), min(at + src.shape[1], s0 + n)
+        if lo >= hi:
+            return
+        if src.shape[0] != dst.shape[0] or src.shape[2] not in (self.shape[3], self.size[3]):
+            raise ValueError(f"k/v {tuple(src.shape)} do not fit the cache block "
+                             f"{tuple(dst.shape)} of {self.shape}")
+        h = self.start[3] if src.shape[2] == self.shape[3] else 0
+        d = self.start[4]
+        dst[:, lo - s0:hi - s0] = src[:, lo - at:hi - at, h:h + self.size[3],
+                                      d:d + self.size[4]].to(dst.dtype)
+
+    def gather(self, k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The layer blocks ``k``, ``v`` with every position and every
+        head_dim column: one all-gather of both over the ``kv_seq`` axes,
+        one over the ``head_dim`` axes, in rank order.  The block's heads
+        stay its own."""
+        if not (self.axes[2] or self.axes[4]):
+            return k, v
+        kv = torch.stack([k, v])
+        for dim in (2, 4):  # [2, rows, positions, heads, dims]
+            if self.axes[dim]:
+                kv = col.all_gather(self.mesh, [kv], self.axes[dim], dim=dim)[0]
+        return kv[0], kv[1]
+
+
 def attention_block(
     x: torch.Tensor,  # [B, S, D]
     p: dict,
@@ -151,6 +230,7 @@ def attention_block(
     cache_pos: "torch.Tensor | int | None" = None,
     kv_valid_len: "torch.Tensor | int | None" = None,
     mesh=None,
+    block: CacheBlock | None = None,
 ):
     """GQA attention with an optional KV cache (decode).
 
@@ -158,23 +238,30 @@ def attention_block(
     ``cache_pos`` in place (the reference's ``dynamic_update_slice``
     returns updated copies) and attention runs over the whole cache.
     Returns (out [B, S, D], (k, v): the cache, or this call's full k/v).
-    With a model-parallel ``mesh`` (module docstring; no cache) ``p``
-    holds the rank's blocks and ``out`` is summed over ``model``; the k/v
-    returned are the rank's heads (head-parallel) or whole
-    (sequence-parallel).
+    With a model-parallel ``mesh`` (module docstring) ``p`` holds the
+    rank's blocks and ``out`` is summed over ``model``; without a cache the
+    k/v returned are the rank's heads (head-parallel) or whole
+    (sequence-parallel).  ``block``: the :class:`CacheBlock` the cache
+    layer is (module docstring); default the whole layer.
     """
     B, S, D = x.shape
     H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    seq_parallel = False
     if mesh is not None:
         M = mesh.shape["model"]
         x = col.replicated(mesh, x, col.MODEL)[0]
         if cfg.qk_norm:  # whole leaves applied to the rank's heads or rows only
             p = {**p, **col.replicated(mesh, {k: p[k] for k in ("q_norm", "k_norm")},
                                        col.MODEL)[0]}
-        if not head_parallel(H, KVH, M):
+        if head_parallel(H, KVH, M):
+            H, KVH = H // M, KVH // M
+        elif k_cache is None:
             return _sequence_parallel(x, p, cfg, positions, mesh)
-        H, KVH = H // M, KVH // M
+        else:  # with a cache: every row on every rank, q, k and v whole
+            seq_parallel = True
     q, k, v = _qkv(x, p, cfg)
+    if seq_parallel:
+        q, k, v = (col.all_gather(mesh, [t], col.MODEL, dim=2)[0] for t in (q, k, v))
     q = q.reshape(B, S, H, Dh)
     k = k.reshape(B, S, KVH, Dh)
     v = v.reshape(B, S, KVH, Dh)
@@ -187,14 +274,17 @@ def attention_block(
     if k_cache is not None:
         # decode: insert the new kv at cache_pos (clamped into the cache, as
         # dynamic_update_slice clamps its start), attend over the cache
+        # (across ranks: into the rank's block only, then the layer whole)
+        block = block or CacheBlock.whole((1, *k_cache.shape))
         pos = int(cache_pos)
-        at = min(max(pos, 0), k_cache.shape[1] - S)
-        k_cache[:, at:at + S] = k.to(k_cache.dtype)
-        v_cache[:, at:at + S] = v.to(v_cache.dtype)
+        at = min(max(pos, 0), block.shape[2] - S)
+        block.write(k_cache, k, at)
+        block.write(v_cache, v, at)
+        k_all, v_all = block.gather(k_cache, v_cache)
         out = flash_attention(
             q,
-            k_cache.to(q.dtype),
-            v_cache.to(q.dtype),
+            k_all.to(q.dtype),
+            v_all.to(q.dtype),
             causal=False,
             kv_valid_len=kv_valid_len if kv_valid_len is not None else pos + S,
             window=cfg.attn_window,
@@ -204,7 +294,12 @@ def attention_block(
     else:
         out = flash_attention(q, k, v, causal=True, window=cfg.attn_window, chunk=cfg.attn_chunk)
         new_kv = (k, v)
-    out = _proj(out.reshape(B, S, H * Dh), p["wo"])
+    out = out.reshape(B, S, H * Dh)
+    if seq_parallel:  # the rank's column block, for its wo rows
+        c = H * Dh // M
+        r = mesh.coords_of(mesh.rank)["model"]
+        out = out[..., r * c:(r + 1) * c]
+    out = _proj(out, p["wo"])
     if mesh is not None:
         out = col.psum(mesh, [out], col.MODEL)[0]
     return out, new_kv

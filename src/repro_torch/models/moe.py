@@ -41,7 +41,9 @@ on the batch axes):
   over them and averaged in group order, so every rank computes the aux of
   the whole batch, as the reference's step on a data-split mesh does.  The
   gather's backward (a ``psum_scatter``), then the step's sum of the
-  ranks' gradients ÷ D, gives the global aux's gradient.
+  ranks' gradients ÷ D, gives the global aux's gradient.  Serving
+  discards the aux (``global_aux=False``): it is then the rank's rows'
+  and nothing is gathered.
 * **experts over ``model``.**  The batch does not split over ``model``, so
   ``x``, the routing and the dispatch maps are the same on every rank of a
   ``model`` group: the rank's ``[D, E/M]`` router block enters through
@@ -162,10 +164,13 @@ def _route(x: torch.Tensor, p: dict, cfg):
     return probs, top_p, top_e
 
 
-def moe_ffn(x: torch.Tensor, p: dict, cfg, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(x: torch.Tensor, p: dict, cfg, mesh=None,
+            global_aux: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] → (out [B, S, D], aux_loss f32 scalar).  ``mesh``: a
     process mesh (module docstring), where ``x`` is the rank's rows and
-    ``p`` the rank's blocks; None on one process."""
+    ``p`` the rank's blocks; None on one process.  ``global_aux``: the aux
+    over the global batch on a data-split mesh (the train step's), else
+    over the rank's rows (serving, which discards it)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     M = 1 if mesh is None else mesh.shape.get("model", 1)
@@ -183,7 +188,7 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg, mesh=None) -> tuple[torch.Tensor, tor
     counts = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
         0, flat_e, torch.ones_like(flat_e))
     ce = counts.float() / (B * S * K)
-    axes = () if mesh is None else batch_axes(mesh)
+    axes = () if mesh is None or not global_aux else batch_axes(mesh)
     if axes and col.group_size(mesh, axes) > 1:  # the global batch's me and ce
         parts = col.all_gather(mesh, [torch.stack([me, ce])], axes)[0].reshape(-1, 2, E)
         me, ce = col.ordered_sum(list(parts)) / parts.shape[0]

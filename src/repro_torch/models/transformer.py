@@ -37,8 +37,20 @@ batch its aux loss is the global batch's: :func:`loss_fn` then passes the
 process mesh to the MoE layers.  Remat "full" recomputes the collectives
 in the backward, in the same order on every rank.  Projection widths or
 expert counts that M does not divide raise ``NotImplementedError``
-(:func:`check_model_parallel`), as do prefill and decode across ranks (a
-KV cache split over ``model``).
+(:func:`check_model_parallel`).
+
+Serving across ranks: under ``use_sharding(ProcessMesh)`` :func:`prefill`
+and :func:`decode_step` take the rank's rows of the batch (the ``batch``
+spec's block) and a cache from ``make_cache(..., mesh=mesh)``, the rank's
+block of ``cache_defs``' spec (:func:`cache_block`: ``batch`` over (pod,
+data), ``kv_heads`` over ``model`` or ``head_dim`` where M does not divide
+the kv heads, ``kv_seq`` over (pod, data) where the batch does not
+divide).  The layers run as in the loss, attention with the cache block
+(:mod:`~repro_torch.models.layers`), and the logits are one process's for
+the rank's rows: the rank's vocab columns joined by one exact
+``all_gather`` over ``model``.  A MoE config's experts split over
+``model`` as in training; its aux loss, which serving discards, is the
+rank's rows' (no gather over the batch axes).
 """
 from __future__ import annotations
 
@@ -59,8 +71,8 @@ from repro_torch.core.distributed import ProcessMesh
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.params import ParamDef, init_params, param_count
-from repro_torch.sharding.specs import get_context
+from repro_torch.models.params import ParamDef, init_params, param_count, param_shardings
+from repro_torch.sharding.specs import get_context, splits
 from repro_torch.train.loop import batch_axes, rank_microbatches
 
 
@@ -204,15 +216,16 @@ def _model_mesh(cfg: TransformerConfig, mesh):
     return mesh
 
 
-def _moe_mesh(cfg: TransformerConfig, mesh):
+def _moe_mesh(cfg: TransformerConfig, mesh, train: bool = True):
     """The process mesh a MoE config's layers take (:func:`moe_lib.moe_ffn`):
-    the sharding context's ``mesh`` when it splits the batch or the
-    experts, else None.  A data-split step that cuts each rank's rows into
-    microbatches raises ``NotImplementedError``: its aux loss would be
-    over other rows than the reference's microbatches."""
+    the sharding context's ``mesh`` when it splits the batch (``train``:
+    the aux loss is the global batch's) or the experts, else None.  A
+    data-split train step that cuts each rank's rows into microbatches
+    raises ``NotImplementedError``: its aux loss would be over other rows
+    than the reference's microbatches."""
     if not cfg.is_moe or not isinstance(mesh, ProcessMesh):
         return None
-    D = col.group_size(mesh, batch_axes(mesh))
+    D = col.group_size(mesh, batch_axes(mesh)) if train else 1
     if D == 1 and mesh.shape.get("model", 1) == 1:
         return None
     if D > 1 and rank_microbatches() > 1:
@@ -269,13 +282,15 @@ def _layer(params: dict, i: int) -> dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in params.items()}
 
 
-def _ffn(cfg: TransformerConfig, x: torch.Tensor, lp: dict, mesh=None, moe_mesh=None):
+def _ffn(cfg: TransformerConfig, x: torch.Tensor, lp: dict, mesh=None, moe_mesh=None,
+         global_aux: bool = True):
     """The FFN half of a layer: (x + FFN(norm(x)), aux).  ``mesh``: a
     model mesh or None; ``moe_mesh``: the process mesh of a MoE config's
-    layers (:func:`_moe_mesh`) or None."""
+    layers (:func:`_moe_mesh`) or None; ``global_aux`` as
+    :func:`moe_lib.moe_ffn`'s."""
     y = L.rms_norm(x, lp["ln2"])
     if cfg.is_moe:
-        f, aux = moe_lib.moe_ffn(y, lp["moe"], cfg, moe_mesh)
+        f, aux = moe_lib.moe_ffn(y, lp["moe"], cfg, moe_mesh, global_aux)
     else:  # a dense layer's aux loss is 0
         f = L.swiglu(y, lp["mlp"], mesh)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -385,18 +400,63 @@ def cache_defs(cfg: TransformerConfig, batch: int, max_len: int) -> dict:
     }
 
 
-def make_cache(cfg: TransformerConfig, batch: int, max_len: int, device=None) -> dict:
+def make_cache(cfg: TransformerConfig, batch: int, max_len: int, device=None,
+               mesh=None) -> dict:
     """A zero KV cache ``[layers, batch, max_len, kv_heads, d_head]`` in
-    ``compute_dtype`` on ``device`` (CUDA unless given)."""
-    dev = resolve_device(device)
-    return {k: torch.zeros(d.shape, dtype=d.dtype, device=dev)
-            for k, d in cache_defs(cfg, batch, max_len).items()}
+    ``compute_dtype`` on ``device`` (CUDA unless given; a process mesh's
+    own device).  On a :class:`~repro_torch.core.distributed.ProcessMesh`
+    ``mesh`` each tensor is this rank's block of ``cache_defs``' spec and
+    carries that :class:`~repro_torch.sharding.specs.NamedSharding` as its
+    ``sharding`` (the reference's cache arrays carry theirs), which
+    :func:`prefill` and :func:`decode_step` read (:func:`cache_block`)."""
+    defs = cache_defs(cfg, batch, max_len)
+    if not isinstance(mesh, ProcessMesh):
+        dev = resolve_device(device)
+        return {k: torch.zeros(d.shape, dtype=d.dtype, device=dev) for k, d in defs.items()}
+    dev = mesh.device if device is None else resolve_device(device)
+    out = {}
+    for (k, d), sh in zip(defs.items(), param_shardings(defs, mesh).values()):
+        out[k] = torch.zeros(sh.shard_shape(d.shape), dtype=d.dtype, device=dev)
+        out[k].sharding = sh
+    return out
 
 
-def _no_cache_across_ranks() -> None:
-    if col.model_mesh() is not None:
-        raise NotImplementedError("LM prefill and decode across model ranks (a KV cache "
-                                  "split over model) are not ported")
+def cache_block(cache: dict) -> L.CacheBlock:
+    """The global rows, positions, kv heads and head_dim columns that this
+    rank's cache block covers (:class:`~repro_torch.models.layers.CacheBlock`):
+    the whole cache on one process or where the spec splits nothing."""
+    sh = getattr(cache["k"], "sharding", None)
+    shape = tuple(cache["k"].shape)
+    if not splits(sh):
+        return L.CacheBlock.whole(shape)
+    return L.CacheBlock.of(sh, sh.global_shape(shape))
+
+
+def _serving(cfg: TransformerConfig, cache: dict, rows: int):
+    """(model mesh, MoE mesh, cache block) of a serving call under the
+    sharding context, checked against the cache and the ``rows`` given."""
+    ctx_mesh = get_context().mesh
+    if (isinstance(ctx_mesh, ProcessMesh) and ctx_mesh.size > 1
+            and getattr(cache["k"], "sharding", None) is None):
+        raise ValueError("on a process mesh, make the cache with make_cache(..., mesh=mesh): "
+                         "its block carries its sharding")
+    block = cache_block(cache)
+    if block.mesh is not None and block.mesh != ctx_mesh:
+        raise ValueError("a cache block of a process mesh is served under that mesh's "
+                         "use_sharding context")
+    if rows != block.size[1]:
+        raise ValueError(f"{rows} rows of tokens for a cache block of {block.size[1]} rows "
+                         "(on a process mesh, pass the rank's rows of the batch)")
+    return _model_mesh(cfg, ctx_mesh), _moe_mesh(cfg, ctx_mesh, train=False), block
+
+
+def _serve_logits(cfg: TransformerConfig, params: dict, x: torch.Tensor, mesh):
+    """f32 logits [B, 1, padded_vocab] of ``x`` [B, 1, D]: on a model mesh
+    the ranks' vocab columns gathered in rank order."""
+    logits = _unembed(cfg, params, x, mesh)
+    if mesh is not None:
+        logits = col.all_gather(mesh, [logits], col.MODEL, dim=-1)[0]
+    return logits
 
 
 def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, cache: dict):
@@ -404,21 +464,26 @@ def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, cache: d
 
     Each layer's k/v are written into ``cache`` in place and its positions
     from S on are zeroed: the reference's stacked, zero-padded cache, without
-    holding a second copy of it."""
-    _no_cache_across_ranks()
+    holding a second copy of it.  Across ranks (module docstring) each rank
+    writes and zeroes its block only."""
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens)
+    mesh, moe_mesh, block = _serving(cfg, cache, B)
+    if S > block.shape[2]:
+        raise ValueError(f"a prompt of {S} tokens for a cache of {block.shape[2]} positions")
+    x = _embed(cfg, params, tokens, mesh)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        h, (k, v) = L.attention_block(L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions)
-        cache["k"][i, :, :S] = k.to(cache["k"].dtype)
-        cache["v"][i, :, :S] = v.to(cache["v"].dtype)
-        x, _ = _ffn(cfg, x + h, lp)
-    cache["k"][:, :, S:] = 0
-    cache["v"][:, :, S:] = 0
+        h, (k, v) = L.attention_block(L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions,
+                                      mesh=mesh)
+        block.write(cache["k"][i], k, 0)
+        block.write(cache["v"][i], v, 0)
+        x, _ = _ffn(cfg, x + h, lp, mesh, moe_mesh, global_aux=False)
+    first = max(S - block.start[2], 0)  # the block's position S
+    cache["k"][:, :, first:] = 0
+    cache["v"][:, :, first:] = 0
     x = L.rms_norm(x, params["ln_f"])
-    logits = _unembed(cfg, params, x[:, -1:, :])
+    logits = _serve_logits(cfg, params, x[:, -1:, :], mesh)
     return logits[:, 0], cache
 
 
@@ -430,10 +495,11 @@ def decode_step(
     pos: int,  # write position (= current length)
 ):
     """One token of batched decode, writing its k/v into ``cache`` in
-    place.  Returns (logits f32[B, V], cache)."""
-    _no_cache_across_ranks()
+    place.  Returns (logits f32[B, V], cache).  Across ranks (module
+    docstring) the write lands in the block that holds ``pos``."""
     B = tokens.shape[0]
-    x = _embed(cfg, params, tokens)[:, None, :]  # [B, 1, D]
+    mesh, moe_mesh, block = _serving(cfg, cache, B)
+    x = _embed(cfg, params, tokens, mesh)[:, None, :]  # [B, 1, D]
     pos = int(pos)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     for i in range(cfg.n_layers):
@@ -441,9 +507,9 @@ def decode_step(
         h, _ = L.attention_block(
             L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions,
             k_cache=cache["k"][i], v_cache=cache["v"][i], cache_pos=pos,
-            kv_valid_len=pos + 1,
+            kv_valid_len=pos + 1, mesh=mesh, block=block,
         )
-        x, _ = _ffn(cfg, x + h, lp)
+        x, _ = _ffn(cfg, x + h, lp, mesh, moe_mesh, global_aux=False)
     x = L.rms_norm(x, params["ln_f"])
-    logits = _unembed(cfg, params, x)
+    logits = _serve_logits(cfg, params, x, mesh)
     return logits[:, 0], cache
