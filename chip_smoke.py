@@ -55,10 +55,10 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    twins (``UNPROFILED``; phase 7's sharded executor too): each stage's host time and device time, and the
    device's idle share over a batch; and one over each of phase 9's recsys cells (the
    geo-blended retrieval, AutoInt's chunked retrieval and every serve
-   shape), over a prefill (2,048
+   shape), over a prefill (1,024
    tokens) of each of phases 12–13's five LMs and a decode step (4,096
-   cached tokens) of its two MoE LMs (``LM_PROFILE_DECODE``), over a train
-   step (2,048 tokens) of Granite-MoE and
+   cached tokens) of OLMoE (``LM_PROFILE_DECODE``), over a train
+   step (1,024 tokens) of Granite-MoE and
    over a train step of each of phase 14's EGNN cells:
    the device's busy time, idle share and top device ops;
 6. serves 2048-query traces through ``GeoServer`` over the phase-3 index,
@@ -206,7 +206,7 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    ``prefill_32k`` and ``decode_32k`` cells (and SmolLM-135M's
    ``long_500k_sliding``) at the batch and sequence of ``LM_CUTS``, each
    cut printed with its KV arithmetic: ms per prefill or decode step (CUDA
-   events, median of 3 after a warm-up; the 32,768-token step once),
+   events, median of ``LM_RUNS`` after a warm-up; the 32,768-token step once),
    tokens/s, model FLOPs as a share of 989e12, peak memory, finite logits.
    It runs after phase 11 and before phase 5.
 13. runs the MoE LMs (``olmoe-1b-7b``, ``granite-moe-1b-a400m``: the
@@ -247,7 +247,7 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    through ``build_gnn_cell`` at ``full_graph_sm``, ``molecule`` and
    ``minibatch_lg`` (its 232,965-node / 114,615,892-edge graph built once,
    then a (1024, (15, 10)) sample; the host seconds of each printed): ms
-   per train step (CUDA events, median of 3 after a warm-up), nodes/s and
+   per train step (CUDA events, median of ``LM_RUNS`` after a warm-up), nodes/s and
    edges/s, model FLOPs as a share of 989e12, peak memory, a finite loss,
    and the bytes autograd saves per edge and per node of a layer; (c)
    ``ogb_products`` printed as not run, with that count scaled to its
@@ -415,6 +415,33 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    one-card runs.  It launches no kernel.  Alone: :func:`kv_parallel_phase`
    (4 ranks of its own).  No run on several cards is possible on one
    card's host.
+21. runs the recommendation models across ranks, in phase 18's 4 ``gloo``
+   ranks on the (2, 2) mesh after phase 20: each rank holds the
+   ``param_specs`` blocks of each arch at its published config, f32
+   (embedding-table rows, the first MLP layers' ``ffn`` columns, AutoInt's
+   and BST's heads over ``model``), through ``build_recsys_cell`` on the
+   process mesh: (a) every arch's ``REC_SERVE`` (512 rows, its 256 a data
+   rank); for ``REC_PARALLEL_ARCHS`` (b) ``retrieval_cand`` over all
+   1,000,000 candidates, a data rank's 500,000 (two-tower with phase 9's
+   geo blend through the ``geo_score`` kernel, each rank's ``g`` bitwise
+   its plain version, one launch a rank, counted from 0 around the driven
+   run; DCN-v2 in chunks of ``REC_CTR_CHUNK`` rows, the chunk rule at a
+   quarter of the card), the ranks' top-100 merged in rank order, and (c)
+   one train step at ``REC_TRAIN_B`` rows (65,536 published).  One process
+   on the card runs the same cells first, its outputs and gradients saved
+   to a temporary directory; each
+   rank's outputs (its rows) and top-100 values within ``SP_GRAD_TOL`` of
+   one process's, its top-100 ids equal where one process's scores are
+   separated, its gradient blocks within ``SP_GRAD_TOL`` (then the step's
+   AdamW update, timed), its parameter (and moment) bytes the dry-run's per-device count on (2, 2);
+   ms a rank and in one process, the gathers by axes and caller (count,
+   MB sent, ms) beside ``roofline.recsys_bytes``' collectives, peak a
+   rank, the card's name and power limit beside the times.  Then, in
+   phase 18 (d)'s ``nccl`` rank at world size 1, the SMOKE cells on a
+   (1, 1) process mesh, bitwise the one-card runs.  Its ``geo_score``
+   launches are added to the kernel table's.  Alone:
+   :func:`recsys_parallel_phase` (4 ranks of its own).  No run on several
+   cards is possible on one card's host.
 
 Every phase ends with a line of its seconds (``phase N: T s``).  The line
 before the last is the kernel table as JSON; the last line is
@@ -494,8 +521,9 @@ TWIN_SERVICE_S = 1e-3
 # CLI's subprocess
 TEL_RUNS = 1
 CLI_TIMEOUT_S = 600
-# phase 8 (c)'s CLI: 2^18 docs (N_DOCS until PR 27, cut for phase 17's time)
-CLI_N_DOCS = 1 << 18
+# phase 8 (c)'s CLI: 2^17 docs (cut from N_DOCS to 2^18 for phase 17's
+# time, then to 2^17 for phase 21's)
+CLI_N_DOCS = 1 << 17
 # phase 9: the recsys serving path at the published CONFIGs (one card)
 RECSYS_ARCHS = ("two-tower-retrieval", "dcn-v2", "autoint", "bst")
 RECSYS_SEED = 0
@@ -567,7 +595,7 @@ LM_CUTS = {
 }
 LM_SEED = 0
 LM_WARMUP = 1
-LM_RUNS = 3
+LM_RUNS = 2  # 3 before phase 21 (cut for its time)
 # long_500k_sliding: one step, no warm-up (cut from the published 524,288
 # keys, 1,024 KV chunks per layer, 14-26 s on the card, host-bound in the
 # flash loop, to 65,536 (PR 26), then 32,768 (PR 29): the script's time limit)
@@ -579,21 +607,29 @@ LM_CHECK_S = 512
 # phase 5 profiles no plain twin of a kernel variant (~6 s a pass on an
 # H100; cut for phase 18 (f)'s time): its stages are the kernel variant's
 # but the one the kernel replaces, which phase 4 times.  tf_plain, which
-# has no kernel twin, is profiled
+# has no kernel twin, was profiled.  Nor (cut for phase 21's time: ~4 s a
+# geo profile) geo_score and its early-termination twin (K-SWEEP's stages
+# with the per-toe-print scorer, which phase 4 times), fused_et, tf_plain
+# (tf_pruned's stages less the pruning), or pruned K-SWEEP and pruned
+# TEXT-FIRST on the impact and int8 stores beside their docid profiles
+# (fused_impact and geo_first_impact, the text filter's costliest stores,
+# stay profiled)
 UNPROFILED = ("plain", "plain_et", "pruned_plain", "tf_pruned_plain", "tf_pruned_plain_impact",
-              "tf_pruned_plain_int8", "pruned_plain_int8")
-# phase 5's LM profiles: a prefill of 2,048 tokens and a decode step over
-# 4,096 cached ones, batch 1 (4 and 8 KV chunks per layer: the flash loop's
+              "tf_pruned_plain_int8", "pruned_plain_int8", "fused_et", "geo_score",
+              "geo_score_et", "tf_plain", "pruned_int8", "tf_pruned_impact", "tf_pruned_int8")
+# phase 5's LM profiles: a prefill of 1,024 tokens and a decode step over
+# 4,096 cached ones, batch 1 (2 and 8 KV chunks per layer: the flash loop's
 # per-chunk work at a size whose profile stays small), and a train step of
-# 2,048 tokens of the MoE train cell only (a train step's profile takes
-# ~30 s to gather; the dense train cells' splits are phase 13 (c)'s).  The
-# decode step is profiled for the LM_PROFILE_DECODE archs only (cut for
-# phase 20's time: the dense LMs' steps run the same flash loop over 8
-# chunks a layer, 25.7 s of profiles on an H100 80GB HBM3 at 700 W; phase
-# 12 times each)
-LM_PROFILE_CUT = (2048, 4096)
+# 1,024 tokens of the MoE train cell only (a train step's profile takes
+# ~30 s to gather at 2,048; the dense train cells' splits are phase 13
+# (c)'s).  The decode step is profiled for the LM_PROFILE_DECODE arch only
+# (cut for the phases across ranks' time: the other LMs' steps run the same
+# flash loop over 8 chunks a layer, Granite-MoE's the same MoE layer as
+# OLMoE's; phase 12 times each).  The prefills and the train step ran at
+# 2,048 tokens before phase 21
+LM_PROFILE_CUT = (1024, 4096)
 LM_PROFILE_TRAIN = "granite-moe-1b-a400m"
-LM_PROFILE_DECODE = ("olmoe-1b-7b", "granite-moe-1b-a400m")
+LM_PROFILE_DECODE = ("olmoe-1b-7b",)
 # H100 SXM dense bf16 tensor-core peak (NVIDIA H100 data sheet, SXM)
 BF16_FLOPS_PER_S = 989e12
 # bf16 keeps 8 significant bits; the two paths run other GEMM shapes
@@ -728,6 +764,22 @@ KV_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_torch_kv_parallel.py's LOGIT_T
 KV_CACHE_ATOL = 1e-5
 # the world-size-1 nccl rank's SMOKE serving runs: prefill and cache length
 KV_SMOKE = (64, 128)
+# phase 21: the recsys models across ranks, in phase 18's 4 gloo ranks on
+# the (2, 2) data x model mesh after phase 20, each at its published config
+# (f32): every arch's REC_SERVE (512 rows, 256 a data rank); for
+# REC_PARALLEL_ARCHS also retrieval_cand over all 1,000,000 candidates
+# (500,000 a data rank; two-tower with phase 9's geo blend) and one train
+# step of REC_TRAIN_B rows (65,536 published: cut for the time, as the
+# ranks' gradient gather through the host does not shrink with it)
+REC_SERVE = "serve_p99"
+REC_PARALLEL_ARCHS = ("two-tower-retrieval", "dcn-v2")
+REC_TRAIN_B = 8192
+# a CTR retrieval's rows a chunk a rank: RETRIEVAL_TRANSIENT_BYTES (one
+# card's 24 GiB) shared by the 4 ranks on the card, over DCN-v2's 17,384
+# transient bytes a row, down to a power of two: 2^18, 2 chunks of a rank's
+# 500,000 rows (phase 21 checks the rule)
+REC_CTR_CHUNK = 262_144
+REC_RANKS_ON_CARD = 4
 COMPRESS_REL = 0.05  # tests/test_distributed.py's bound on the int8 mean
 GNN_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)  # tests/test_torch_egnn.py's GRAD_TOL
 GNN_BF16_REL = 2.0**-5  # tests/test_torch_egnn.py's BF16_REL: the loss against loss_fn
@@ -868,7 +920,7 @@ def main() -> int:
 
 
 def run_phases(dry: dict, builds: dict) -> int:
-    """Phases 1 to 20 and 5 (see the module docstring)."""
+    """Phases 1 to 21 and 5 (see the module docstring)."""
     import numpy as np
 
     import torch
@@ -1525,7 +1577,7 @@ def run_phases(dry: dict, builds: dict) -> int:
     torch.cuda.empty_cache()
     # ---- phase 18: the model axis across processes, and in its ranks
     # phase 20: LM prefill and decode across ranks -------------------------
-    tensor_parallel_phase()
+    rank_counts = tensor_parallel_phase()
     torch.cuda.empty_cache()
     # ---- phase 19: sequence-parallel attention over the model axis -------
     seq_parallel_phase()
@@ -1534,7 +1586,8 @@ def run_phases(dry: dict, builds: dict) -> int:
         main_counts[row["name"]] += (serve_counts[row["name"]] + shard_counts[row["name"]]
                                      + proc_counts[row["name"]]
                                      + tel_counts[row["name"]] + rec_counts[row["name"]]
-                                     + train_counts[row["name"]] + example_counts[row["name"]])
+                                     + train_counts[row["name"]] + example_counts[row["name"]]
+                                     + rank_counts.get(row["name"], 0))
         row["launches"] = main_counts[row["name"]]
     # ---- phase 5: one profiler pass per variant, after every timing, so
     # no profiler session runs before or during a timed run ---------------
@@ -4272,11 +4325,13 @@ def _state_bytes(params, opt) -> dict:
             "moment_bytes": sum(x.nbytes for x in leaves(opt["m"]) + leaves(opt["v"]))}
 
 
-def _tp_rank(rank: int, device: str, ckpt_dir: str, ep_dir: str, kv_dir: str) -> dict:
+def _tp_rank(rank: int, device: str, ckpt_dir: str, ep_dir: str, kv_dir: str,
+             rec_dir: str) -> dict:
     """Phase 18, one rank of the (2, 2) process mesh: the cell's blocks,
     the steps, the ``model`` collectives of one step's gradients, the
-    sharded checkpoint; then (f), OLMoE's step (:func:`_ep_rank`), and
-    phase 20's serving (:func:`_kv_rank`)."""
+    sharded checkpoint; then (f), OLMoE's step (:func:`_ep_rank`), phase
+    20's serving (:func:`_kv_rank`) and phase 21's recsys cells
+    (:func:`_rec_rank`)."""
     import torch
 
     from repro_torch.core import ProcessMesh, make_process_mesh
@@ -4335,6 +4390,9 @@ def _tp_rank(rank: int, device: str, ckpt_dir: str, ep_dir: str, kv_dir: str) ->
     if cuda:
         torch.cuda.empty_cache()
     out["kv"] = _kv_rank(mesh, device, kv_dir)
+    if cuda:
+        torch.cuda.empty_cache()
+    out["rec"] = _rec_rank(mesh, device, rec_dir)
     return out
 
 
@@ -4453,7 +4511,8 @@ def _tp_nccl_rank(rank: int, device: str, ckpt_dir: str) -> dict:
         runs.append((_digest(leaves(params)), m["loss"].cpu().numpy().tobytes()))
     return {"device": str(mesh.device), "backend": mesh.backend, "runs": runs,
             "moe_runs": _ep_smoke_runs(mesh.device, mesh),
-            "kv_runs": _kv_smoke_runs(mesh.device, mesh)}
+            "kv_runs": _kv_smoke_runs(mesh.device, mesh),
+            "rec_runs": _rec_smoke_runs(mesh.device, mesh)}
 
 
 def _ep_smoke_runs(dev, mesh=None) -> list:
@@ -4691,9 +4750,10 @@ def _ep_report(outs: list, one: dict) -> dict:
             "max_param_err": max(e["param_err"]["max_abs"] for e in eps)}
 
 
-def tensor_parallel_phase() -> None:
-    """Phase 18: the model axis across processes (see the module
-    docstring)."""
+def tensor_parallel_phase() -> dict[str, int]:
+    """Phase 18: the model axis across processes, with phases 20 and 21 in
+    its ranks (see the module docstring).  Returns phase 21's kernel
+    launches, summed over the ranks (the driven runs' only)."""
     import dataclasses
     import os
     import shutil
@@ -4727,11 +4787,14 @@ def tensor_parallel_phase() -> None:
         ep_one = _ep_one_process(ep_dir)
         kv_dir = os.path.join(tmp, "kv")
         kv_one = _kv_one_process(kv_dir)
+        rec_dir = os.path.join(tmp, "rec")
+        rec_one = _rec_one_process(rec_dir)
         # (a) 4 gloo ranks on the (2, 2) mesh: steps and the sharded
-        # checkpoint, then (f)'s step, then phase 20's serving
+        # checkpoint, then (f)'s step, then phase 20's serving and phase
+        # 21's recsys cells
         t0, t = time.time(), time.perf_counter()
-        outs = run_ranks(_tp_rank, n, args=(DEVICE, tmp, ep_dir, kv_dir), backend="gloo",
-                         timeout_s=TP_TIMEOUT_S)
+        outs = run_ranks(_tp_rank, n, args=(DEVICE, tmp, ep_dir, kv_dir, rec_dir),
+                         backend="gloo", timeout_s=TP_TIMEOUT_S)
         ranks_s = time.perf_counter() - t
         start_s = [o["ready"] - t0 for o in outs]
         for o in outs[1:]:
@@ -4881,6 +4944,9 @@ def tensor_parallel_phase() -> None:
         check(got["kv_runs"] == _kv_smoke_runs(dev),
               "phase 20: the (1, 1) process mesh's SMOKE prefill and decode differ from the "
               "one-card runs")
+        check(got["rec_runs"] == _rec_smoke_runs(dev),
+              "phase 21: the (1, 1) process mesh's SMOKE recsys cells differ from the "
+              "one-card runs")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     report = {
@@ -4924,9 +4990,24 @@ def tensor_parallel_phase() -> None:
         f"{kv_one['s']:.1f} s before phase 18's ranks, the ranks' serving {kv_rank_s:.1f} s "
         f"inside them, the checks {kv_report_s:.1f} s); no run on several cards was possible "
         "(one card on this host)")
+    t = time.perf_counter()
+    rec = _rec_report([o["rec"] for o in outs], rec_one)
+    rec_report_s = time.perf_counter() - t
+    rec_rank_s = max(o["rec"]["s"] for o in outs)
+    launches = {k: sum(o["rec"]["launches"].get(k, 0) for o in outs)
+                for k in outs[0]["rec"]["launches"]}
+    say(f"phase 21: {got['backend']} at world size 1 on {got['device']}: every arch's SMOKE "
+        f"serve cell, the two-tower (geo) and DCN-v2 SMOKE retrieval and train cells on a (1, "
+        "1) process mesh == the one-card runs bitwise")
+    say("phase 21: " + json.dumps({"launches": launches, **rec}))
+    rec_s = rec_one["s"] + rec_rank_s + rec_report_s
+    say(f"phase 21: {rec_s:.1f} s (one process {rec_one['s']:.1f} s before phase 18's ranks, "
+        f"the ranks' cells {rec_rank_s:.1f} s inside them, the checks {rec_report_s:.1f} s); "
+        "no run on several cards was possible (one card on this host)")
     say(f"phase 18: {time.perf_counter() - t_phase:.1f} s with phase 20's "
-        f"{kv_one['s'] + kv_rank_s + kv_report_s:.1f} s; no run on several cards was "
-        "possible (one card on this host)")
+        f"{kv_one['s'] + kv_rank_s + kv_report_s:.1f} s and phase 21's {rec_s:.1f} s; no run "
+        "on several cards was possible (one card on this host)")
+    return launches
 
 
 def _kv_cfg(arch: str, layers: int):
@@ -5072,18 +5153,20 @@ def _kv_rank(mesh, device: str, kv_dir: str) -> dict:
     return out
 
 
-def _tol_error(a, b, tol: dict) -> dict:
+def _tol_error(a, b, tol: dict, phase: str = "phase 20") -> dict:
     """``a`` (a host tensor) against ``b`` (numpy): the largest abs error
     and the largest excess of ``|a - b|`` over ``atol + rtol·|b|`` (<= 0:
-    within ``tol``)."""
+    within ``tol``); equal entries (−inf too) differ by 0."""
     import torch
 
     b = torch.from_numpy(b)
-    check(tuple(a.shape) == tuple(b.shape), f"phase 20: {tuple(a.shape)} against the one "
+    check(tuple(a.shape) == tuple(b.shape), f"{phase}: {tuple(a.shape)} against the one "
           f"process's {tuple(b.shape)}")
-    d = (a.double() - b.double()).abs()
+    a, b = a.double(), b.double()
+    d = torch.where(a == b, 0.0, (a - b).abs())
+    b = torch.where(b.isfinite(), b, 0.0)
     return {"max_abs": float(d.max()), "scale": float(b.abs().max()),
-            "excess": float((d - tol["atol"] - tol["rtol"] * b.double().abs()).max())}
+            "excess": float((d - tol["atol"] - tol["rtol"] * b.abs()).max())}
 
 
 def _kv_smoke_runs(dev, mesh=None) -> list:
@@ -5239,6 +5322,456 @@ def _kv_nccl_rank(rank: int, device: str) -> list:
 
     mesh = make_process_mesh((1, 1), TRAIN_AXES, device=None if device == "cuda" else device)
     return _kv_smoke_runs(mesh.device, mesh)
+
+
+def _rec_spec(arch: str, kind: str, smoke: bool = False):
+    """Phase 21's cell of ``arch``: its published config (the SMOKE config
+    with ``smoke``), ``kind`` one of serve, retrieval, train, at the
+    phase's sizes (``REC_*``; SMOKE: ``SMOKE_ROWS`` rows and
+    ``SMOKE_CANDIDATES`` candidates)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+
+    spec = get_arch(arch)
+    if smoke:
+        spec = dataclasses.replace(spec, config=spec.smoke_config)
+    shape = spec.shape({"serve": REC_SERVE, "retrieval": "retrieval_cand",
+                        "train": "train_batch"}[kind])
+    if kind == "train":
+        shape = dataclasses.replace(shape, params={"batch": SMOKE_ROWS if smoke else REC_TRAIN_B})
+    elif kind == "retrieval" and smoke:
+        shape = dataclasses.replace(shape, params={**shape.params,
+                                                   "n_candidates": SMOKE_CANDIDATES})
+    return spec, shape
+
+
+def _rec_cell(arch: str, kind: str, dev, mesh=None, smoke: bool = False):
+    """Phase 21's cell (:func:`_rec_spec`) on ``dev`` or on the process
+    ``mesh``, and its geo dict (the whole candidate set's; None but for
+    the two-tower retrieval, blended as phase 9's).  A CTR retrieval runs
+    in chunks of ``REC_CTR_CHUNK`` rows a rank on a mesh, by the one-card
+    chunk rule in one process."""
+    from repro_torch.launch.steps import build_recsys_cell
+
+    spec, shape = _rec_spec(arch, kind, smoke)
+    geo, kw = None, {}
+    if kind == "retrieval" and arch == "two-tower-retrieval":
+        n = shape.params["n_candidates"]
+        geo = (recsys_geo(n, 0.01, SMOKE_Q_RECTS, dev) if smoke
+               else recsys_geo(n, 0.08, GEO_Q_RECTS, dev))
+    elif kind == "retrieval" and mesh is not None and not smoke:
+        kw["chunk_rows"] = REC_CTR_CHUNK
+    cell = build_recsys_cell(spec, shape, None if mesh is not None else dev, RECSYS_SEED,
+                             geo=geo, mesh=mesh, **kw)
+    return cell, geo
+
+
+def _rec_runs(arch: str):
+    """The kinds of phase 21's cells of ``arch``."""
+    return ("serve", "retrieval", "train") if arch in REC_PARALLEL_ARCHS else ("serve",)
+
+
+def _rec_one_process(rec_dir: str) -> dict:
+    """Phase 21's reference: one process's cells on the card (published
+    configs): their outputs and one train step's gradients saved to
+    ``rec_dir`` for the ranks; each run's ms (a step's gradients and its
+    AdamW update), bytes and peak; then freed."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.steps import TRAIN_OPT
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.tree import leaves
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.steps import RETRIEVAL_TRANSIENT_BYTES, retrieval_row_bytes
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    fit = (RETRIEVAL_TRANSIENT_BYTES // REC_RANKS_ON_CARD
+           // retrieval_row_bytes(get_arch("dcn-v2").config))
+    check(1 << (fit.bit_length() - 1) == REC_CTR_CHUNK,
+          f"phase 21: the chunk rule at 1/{REC_RANKS_ON_CARD} of the card gives {fit} rows")
+    os.makedirs(rec_dir)
+    out = {}
+    for arch in RECSYS_ARCHS:
+        for kind in _rec_runs(arch):
+            torch.cuda.reset_peak_memory_stats()
+            cell, _ = _rec_cell(arch, kind, dev)
+            tag = f"{arch}_{kind}"
+            e = {"param_bytes": sum(x.nbytes for x in leaves(cell.args[0]))}
+            if kind == "train":
+                params, opt, batch = cell.args
+                (loss, _, grads), e["grads_ms"] = _timed(
+                    lambda: cell.fn.value_and_grad(params, batch), DEVICE)
+                _save_rows(grads, cell.args[0], _rec_spec(arch, kind)[0].config,
+                           os.path.join(rec_dir, f"{tag}_grads"))
+                (params, opt, m), e["update_ms"] = _timed(
+                    lambda: adamw_update(TRAIN_OPT, grads, params, opt), DEVICE)
+                del grads
+                e.update(loss=float(loss), norm=float(m["grad_norm"]),
+                         moment_bytes=sum(x.nbytes for x in leaves(opt["m"]) + leaves(opt["v"])))
+                del params, opt
+            else:
+                with torch.no_grad():
+                    res, e["ms"] = _timed(lambda: cell.fn(*cell.args), DEVICE)
+                for i, r in enumerate(res if isinstance(res, tuple) else (res,)):
+                    np.save(os.path.join(rec_dir, f"{tag}_{i}.npy"), r.cpu().numpy())
+                del res
+            e["peak"] = torch.cuda.max_memory_allocated()
+            out[tag] = e
+            del cell
+            torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _rec_rank(mesh, device: str, rec_dir: str) -> dict:
+    """Phase 21, one rank of the (2, 2) mesh: each cell's ``param_specs``
+    blocks and its rows or candidates; the driven runs (every gather
+    counted by axes and caller, the kernel launches counted from 0), the
+    two-tower retrieval's ``g`` on the rank's candidates held bitwise to
+    the plain version; the outputs and one step's gradients against one
+    process's saved ones, then the step's AdamW update, timed."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.geo_score.ops import geo_score_docs
+    from repro_torch.launch import steps
+    from repro_torch.models.params import param_shardings
+    from repro_torch.sharding.specs import local_block, named_sharding
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.tree import leaves
+
+    cuda = device == "cuda"
+    t0 = time.perf_counter()
+    out = {"launches": {}}
+    for arch in RECSYS_ARCHS:
+        for kind in _rec_runs(arch):
+            tag = f"{arch}_{kind}"
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            (cell, geo), init_ms = _timed(lambda: _rec_cell(arch, kind, mesh.device, mesh),
+                                          device)
+            cfg = _rec_spec(arch, kind)[0].config
+            e = {"init_ms": init_ms, "collectives": {},
+                 "param_bytes": sum(x.nbytes for x in leaves(cell.args[0]))}
+            if kind == "train":
+                params, opt, batch = cell.args
+                e["moment_bytes"] = sum(x.nbytes for x in leaves(opt["m"]) + leaves(opt["v"]))
+                e["rows"] = int(next(iter(batch.values())).shape[0])
+                with _CountedGathers(e["collectives"], device):
+                    (loss, _, grads), e["grads_ms"] = _timed(
+                        lambda: cell.fn.value_and_grad(params, batch), device)
+                e["grad_err"] = _row_block_errors(grads, os.path.join(rec_dir, f"{tag}_grads"),
+                                                  cfg, param_shardings(cfg.param_defs(), mesh),
+                                                  SP_GRAD_TOL)
+                (params, opt, m), e["update_ms"] = _timed(lambda: adamw_update(
+                    steps.TRAIN_OPT, grads, params, opt,
+                    steps.moment_shardings(cfg.param_defs(), mesh)), device)
+                del grads
+                e.update(loss=float(loss), norm=float(m["grad_norm"]))
+                del params, opt, batch
+            else:
+                if geo is not None:  # the kernel on the rank's candidates vs its plain version
+                    geo = {**geo, **{k: steps.candidate_block(geo[k], mesh)
+                                     for k in ("cand_rects", "cand_amps")}}
+                    g = geo_score_docs(geo["cand_rects"][None], geo["cand_amps"][None],
+                                       geo["q_rects"][None], geo["q_amps"][None])[0]
+                    e["g_err"] = exact(g, plain_geo(geo), "phase 21: a rank's geo_score_docs",
+                                       torch)
+                    e["geo_matches"] = int((g > 0).sum())
+                    del g, geo
+                    e["rows"] = int(cell.args[2].shape[0])
+                else:
+                    e["rows"] = int(next(iter(cell.args[1].values())).shape[0])
+                with torch.no_grad(), _CountedGathers(e["collectives"], device):
+                    reset_launch_counts()
+                    res, e["ms"] = _timed(lambda: cell.fn(*cell.args), device)
+                    counts = launch_counts()
+                e["launches"] = counts
+                for k, n in counts.items():
+                    out["launches"][k] = out["launches"].get(k, 0) + n
+                res = [r.cpu() for r in (res if isinstance(res, tuple) else (res,))]
+                want = [np.load(os.path.join(rec_dir, f"{tag}_{i}.npy")) for i in range(len(res))]
+                if kind == "serve":
+                    want = [np.ascontiguousarray(local_block(w, named_sharding(
+                        mesh, ("batch",) + (None,) * (w.ndim - 1), shape=w.shape)))
+                        for w in want]
+                e["err"] = _tol_error(res[0], want[0], SP_GRAD_TOL, "phase 21")
+                if kind == "retrieval":  # ids where one process's scores are separated
+                    e["ids"] = res[1].numpy()
+                    sep = separated(torch.from_numpy(want[0])).numpy()
+                    e["ids_separated"] = int(sep.sum())
+                    e["ids_equal"] = bool(np.array_equal(res[1].numpy()[sep], want[1][sep]))
+                    e["n_inf"] = int(np.isneginf(want[0]).sum())
+                    e["inf_equal"] = bool(np.array_equal(res[1].numpy()[np.isneginf(want[0])],
+                                                         want[1][np.isneginf(want[0])]))
+                del res
+            e["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+            out[tag] = e
+            del cell
+            if cuda:
+                torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _rows_dim(d) -> int | None:
+    """The dimension of a parameter definition's ``rows``, or None."""
+    return d.logical.index("rows") if "rows" in d.logical else None
+
+
+def _save_rows(grads: dict, params: dict, cfg, path: str) -> None:
+    """Phase 21's one-process gradients as ``<path>/<name>.npy``; of an
+    embedding table, only its nonzero rows (``<name>.rows.npy``, their
+    indices along ``rows``, and their values): a batch reaches few of its
+    rows, and the rest is zero."""
+    import os
+
+    import numpy as np
+
+    os.makedirs(path)
+    defs = cfg.param_defs()
+    for name, g in grads.items():
+        dim = _rows_dim(defs[name])
+        if dim is None:
+            np.save(os.path.join(path, f"{name}.npy"), g.cpu().numpy())
+            continue
+        rows = g.movedim(dim, 0)
+        nz = rows.reshape(rows.shape[0], -1).abs().amax(dim=1) > 0
+        idx = nz.nonzero()[:, 0]
+        np.save(os.path.join(path, f"{name}.rows.npy"), idx.cpu().numpy())
+        np.save(os.path.join(path, f"{name}.npy"), rows[idx].cpu().numpy())
+
+
+def _row_block_errors(got: dict, path: str, cfg, shardings: dict, tol: dict) -> dict:
+    """This rank's gradient blocks ``got`` against :func:`_save_rows`'
+    one-process gradients: each leaf's block (a table's rebuilt from its
+    saved rows, zero elsewhere); the largest abs error and the largest
+    excess over ``atol + rtol·|b|`` (<= 0: within ``tol``)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.sharding.specs import local_block
+
+    err = excess = 0.0
+    defs = cfg.param_defs()
+    for name, a in got.items():
+        d, sh = defs[name], shardings[name]
+        dim = _rows_dim(d)
+        if dim is None:
+            b = np.load(os.path.join(path, f"{name}.npy"), mmap_mode="r")
+            b = torch.from_numpy(np.array(local_block(b, sh))).to(a.device)
+        else:
+            start, n = 0, d.shape[dim]
+            for bd, s0, k in sh.block(d.shape):
+                if bd == dim:
+                    start, n = s0, k
+            idx = torch.from_numpy(np.load(os.path.join(path, f"{name}.rows.npy"))).to(a.device)
+            vals = torch.from_numpy(np.load(os.path.join(path, f"{name}.npy"))).to(a.device)
+            mine = (idx >= start) & (idx < start + n)
+            b = torch.zeros_like(a.movedim(dim, 0))
+            b[idx[mine] - start] = vals[mine]
+            b = b.movedim(0, dim)
+        check(tuple(b.shape) == tuple(a.shape), f"phase 21: {name}'s block {tuple(a.shape)} "
+              f"against one process's {tuple(b.shape)}")
+        diff = (a.detach() - b).abs()
+        err = max(err, float(diff.max()))
+        excess = max(excess, float((diff - tol["atol"] - tol["rtol"] * b.abs()).max()))
+    return {"max_abs": err, "excess": excess}
+
+
+def _rec_smoke_runs(dev, mesh=None) -> list:
+    """Phase 21's world-size-1 check: every arch's SMOKE serve cell at
+    ``SMOKE_ROWS`` rows, the two-tower (geo-blended) and DCN-v2 SMOKE
+    retrieval cells over ``SMOKE_CANDIDATES`` and one train step of each,
+    on a (1, 1) process mesh or on one card with ``mesh`` None: each run's
+    outputs' digest."""
+    import torch
+
+    from repro_torch.train.tree import leaves
+
+    runs = []
+    for arch in RECSYS_ARCHS:
+        for kind in _rec_runs(arch):
+            cell, _ = _rec_cell(arch, kind, dev, mesh, smoke=True)
+            if kind == "train":
+                params, _, m = cell.fn(*cell.args)
+                runs.append(_digest(leaves(params) + [m["loss"]]))
+            else:
+                with torch.no_grad():
+                    res = cell.fn(*cell.args)
+                runs.append(_digest(list(res) if isinstance(res, tuple) else [res]))
+    return runs
+
+
+def _rec_report(recs: list, one: dict) -> dict:
+    """Phase 21's checks and lines: each rank's runs against one
+    process's, the dry-run's bytes and the roofline's collectives;
+    returns the phase report."""
+    from repro_torch.core import make_mesh
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.steps import build_recsys_cell
+
+    meta = make_mesh(TP_MESH, TRAIN_AXES, device="meta")
+    report, failed = {}, []
+    for arch in RECSYS_ARCHS:
+        for kind in _rec_runs(arch):
+            tag = f"{arch}_{kind}"
+            es, o = [r[tag] for r in recs], one[tag]
+            spec, shape = _rec_spec(arch, kind)
+            args = build_recsys_cell(spec, shape, device="meta", mesh=meta).args
+            want = {"param_bytes": rf.arg_counts((args[0],), meta)["arg_bytes_dev"]}
+            if kind == "train":
+                want["moment_bytes"] = rf.arg_counts((args[1]["m"], args[1]["v"]),
+                                                     meta)["arg_bytes_dev"]
+            p = shape.params
+            # the dry-run's collectives of the cell on the (2, 2) meta mesh:
+            # the row lookups' all-reduce, the gradient sync and
+            # roofline.recsys_bytes' terms
+            model = run_cell(spec, shape, meta, "2x2")["collectives"]
+            e0 = es[0]
+            kinds = {axes: {k: {"n": v["n"], "MB": round(v["bytes"] / 1e6, 3),
+                                "ms": round(v["ms"], 1)} for k, v in sorted(by.items())}
+                     for axes, by in sorted(e0["collectives"].items())}
+            sent = sum(v["bytes"] for by in e0["collectives"].values() for v in by.values())
+            ms = [e["grads_ms"] + e["update_ms"] if kind == "train" else e["ms"] for e in es]
+            one_ms = o["grads_ms"] + o["update_ms"] if kind == "train" else o["ms"]
+            line = (f"phase 21: {tag}: {arch} at its published config, f32, {shape.name} "
+                    f"({', '.join(f'{k} {v:,}' for k, v in p.items())}) on {len(recs)} gloo "
+                    f"ranks as {dict(zip(TRAIN_AXES, TP_MESH))}: {e0['rows']:,} rows a rank; "
+                    f"ms a rank {[round(x, 1) for x in ms]} (one process {one_ms:.1f}); cell "
+                    f"build a rank {[round(e['init_ms'], 1) for e in es]} ms; parameters "
+                    f"{e0['param_bytes']:,} B a rank (one process {o['param_bytes']:,})")
+            if kind == "train":
+                line += (f", moments {e0['moment_bytes']:,} B a rank (one process "
+                         f"{o['moment_bytes']:,}); gradients {[round(e['grads_ms'], 1) for e in es]}"
+                         f" + AdamW {[round(e['update_ms'], 1) for e in es]} ms (one process "
+                         f"{o['grads_ms']:.1f} + {o['update_ms']:.1f}); loss {e0['loss']:.6f} "
+                         f"(one process {o['loss']:.6f}), grad norm {e0['norm']:.6f} (one "
+                         f"process {o['norm']:.6f}); gradient blocks' largest abs error "
+                         f"{max(e['grad_err']['max_abs'] for e in es):.4g}")
+            else:
+                line += (f"; output's largest abs error {max(e['err']['max_abs'] for e in es):.4g}"
+                         f" of {e0['err']['scale']:.4g}")
+            if kind == "retrieval":
+                line += (f"; top-{TOP_K} ids equal one process's at "
+                         f"{min(e['ids_separated'] for e in es)} separated picks, "
+                         f"{e0['n_inf']} −inf picks; launches a rank "
+                         f"{[e['launches'] for e in es]}")
+                if "g_err" in e0:
+                    line += (f"; geo_score_docs on each rank's {e0['rows']:,} candidates == plain "
+                             f"(bitwise), geo matches a rank {[e['geo_matches'] for e in es]}")
+            say(line + f"; peak {[round(e['peak'] / 2**30, 3) for e in es]} GiB a rank (one "
+                f"process {o['peak'] / 2**30:.3f}); {card_line()}")
+            say(f"phase 21: {tag}: rank 0's gathers by axes and caller (count, MB sent a rank, "
+                f"ms): {json.dumps(kinds)}; {sent / 1e6:.3f} MB sent; the dry-run's "
+                f"collectives a device (launch.roofline's payload bytes: a gather's or an "
+                f"all-reduce's output, a reduce-scatter's input): "
+                f"{json.dumps({k: round(v / 1e6, 3) for k, v in model.items()})} MB")
+            report[tag] = {
+                "rows_per_rank": e0["rows"], "ms_per_rank": ms, "one_process_ms": one_ms,
+                "init_ms_per_rank": [e["init_ms"] for e in es],
+                "param_bytes_per_rank": e0["param_bytes"],
+                "one_process_param_bytes": o["param_bytes"],
+                "peak_gib_per_rank": [e["peak"] / 2**30 for e in es],
+                "one_process_peak_gib": o["peak"] / 2**30,
+                "collectives_rank0": e0["collectives"], "gathered_mb_rank0": sent / 1e6,
+                "roofline_collective_mb": {k: v / 1e6 for k, v in model.items()}}
+            for r, e in enumerate(es):
+                got = {k: e[k] for k in want}
+                if got != want:
+                    failed.append(f"{tag} rank {r} holds {got}, the dry-run {want}")
+                if kind == "train":
+                    if e["grad_err"]["excess"] > 0:
+                        failed.append(f"{tag} rank {r}'s gradients {e['grad_err']}")
+                    if e["loss"] != e0["loss"] or not math.isclose(
+                            e["loss"], o["loss"], rel_tol=TP_LOSS_TOL["rtol"]):
+                        failed.append(f"{tag} rank {r}'s loss {e['loss']} vs {o['loss']}")
+                    report[tag].update(loss=e0["loss"], one_process_loss=o["loss"],
+                                       moment_bytes_per_rank=e0["moment_bytes"],
+                                       max_grad_err=max(x["grad_err"]["max_abs"] for x in es))
+                    continue
+                if e["err"]["excess"] > 0:
+                    failed.append(f"{tag} rank {r}'s output {e['err']}")
+                if kind == "retrieval":
+                    if not (e["ids_equal"] and e["inf_equal"]):
+                        failed.append(f"{tag} rank {r}'s top-{TOP_K} ids differ from one "
+                                      "process's")
+                    want_l = {"geo_score": 1} if "g_err" in e else {}
+                    if {k: n for k, n in e["launches"].items() if n} != want_l:
+                        failed.append(f"{tag} rank {r} launched {e['launches']}, not {want_l}")
+                    if e["ids"].tobytes() != e0["ids"].tobytes():
+                        failed.append(f"{tag}: the ranks' merged top-{TOP_K} differ")
+    check(not failed, "phase 21: " + "; ".join(failed))
+    return report
+
+
+def _rec_alone_rank(rank: int, device: str, rec_dir: str) -> dict:
+    """Phase 21 alone: one rank of the (2, 2) mesh (:func:`_rec_rank`)."""
+    import torch
+
+    from repro_torch.core import make_process_mesh
+
+    torch.set_num_threads(1)
+    mesh = make_process_mesh(TP_MESH, TRAIN_AXES, device=None if device == "cuda" else device)
+    return {"device": str(mesh.device), "rec": _rec_rank(mesh, device, rec_dir)}
+
+
+def _rec_nccl_rank(rank: int, device: str) -> list:
+    from repro_torch.core import make_process_mesh
+
+    mesh = make_process_mesh((1, 1), TRAIN_AXES, device=None if device == "cuda" else device)
+    return _rec_smoke_runs(mesh.device, mesh)
+
+
+def recsys_parallel_phase() -> dict[str, int]:
+    """Phase 21 alone, in 4 ranks of its own (the script runs it inside
+    phase 18's ranks, :func:`tensor_parallel_phase`).  Returns its kernel
+    launches, summed over the ranks."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.ranks import run_ranks
+
+    t_phase = time.perf_counter()
+    say(f"phase 21: {card_line()}")
+    tmp = tempfile.mkdtemp(prefix="rec-")
+    try:
+        rec_dir = os.path.join(tmp, "rec")
+        one = _rec_one_process(rec_dir)
+        t = time.perf_counter()
+        outs = run_ranks(_rec_alone_rank, math.prod(TP_MESH), args=(DEVICE, rec_dir),
+                         backend="gloo", timeout_s=TP_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t
+        launches = {k: sum(o["rec"]["launches"].get(k, 0) for o in outs)
+                    for k in outs[0]["rec"]["launches"]}
+        say("phase 21: " + json.dumps({"launches": launches,
+                                        **_rec_report([o["rec"] for o in outs], one)}))
+        backend = "nccl" if DEVICE == "cuda" else "gloo"
+        (got,), _ = _timed(lambda: run_ranks(_rec_nccl_rank, 1, args=(DEVICE,), backend=backend,
+                                             timeout_s=TP_TIMEOUT_S), DEVICE)
+        check(got == _rec_smoke_runs(torch.device(DEVICE)),
+              "phase 21: the (1, 1) process mesh's SMOKE recsys cells differ from the one-card "
+              "runs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"phase 21: {time.perf_counter() - t_phase:.1f} s alone (one process {one['s']:.1f} s, "
+        f"the ranks {ranks_s:.1f} s with their start-up)")
+    return launches
 
 
 def _block_errors(got, ref_dir: str, shardings, tol: dict, phase: str = "phase 19") -> dict:

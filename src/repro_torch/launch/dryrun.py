@@ -170,6 +170,10 @@ def _collectives(spec, shape, cell, mesh, counts: dict) -> dict:
         S = 1 if shape.kind == "lm_decode" else p["seq_len"]
         parts.append(rf.lm_activation_bytes(cfg, shape.kind, p["global_batch"], S,
                                             cell.args[0], mesh, split))
+    elif spec.family == "recsys":
+        p = shape.params
+        parts.append(rf.recsys_bytes(spec.config, shape.kind, cell.args[0], mesh, p["batch"],
+                                     p.get("n_candidates", 0)))
     elif spec.family == "gnn":
         from repro_torch.launch.steps import gnn_cell_config
 

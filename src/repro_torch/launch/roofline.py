@@ -58,6 +58,15 @@ moves nothing), per device and step:
   dispatch buffer ``[B, E·C, D]`` each pass (the expert outputs in the
   forward and the recompute, the dispatched tokens' cotangent in the
   backward), and of the ``[D, E]`` f32 router in each forward pass;
+* recsys (``models.recsys``), where ``model`` splits a leaf: per forward
+  pass an ``all-gather`` of each first MLP layer's activation (``ffn``
+  columns) and of each attention layer's output over the heads, and in a
+  train step an ``all-reduce`` of the cotangent of the input (and bias)
+  that entered the split layer replicated; the two-tower train step on a
+  batch split over its batch axes, an ``all-gather`` of the targets ``v``
+  and ``logq`` and a ``reduce-scatter`` of ``v``'s cotangent; a retrieval
+  over candidates split over (pod, data), an ``all-gather`` of each
+  rank's top-k values and positions;
 * EGNN, per layer, an ``all-reduce`` of the receivers' sum ``[N, H + 3]``
   of edge-split messages (nodes replicated), or an ``all-gather`` of the
   node state and a ``reduce-scatter`` of the sum (``gnn_full``, nodes
@@ -392,6 +401,76 @@ def lm_activation_bytes(cfg, kind: str, B: int, S: int, params: dict, mesh, batc
         forwards = passes - 1 if train else 1
         _add(out, "all-gather", cfg.n_layers * (passes * buf
                                                  + forwards * cfg.d_model * cfg.n_experts * 4))
+    return out
+
+
+def _axes_group(mesh, axes) -> int:
+    return _group(mesh, [a for a in axes if a in mesh.axis_names])
+
+
+def recsys_bytes(cfg, kind: str, params: dict, mesh, B: int, n_candidates: int = 0,
+                 top_k: int = 100) -> dict:
+    """Per-device traffic of a recsys cell's collectives across ranks
+    (``models.recsys``), beside the row lookups' all-reduce that
+    :func:`count_step` finds: ``B`` is the batch (a retrieval's users),
+    ``n_candidates`` a retrieval's.  A device's forward takes the batch's
+    shard over the batch axes, a retrieval's item tower or CTR forward the
+    candidates' shard over (pod, data), the two-tower user tower every
+    user.  Per forward pass, where ``params`` (meta, sharded on ``mesh``)
+    split a first MLP layer over ``ffn``: an all-gather of its activation
+    ``[rows, width]``; where they split an attention layer's q/k/v over
+    ``heads``: an all-gather of its output ``[rows, fields, H·A]``; in a
+    train step also an all-reduce of the input (and whole bias) that
+    entered the layer replicated.  The two-tower train step over D > 1
+    batch shards: an all-gather of the targets ``[B, E]`` and ``logq``
+    ``[B]``, a reduce-scatter of ``v``'s cotangent ``[B, E]``.  A
+    retrieval over G > 1 candidate shards: an all-gather of each user's
+    top-k values (f32) and positions (i64) from the G shards."""
+    out: dict = {}
+    item = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    train = kind == "recsys_train"
+    D = _axes_group(mesh, ("pod", "data"))
+    name = type(cfg).__name__
+    if kind == "recsys_retrieval":
+        G = D if n_candidates % D == 0 else 1
+        rows = n_candidates // G
+        if G > 1:
+            _add(out, "all-gather", B * top_k * (4 + 8) * G)
+    else:
+        rows = B // D if B % D == 0 else B
+
+    split = mesh.shape.get("model", 1) > 1
+
+    def mlp(prefix: str, n: int):
+        w = params[f"{prefix}_w0"]
+        if split and _model_split(w, 1):
+            _add(out, "all-gather", n * w.shape[1] * item)
+            if train:
+                _add(out, "all-reduce", (n * w.shape[0] + w.shape[1]) * item)
+
+    def heads(wq, n: int, n_fields: int):
+        if split and _model_split(wq, 1):
+            _add(out, "all-gather", n * n_fields * wq.shape[1] * wq.shape[2] * item)
+            if train:
+                _add(out, "all-reduce", n * n_fields * wq.shape[0] * item)
+
+    if name == "TwoTowerConfig":
+        users = B if kind == "recsys_retrieval" else rows
+        mlp("user", users)
+        if kind != "recsys_serve":
+            mlp("item", rows)
+        if train and D > 1 and B % D == 0:
+            _add(out, "all-gather", B * (cfg.embed_dim * item + 4))
+            _add(out, "reduce-scatter", B * cfg.embed_dim * item)
+    elif name == "DCNv2Config":
+        mlp("deep", rows)
+    elif name == "AutoIntConfig":
+        for l in range(cfg.n_attn_layers):
+            heads(params[f"attn{l}_wq"], rows, cfg.n_sparse)
+    elif name == "BSTConfig":
+        for b in range(cfg.n_blocks):
+            heads(params[f"blk{b}_wq"], rows, cfg.seq_len + 1)
+        mlp("mlp", rows)
     return out
 
 

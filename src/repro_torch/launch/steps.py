@@ -40,7 +40,6 @@ import torch
 from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.core import collectives as col
 from repro_torch.core.distributed import ProcessMesh
-from repro_torch.core.ranking import select_top
 from repro_torch.data import graph as graph_data
 from repro_torch.data import recsys as rec_data
 from repro_torch.data.lm import LMDataConfig, lm_batch, lm_input_specs
@@ -591,6 +590,22 @@ def _two_tower_retrieval_flops(cfg, B: int, Nc: int) -> float:
     )
 
 
+def candidate_block(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The rank's contiguous block (a copy) of ``t``'s leading dimension, a
+    retrieval's candidates, over the candidate axes of the process
+    ``mesh`` (:func:`~repro_torch.models.recsys.candidate_axes`): ``t``
+    itself where they split nothing."""
+    axes = rec_lib.candidate_axes(mesh)
+    if not axes:
+        return t
+    n = col.group_size(mesh, axes)
+    if t.shape[0] % n:
+        raise ValueError(f"{t.shape[0]} candidates do not split over the {n} ranks of {axes} "
+                         f"on {mesh.shape}")
+    k = t.shape[0] // n
+    return t.narrow(0, mesh.group(axes, mesh.rank).index(mesh.rank) * k, k).clone()
+
+
 def build_recsys_cell(
     spec: ArchSpec, shape: ShapeSpec, device=None, seed: int = 0, geo: dict | None = None,
     mesh=None, chunk_rows: int | None | str = "auto",
@@ -602,30 +617,54 @@ def build_recsys_cell(
     ``recsys_retrieval`` scores its candidates in chunks of ``chunk_rows``
     rows a device (:func:`~repro_torch.models.recsys.forward_in_row_chunks`;
     None: one call; ``"auto"``: :func:`retrieval_chunk_rows` of the rows a
-    device holds), then takes one top-100 of all.  ``recsys_train``
-    steps with :data:`TRAIN_OPT`.  On ``meta`` the cell is shapes-only,
-    sharded on ``mesh``; on a
-    :class:`~repro_torch.core.distributed.ProcessMesh` (on its device unless
-    ``device`` is given) the train step is data-parallel with ZeRO-1's
-    moments; a ``model`` axis > 1 raises ``NotImplementedError`` there (the
-    tables' ``rows`` and the ``ffn`` split over ``model`` are not ported)."""
+    device holds, whose :data:`RETRIEVAL_TRANSIENT_BYTES` is one card's
+    share, so ranks that share a card pass ``chunk_rows``), then takes one
+    top-100 of all.  ``recsys_train`` steps with :data:`TRAIN_OPT`.  On
+    ``meta`` the cell is shapes-only, sharded on ``mesh``.
+
+    On a :class:`~repro_torch.core.distributed.ProcessMesh` (on its device
+    unless ``device`` is given) every cell holds the rank's ``param_specs``
+    blocks (``cfg.init(seed, device, mesh)``: table rows, first MLP layers
+    and attention heads over ``model`` where they divide it) and runs under
+    ``use_sharding(mesh)`` (:mod:`~repro_torch.models.recsys`).  The train
+    step is data-parallel with ZeRO-1's moment blocks: every rank holds the
+    global batch and steps on its rows.  ``recsys_serve`` holds the rank's
+    rows of the global batch (the ``batch`` spec's block, drawn from the
+    seed, then sliced).  ``recsys_retrieval`` holds the rank's contiguous
+    block of the candidates over the candidate axes
+    (:func:`~repro_torch.models.recsys.candidate_axes`; for two-tower with
+    ``geo``'s ``cand_rects`` and ``cand_amps`` sliced alike, the users
+    whole), takes its top-100 and merges the ranks' in rank order
+    (:func:`~repro_torch.models.recsys.select_top_across`): every rank
+    returns the whole set's top-100, positions global."""
     cfg = spec.config
     p = shape.params
-    if (shape.kind == "recsys_train" and isinstance(mesh, ProcessMesh)
-            and mesh.shape.get("model", 1) > 1):
-        raise NotImplementedError(
-            f"recsys training on {mesh.shape}: its rows and ffn over model are not ported "
-            "(the parameters would stay whole where the optimizer takes them as blocks)")
     if geo is not None and not (shape.kind == "recsys_retrieval"
                                 and type(cfg).__name__ == "TwoTowerConfig"):
         raise ValueError("geo applies to the two-tower retrieval cell only")
     dev = _cell_device(device, mesh)
     meta = _is_meta(dev)
+    procs = isinstance(mesh, ProcessMesh) and not meta
     fwd = recsys_forward(cfg)
-    params = param_shapes(cfg.param_defs(), mesh) if meta else cfg.init(seed, dev)
+    params = (param_shapes(cfg.param_defs(), mesh) if meta
+              else cfg.init(seed, dev, mesh if procs else None))
 
     def batch_of(B: int) -> dict:
         return recsys_input_specs(cfg, B, mesh) if meta else recsys_batch(cfg, B, dev, seed)
+
+    def serving(f):
+        """``f`` under the process mesh's sharding context."""
+        if not procs:
+            return f
+
+        def fn(*args):
+            with use_sharding(mesh):
+                return f(*args)
+
+        return fn
+
+    def candidates(t: torch.Tensor) -> torch.Tensor:
+        return candidate_block(t, mesh) if procs else t
 
     if shape.kind == "recsys_train":
         B = p["batch"]
@@ -647,8 +686,12 @@ def build_recsys_cell(
             fn = fwd
         batch = batch_of(B)
         batch.pop("label", None)
+        if procs:
+            batch = {k: local_block(t, named_sharding(
+                mesh, ("batch",) + (None,) * (t.dim() - 1), shape=tuple(t.shape))).clone()
+                for k, t in batch.items()}
         return Cell(
-            spec.name, shape.name, fn, (params, batch),
+            spec.name, shape.name, serving(fn), (params, batch),
             model_flops=_recsys_flops(cfg, B, False),
         )
 
@@ -672,26 +715,33 @@ def build_recsys_cell(
                 g = rec_data.make_generator(seed, 1, dev)
                 cand_fields = torch.randint(0, cfg.field_vocab, (Nc, cfg.n_item_fields),
                                             generator=g, device=dev, dtype=torch.int32)
+                cand_ids, cand_fields = candidates(cand_ids), candidates(cand_fields)
+            if geo is not None:
+                geo = {**geo, **{k: candidates(geo[k]) for k in ("cand_rects", "cand_amps")}}
             return Cell(
-                spec.name, shape.name, fn, (params, batch, cand_ids, cand_fields),
+                spec.name, shape.name, serving(fn), (params, batch, cand_ids, cand_fields),
                 model_flops=_two_tower_retrieval_flops(cfg, B, Nc),
             )
         # CTR models: retrieval scoring = candidate-major forward batch,
-        # in row chunks a device; on a mesh a chunk spans that many rows of
-        # every device's share
+        # in row chunks a device; on a meta mesh a chunk spans that many
+        # rows of every device's share, on a process mesh of the rank's
         batch = batch_of(Nc)
         batch.pop("label", None)
-        rows = _rows_per_device(batch)
+        if procs:
+            batch = {k: candidates(t) for k, t in batch.items()}
+        rows = batch[next(iter(batch))].shape[0] if procs else _rows_per_device(batch)
         chunk = retrieval_chunk_rows(cfg, rows) if chunk_rows == "auto" else chunk_rows
-        span = None if chunk is None or chunk >= rows else chunk * (Nc // rows)
+        span = (None if chunk is None or chunk >= rows
+                else chunk if procs else chunk * (Nc // rows))
 
         def fn(prm, batch):
-            return select_top(rec_lib.forward_in_row_chunks(fwd, prm, batch, span), 100)
+            return rec_lib.select_top_across(
+                rec_lib.forward_in_row_chunks(fwd, prm, batch, span), 100)
 
         how = ("one call" if span is None
                else f"{chunk} rows a chunk, {-(-rows // chunk)} chunks")
         return Cell(
-            spec.name, shape.name, fn, (params, batch),
+            spec.name, shape.name, serving(fn), (params, batch),
             model_flops=_recsys_flops(cfg, Nc, False),
             note=f"candidate-major scoring (1 user context broadcast into rows); {rows} rows "
                  f"a device, {how}",

@@ -24,8 +24,11 @@ on the rank's rows of the graph.  With M > 1 the lm family is also
 tensor-parallel: each rank holds its ``param_specs`` blocks, and attention
 runs head-parallel where both head counts divide M and sequence-parallel
 otherwise (the Qwen2.5 configs' 5 / 1 and 40 / 8 heads); a MoE arch's
-experts split over M too.  Where the data axis is > 1 a MoE arch's aux
-loss is the global batch's, and ``--microbatches`` must stay 1.  Every
+experts split over M too.  The recsys family takes M too: each rank holds
+its blocks of the embedding tables' rows, the first MLP layers' columns
+and the attention heads (``models.recsys``).  Where the data axis is > 1
+a MoE arch's aux loss and the two-tower in-batch softmax are the global
+batch's, and ``--microbatches`` must stay 1 for them.  Every
 rank takes part in a checkpoint (the blocks gathered into global arrays);
 rank 0 alone logs and writes the files.
 """
@@ -101,7 +104,7 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="where the state lives and the steps run (cuda or cpu)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="the model axis across WORLD_SIZE ranks (the lm family)")
+                    help="the model axis across WORLD_SIZE ranks (the lm and recsys families)")
     args = ap.parse_args(argv)
 
     spec = get_arch(args.arch)
@@ -109,7 +112,7 @@ def main(argv=None) -> None:
         raise SystemExit("geoweb is a serving system: use repro_torch.launch.serve")
     device = resolve_device(None if args.device == "cuda" else args.device)
     cfg = spec.config if args.full else spec.smoke_config
-    if args.model_parallel > 1 and spec.family != "lm":
+    if args.model_parallel > 1 and spec.family not in ("lm", "recsys"):
         raise SystemExit(f"--model-parallel: the {spec.family} family trains data-parallel only")
     mesh = _process_mesh(device, args.model_parallel)
     if mesh is not None:

@@ -10,7 +10,7 @@ with ``moment_shardings`` on a process mesh).  Built under
 (:func:`make_train_step`), where the reference's SPMD step lets XLA reduce
 the gradients over ``data``; with a ``model`` axis > 1 the LM is also
 tensor-parallel over it (a MoE config's experts split over it too), each
-rank holding its parameter blocks.
+rank holding its parameter blocks (the LMs' and the recsys models').
 
 ``run(...)`` checkpoints every N steps (atomic, async), and on a failure
 (including an injected one) restores the latest checkpoint and replays —
@@ -96,18 +96,26 @@ def make_train_step(
     the ranks' gradients from zero in rank order, and the step divides by
     the ``D`` batch shards; the losses are added the same way.  Those are
     the ``microbatches=D`` step's operations, so a ``D``-rank step of a
-    dense config equals it bitwise.  A MoE config's aux loss is a
-    statistic of the global batch, which its layer gathers over the batch
-    axes (:mod:`~repro_torch.models.moe`): its ``D``-rank step equals the
-    one-process ``microbatches=1`` step within rounding, and with
-    ``microbatches`` > 1 on a data-split mesh its loss raises
-    ``NotImplementedError`` (:func:`rank_microbatches`).  A
+    loss that is a mean of per-row terms (the dense LMs, the CTR models)
+    equals it bitwise.  Two losses are statistics of the global batch,
+    which they gather over the batch axes: a MoE config's aux loss
+    (:mod:`~repro_torch.models.moe`) and the two-tower in-batch softmax,
+    whose negatives are every row's target
+    (:func:`~repro_torch.models.recsys.two_tower_loss`: the rank's loss is
+    its rows' mean against the gathered targets, so the step's sum over
+    ``D`` divided by ``D`` is the global mean, and so are its gradients).
+    Their ``D``-rank step equals the one-process ``microbatches=1`` step
+    within rounding, and with ``microbatches`` > 1 on a data-split mesh
+    their loss raises ``NotImplementedError`` (:func:`rank_microbatches`),
+    as the reference's microbatches are blocks of the global batch.  A
     :func:`global_loss` is run on the batch as given.
 
     With a ``model`` axis > 1 the parameters are the rank's blocks and
     the loss is tensor-parallel over ``model`` (the LM's, its experts too,
-    under the step's sharding context, which the step re-enters); ``moment_shardings``
-    must then be given, as they tell the update which leaves are blocks.
+    and the recsys models' tables, first MLP layers and attention heads,
+    under the step's sharding context, which the step re-enters);
+    ``moment_shardings`` must then be given, as they tell the update which
+    leaves are blocks.
 
     The step's ``value_and_grad(params, batch)`` attribute is its gradient
     half: (loss, metrics, the reduced gradients) before the update.

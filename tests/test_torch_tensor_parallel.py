@@ -14,7 +14,8 @@ kv 2, d_ff 128, vocab 256, seq 32, batch 8, f32 compute), held to
 * the ZeRO-1 checkpoint: a fault replayed by ``loop.run`` is bitwise the
   uninterrupted run, and every rank restores its own moment blocks;
 * the guards: a projection width or an expert count that ``model`` does
-  not divide, recsys training over ``model``, a restore onto other shapes;
+  not divide, a restore onto other shapes (and the recsys train cell over
+  ``model`` building with its parameters in blocks);
 * the elastic story of ``tests/test_elastic.py`` at 4 -> 2 ranks: train
   on (2, 2), checkpoint, resume on ``plan_elastic_mesh``'s (1, 2);
 * the reference, in subprocesses on fake XLA devices (``AxisType.Auto``):
@@ -246,11 +247,9 @@ def _guards(mesh, ckpt_dir) -> dict:
     except ValueError as e:
         out["no_shardings"] = str(e)
     spec = get_arch("dcn-v2")
-    try:
-        p_steps.build_recsys_cell(dataclasses.replace(spec, config=spec.smoke_config),
-                                  spec.shape("train_batch"), mesh=mesh)
-    except NotImplementedError as e:
-        out["recsys"] = str(e)
+    cell = p_steps.build_recsys_cell(dataclasses.replace(spec, config=spec.smoke_config),
+                                     spec.shape("train_batch"), mesh=mesh)
+    out["recsys"] = {k: tuple(cell.args[0][k].shape) for k in ("table_0", "deep_w0", "cross_w0")}
     return out
 
 
@@ -698,7 +697,10 @@ def test_guards_raise(world):
     divide (``logical_spec`` would leave the leaf whole) raise
     ``NotImplementedError`` at init and in the loss; a restore whose
     ``like`` blocks differ from the checkpoint's raises ``ValueError``; a
-    model-parallel step without moment shardings raises too."""
+    model-parallel step without moment shardings raises too.  The recsys
+    train cell, refused here until the recsys models split over ``model``,
+    builds with its parameters in blocks
+    (``tests/test_torch_recsys_parallel.py`` holds its steps)."""
     for o in world["two"]:
         g = o["guards"]
         for k in ("width_init", "width_loss"):
@@ -707,4 +709,6 @@ def test_guards_raise(world):
             assert "the expert count 3 does not divide model = 2" in g[k], g
         assert "expected" in g["restore"], g
         assert "moment_shardings" in g["no_shardings"], g
-        assert "rows and ffn over model" in g["recsys"], g
+        # the SMOKE DCN-v2 train cell builds on (1, 2), its table rows
+        # and first deep layer in blocks over model, the cross layer whole
+        assert g["recsys"] == {"table_0": (128, 8), "deep_w0": (52, 16), "cross_w0": (52, 52)}
