@@ -56,7 +56,8 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    device's idle share over a batch; and one over each of phase 9's recsys cells (the
    geo-blended retrieval, AutoInt's chunked retrieval and every serve
    shape), over a prefill (1,024
-   tokens) of each of phases 12–13's five LMs and a decode step (4,096
+   tokens) of each of phases 12–13's five LMs but Qwen2.5-14B
+   (``LM_UNPROFILED``) and a decode step (4,096
    cached tokens) of OLMoE (``LM_PROFILE_DECODE``), over a train
    step (1,024 tokens) of Granite-MoE and
    over a train step of each of phase 14's EGNN cells:
@@ -302,7 +303,7 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    EGNN's ``make_sharded_loss``): one ``run_ranks`` call of 4 ``gloo``
    ranks, all on ``cuda:0``, on the (4, 1) data x model process mesh:
    (a) SmolLM-135M ``train_4k`` at published widths, depth cut to
-   ``TRAIN_DP_LAYERS`` = 8 of 30, global batch 4 x 4,096 (one sequence per
+   ``TRAIN_DP_LAYERS`` = 4 of 30, global batch 4 x 4,096 (one sequence per
    rank; the published batch is 256), remat full,
    ``TRAIN_OPT`` (ZeRO-1), 2 steps: params (SHA-256 of their bytes), loss
    and grad_norm after each step bitwise equal on every rank and to the
@@ -396,8 +397,8 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    of the KV cache as the reference's ``cache_defs`` spec places it, in
    phase 18's 4 ``gloo`` ranks on the (2, 2) mesh after (f) (no rank
    start-up of its own): ``KV_CASES`` at published widths, f32 compute,
-   SmolLM-135M at 8 of 30 layers (``head_dim`` over ``model``,
-   sequence-parallel attention) and OLMoE-1B-7B at 1 of 16 (``kv_heads``
+   SmolLM-135M at 4 of 30 layers (8 before phase 22; ``head_dim`` over
+   ``model``, sequence-parallel attention) and OLMoE-1B-7B at 1 of 16 (``kv_heads``
    and experts over ``model``), each at global batch 2 (``batch`` over
    data) and 1 (``kv_seq`` over data; the decode steps write into data
    rank 1's block): a prefill of ``KV_PROMPT`` tokens into a
@@ -442,6 +443,34 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` and then:
    launches are added to the kernel table's.  Alone:
    :func:`recsys_parallel_phase` (4 ranks of its own).  No run on several
    cards is possible on one card's host.
+22. keeps whole the leaves that ``model`` does not divide, as the
+   reference's shape-aware ``logical_spec`` keeps them: Qwen2.5-14B
+   ``train_4k`` at published widths, phase 19's ``SP_LAYERS`` = 1 of 48 and
+   ``SP_CUT`` = 1 x 512, f32 compute, on the (1, 3) data x model mesh in 3
+   ``gloo`` ranks of its own on ``cuda:0`` (a process mesh spans its world):
+   its attention whole on every rank (5,120 and 1,024 projection columns
+   on 3), its MLP, ``embed`` and ``unembed`` split (about 0.65 G parameters
+   a rank).  Its reference is phase 19's one-process step (its gradients
+   and the parameters after one AdamW step) and, taken there before the
+   step, a prefill of 512 tokens into a ``WL_MAX_LEN`` = 1,024-position
+   cache and ``KV_STEPS`` decode steps.  Each rank draws its blocks, runs
+   (b) the prefill and decode steps (logits bitwise equal on every rank,
+   within ``KV_TOL`` of one process's) and (a) one step as the train step
+   takes it (its ``value_and_grad``, the ``model`` collectives counted by
+   caller beside ``roofline.lm_activation_bytes``' count, then its AdamW
+   update): the ranks' losses and grad norms equal and within
+   ``TP_LOSS_TOL`` of one process's, the gradient blocks within
+   ``SP_GRAD_TOL``, the whole leaves' gradients bitwise equal on every
+   rank, the parameter blocks after the update within ``TP_PARAM_ATOL``,
+   each rank's parameter and moment bytes the dry-run's per-device count
+   on (1, 3).  (c) In phase 18's 4 ranks after phase 21, at SMOKE widths
+   (``WL_SMOKE``, f32): OLMoE with 6 experts on (1, 4) (experts whole), and
+   OLMoE and two-tower with ``microbatches`` = 2 on the data-split (2, 2)
+   mesh, each step's loss within ``TP_LOSS_TOL`` and its gradient blocks
+   within ``SP_GRAD_TOL`` of one process's step with the same
+   ``microbatches``.  It launches no kernel, and runs after phase 19 and
+   before phase 5.  No run on several cards is possible on one card's
+   host.
 
 Every phase ends with a line of its seconds (``phase N: T s``).  The line
 before the last is the kernel table as JSON; the last line is
@@ -628,6 +657,10 @@ UNPROFILED = ("plain", "plain_et", "pruned_plain", "tf_pruned_plain", "tf_pruned
 # OLMoE's; phase 12 times each).  The prefills and the train step ran at
 # 2,048 tokens before phase 21
 LM_PROFILE_CUT = (1024, 4096)
+# not profiled (cut for phase 22's time): Qwen2.5-14B's prefill, whose 59
+# GB model phase 5 would build for that one profile (phase 12 times it;
+# PERF.md §5 holds its profile from run AJ)
+LM_UNPROFILED = ("qwen2.5-14b",)
 LM_PROFILE_TRAIN = "granite-moe-1b-a400m"
 LM_PROFILE_DECODE = ("olmoe-1b-7b",)
 # H100 SXM dense bf16 tensor-core peak (NVIDIA H100 data sheet, SXM)
@@ -680,8 +713,9 @@ PROC_TIMEOUT_S = 300
 TRAIN_MESH = (4, 1)
 TRAIN_AXES = ("data", "model")
 TRAIN_DP_ARCH = "smollm-135m"
-# depth cut to 8 of 30 layers (the 1,200 s limit; PERF.md §6)
-TRAIN_DP_LAYERS = 8
+# depth cut to 4 of 30 layers (the 1,200 s limit; 8 before phase 22;
+# PERF.md §6); phase 20's SmolLM-135M case takes the same depth
+TRAIN_DP_LAYERS = 4
 TRAIN_DP_CUT = (4, 4096)
 TRAIN_DP_STEPS = 2
 TRAIN_GNN_STEPS = 2
@@ -739,10 +773,28 @@ SP_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)  # the CPU tests' GRAD_TOL
 # leaves are on the card at once
 SP_TURNS = 4
 SP_TIMEOUT_S = 600
+# phase 22: leaves that model does not divide, kept whole as the reference's
+# logical_spec keeps them: Qwen2.5-14B (SP_ARCH at SP_LAYERS, SP_CUT, f32)
+# on the (1, 3) data x model mesh in 3 gloo ranks of its own (a process mesh
+# spans its world, so no earlier phase's ranks can hold it): its attention
+# whole (5,120 and 1,024 columns on 3), its MLP, embed and unembed split;
+# phase 19's one-process step is its reference.  Then a prefill of
+# SP_CUT[1] tokens into WL_MAX_LEN positions and KV_STEPS decode steps
+WL_MESH = (1, 3)
+WL_MAX_LEN = 1024
+WL_TIMEOUT_S = 600
+# phase 22 (c), in phase 18's 4 ranks at SMOKE widths (f32): experts that
+# model does not divide (6 on 4), and microbatches = 2 on the data-split
+# (2, 2) mesh; name: (arch, config fields, mesh, microbatches)
+WL_SMOKE = {
+    "olmoe_e6_1x4": ("olmoe-1b-7b", {"n_experts": 6}, (1, 4), 1),
+    "olmoe_mb2_2x2": ("olmoe-1b-7b", {}, (2, 2), 2),
+    "two_tower_mb2_2x2": ("two-tower-retrieval", {}, (2, 2), 2),
+}
 # phase 20: LM prefill and decode across ranks, in phase 18's 4 gloo ranks
 # on the (2, 2) data x model mesh after (f), each cache held in the
 # reference's blocks: (arch, layers) at published widths, f32 compute so
-# the CPU tests' tolerances hold.  SmolLM-135M at phase 17's 8 of 30 layers
+# the CPU tests' tolerances hold.  SmolLM-135M at phase 17's 4 of 30 layers
 # (9 heads, 3 kv heads: head_dim over model, attention sequence-parallel)
 # and OLMoE-1B-7B at 1 of 16 (kv_heads and 32 of 64 experts a rank over
 # model), each at global batch 2 (batch over data) and 1 (kv_seq over
@@ -1580,7 +1632,11 @@ def run_phases(dry: dict, builds: dict) -> int:
     rank_counts = tensor_parallel_phase()
     torch.cuda.empty_cache()
     # ---- phase 19: sequence-parallel attention over the model axis -------
-    seq_parallel_phase()
+    sp_ref = seq_parallel_phase()
+    torch.cuda.empty_cache()
+    # ---- phase 22: leaves that model does not divide, on phase 19's
+    # one-process reference ------------------------------------------------
+    whole_leaves_phase(*sp_ref)
     torch.cuda.empty_cache()
     for row in table:
         main_counts[row["name"]] += (serve_counts[row["name"]] + shard_counts[row["name"]]
@@ -4326,12 +4382,13 @@ def _state_bytes(params, opt) -> dict:
 
 
 def _tp_rank(rank: int, device: str, ckpt_dir: str, ep_dir: str, kv_dir: str,
-             rec_dir: str) -> dict:
+             rec_dir: str, wl_dir: str) -> dict:
     """Phase 18, one rank of the (2, 2) process mesh: the cell's blocks,
     the steps, the ``model`` collectives of one step's gradients, the
     sharded checkpoint; then (f), OLMoE's step (:func:`_ep_rank`), phase
-    20's serving (:func:`_kv_rank`) and phase 21's recsys cells
-    (:func:`_rec_rank`)."""
+    20's serving (:func:`_kv_rank`), phase 21's recsys cells
+    (:func:`_rec_rank`) and phase 22 (c)'s SMOKE steps
+    (:func:`_wl_smoke_rank`)."""
     import torch
 
     from repro_torch.core import ProcessMesh, make_process_mesh
@@ -4393,6 +4450,7 @@ def _tp_rank(rank: int, device: str, ckpt_dir: str, ep_dir: str, kv_dir: str,
     if cuda:
         torch.cuda.empty_cache()
     out["rec"] = _rec_rank(mesh, device, rec_dir)
+    out["wl"] = _wl_smoke_rank(device, wl_dir)
     return out
 
 
@@ -4789,11 +4847,13 @@ def tensor_parallel_phase() -> dict[str, int]:
         kv_one = _kv_one_process(kv_dir)
         rec_dir = os.path.join(tmp, "rec")
         rec_one = _rec_one_process(rec_dir)
+        wl_dir = os.path.join(tmp, "wl")
+        wl_one = _wl_smoke_one_process(wl_dir)
         # (a) 4 gloo ranks on the (2, 2) mesh: steps and the sharded
         # checkpoint, then (f)'s step, then phase 20's serving and phase
         # 21's recsys cells
         t0, t = time.time(), time.perf_counter()
-        outs = run_ranks(_tp_rank, n, args=(DEVICE, tmp, ep_dir, kv_dir, rec_dir),
+        outs = run_ranks(_tp_rank, n, args=(DEVICE, tmp, ep_dir, kv_dir, rec_dir, wl_dir),
                          backend="gloo", timeout_s=TP_TIMEOUT_S)
         ranks_s = time.perf_counter() - t
         start_s = [o["ready"] - t0 for o in outs]
@@ -4827,6 +4887,8 @@ def tensor_parallel_phase() -> dict[str, int]:
             f"{[round(o['peak'] / 2**30, 2) for o in outs]} GiB; {card_line()}")
         shutil.rmtree(ep_dir)
         ep = _ep_report(outs, ep_one)
+        _wl_smoke_report(outs, wl_one)
+        shutil.rmtree(wl_dir)
         shutil.rmtree(kv_dir)
         # (b) one process's microbatches=2 step on the card, against the
         # ranks' losses and the checkpoint's gathered parameters
@@ -5858,9 +5920,11 @@ def _sp_rank(rank: int, device: str, ref_dir: str) -> dict:
     return out
 
 
-def seq_parallel_phase() -> None:
+def seq_parallel_phase() -> tuple[str, dict]:
     """Phase 19: sequence-parallel attention over the model axis (see the
-    module docstring)."""
+    module docstring).  Returns its one-process reference, which phase 22
+    shares: the directory of its saved leaves and serving logits (the
+    caller removes it) and its loss, grad norm, times and bytes."""
     import os
     import shutil
     import tempfile
@@ -5893,6 +5957,11 @@ def seq_parallel_phase() -> None:
         t = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         params = cfg.init(LM_SEED, dev)
+        # phase 22's serving reference, before the step moves the parameters
+        t_serve = time.perf_counter()
+        serve = _wl_serve(cfg, params, dev, DEVICE)
+        np.save(os.path.join(tmp, "serve_logits.npy"), serve.pop("logits").numpy())
+        serve_s = time.perf_counter() - t_serve
         opt = init_opt_state(OptimizerConfig(**TP_OPT), params)
         whole = _state_bytes(params, opt)
         batch = _tp_batches(cfg, dev, 1, SP_CUT)[0]
@@ -5918,8 +5987,9 @@ def seq_parallel_phase() -> None:
         outs = run_ranks(_sp_rank, n, args=(DEVICE, tmp), backend="gloo",
                          timeout_s=SP_TIMEOUT_S)
         ranks_s = time.perf_counter() - t
-    finally:
+    except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
+        raise
     start_s = [o["ready"] - t0 for o in outs]
     o0 = outs[0]
     for o in outs[1:]:
@@ -5987,8 +6057,341 @@ def seq_parallel_phase() -> None:
         "max_param_err": max(o["param_err"]["max_abs"] for o in outs),
         "rank_start_s": start_s, "ranks_s": ranks_s, "one_process_s": one_s}
     say("phase 19: " + json.dumps(report))
-    say(f"phase 19: {time.perf_counter() - t_phase:.1f} s; no run on several cards was "
-        "possible (one card on this host)")
+    say(f"phase 19: {time.perf_counter() - t_phase:.1f} s (of it phase 22's serving reference "
+        f"{serve_s:.1f} s); no run on several cards was possible (one card on this host)")
+    return tmp, {"loss": float(loss1), "norm": float(m1["grad_norm"]), "grads_ms": one_grads_ms,
+                 "step_ms": one_step_ms, "serve_s": serve_s, **whole, **serve}
+
+
+def _wl_tokens(cfg, dev):
+    """Phase 22's serving batch: one sequence of ``SP_CUT[1] + KV_STEPS``
+    tokens (``lm_batch``, step 0)."""
+    from repro_torch.data.lm import LMDataConfig, lm_batch
+
+    return lm_batch(LMDataConfig(cfg.vocab, SP_CUT[1] + KV_STEPS, 1, LM_SEED), 0,
+                    dev)["tokens"]
+
+
+def _wl_serve(cfg, params, dev, device: str, mesh=None) -> dict:
+    """Phase 22's serving run: a prefill of ``SP_CUT[1]`` tokens into a
+    ``WL_MAX_LEN``-position cache, then ``KV_STEPS`` decode steps
+    (:func:`_kv_serve`), on one process or on ``mesh``'s rank (its cache
+    block, under ``use_sharding``)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding.specs import use_sharding
+
+    cache = tf.make_cache(cfg, 1, WL_MAX_LEN, dev, mesh)
+    with use_sharding(mesh):
+        run = _kv_serve(cfg, params, _wl_tokens(cfg, dev), cache, device, SP_CUT[1])
+    run["spec"] = list(getattr(cache["k"], "sharding", None).spec) if mesh is not None else None
+    return run
+
+
+def _wl_rank(rank: int, device: str, ref_dir: str) -> dict:
+    """Phase 22, one rank of the (1, 3) process mesh: its ``param_specs``
+    blocks (the attention whole), the serving run, then one step as the
+    train step takes it (its gradients, the ``model`` collectives counted
+    by caller, then its AdamW update), each against phase 19's one-process
+    leaves and logits."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_process_mesh
+    from repro_torch.launch import steps
+    from repro_torch.models.params import param_shardings, split_over_model
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_update
+    from repro_torch.train.tree import leaves
+
+    torch.set_num_threads(1)
+    cuda = device == "cuda"
+    mesh = make_process_mesh(WL_MESH, TRAIN_AXES, device=None if cuda else device)
+    out = {"device": str(mesh.device), "ready": time.time()}
+    spec, shape = _tp_spec(SP_LAYERS, SP_ARCH, SP_CUT)
+    cfg = spec.config
+    params, out["init_ms"] = _timed(lambda: cfg.init(LM_SEED, mesh.device, mesh), device)
+    out["split"] = [bool(x) for x in leaves(split_over_model(cfg.param_defs(), mesh))]
+    serve = _wl_serve(cfg, params, mesh.device, device, mesh)
+    want = np.load(os.path.join(ref_dir, "serve_logits.npy"))
+    got = serve.pop("logits").numpy()
+    out["serve"] = {**serve, "logits_digest": _digest([torch.from_numpy(got)]),
+                    "logit_err": float(np.abs(got - want).max()),
+                    "logit_excess": float((np.abs(got - want) - KV_TOL["atol"]
+                                           - KV_TOL["rtol"] * np.abs(want)).max())}
+    cell = steps.build_lm_cell(spec, shape, seed=LM_SEED, params=params, mesh=mesh)
+    params, opt, _ = cell.args
+    del cell
+    out.update(_state_bytes(params, opt))
+    batch = _tp_batches(cfg, mesh.device, 1, SP_CUT)[0]
+    step = _tp_step(cfg, mesh)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    with _CountedGathers(stats, device):
+        (loss, _, grads), out["grads_ms"] = _timed(lambda: step.value_and_grad(params, batch),
+                                                   device)
+    out["model_collectives"] = stats.get("model", {})
+    out["grad_loss"] = float(loss)
+    # the same gradients again: the first call's share of first use
+    _, out["grads_again_ms"] = _timed(lambda: step.value_and_grad(params, batch), device)
+    shardings = param_shardings(cfg.param_defs(), mesh)
+    out["grad_err"] = _block_errors(grads, f"{ref_dir}/grads", shardings, SP_GRAD_TOL,
+                                    "phase 22")
+    out["whole_grads"] = _digest([g for g, s in zip(leaves(grads), out["split"]) if not s])
+    ms = steps.moment_shardings(cfg.param_defs(), mesh)
+    (params, opt, m), out["update_ms"] = _timed(lambda: adamw_update(
+        OptimizerConfig(**TP_OPT), grads, params, opt, ms), device)
+    del grads
+    out["step_ms"] = out["grads_ms"] + out["update_ms"]
+    out["norm"] = float(m["grad_norm"])
+    out["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+    out["param_err"] = _block_errors(params, f"{ref_dir}/params", shardings,
+                                     dict(rtol=0.0, atol=TP_PARAM_ATOL), "phase 22")
+    return out
+
+
+def whole_leaves_phase(ref_dir: str, one: dict) -> None:
+    """Phase 22: leaves that ``model`` does not divide kept whole (see the
+    module docstring), on phase 19's one-process reference in ``ref_dir``
+    (``one``: its loss, grad norm, times), which it removes."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import make_mesh
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch import steps
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.train.tree import flatten_with_paths
+
+    t_phase = time.perf_counter()
+    n, M = math.prod(WL_MESH), WL_MESH[1]
+    spec, shape = _tp_spec(SP_LAYERS, SP_ARCH, SP_CUT)
+    cfg = spec.config
+    L0 = get_arch(SP_ARCH).config.n_layers
+    try:
+        t0, t = time.time(), time.perf_counter()
+        outs = run_ranks(_wl_rank, n, args=(DEVICE, ref_dir), backend="gloo",
+                         timeout_s=WL_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    start_s = [o["ready"] - t0 for o in outs]
+    o0 = outs[0]
+    # the layout: the attention whole, the MLP, embed and unembed split
+    names = [[k.strip("[]'") for k in p.split("/")]
+             for p, _ in flatten_with_paths(cfg.param_defs())]
+    split = {"/".join(p[-2:]) if p[-2:] == ["mlp", "wo"] else p[-1]
+             for p, s in zip(names, o0["split"]) if s}
+    check(split == {"embed", "unembed", "wi_gate", "wi_up", "mlp/wo"},
+          f"phase 22: the leaves split over model = {M}: {sorted(split)}")
+    for o in outs[1:]:
+        check(o["grad_loss"] == o0["grad_loss"] and o["norm"] == o0["norm"]
+              and o["split"] == o0["split"],
+              "phase 22: the ranks' losses, grad norms or layouts differ")
+        check(o["whole_grads"] == o0["whole_grads"],
+              "phase 22: a whole leaf's gradient differs across the ranks")
+        check(o["serve"]["logits_digest"] == o0["serve"]["logits_digest"],
+              "phase 22: the ranks' logits differ")
+    for what, got, want in (("loss", o0["grad_loss"], one["loss"]),
+                            ("grad norm", o0["norm"], one["norm"])):
+        check(np.allclose(got, want, **TP_LOSS_TOL),
+              f"phase 22: the ranks' {what} {got} vs one process's {want}")
+    for r, o in enumerate(outs):
+        check(o["grad_err"]["excess"] <= 0,
+              f"phase 22: rank {r}'s gradients outside {SP_GRAD_TOL}: {o['grad_err']}")
+        check(o["param_err"]["max_abs"] <= TP_PARAM_ATOL,
+              f"phase 22: rank {r}'s parameters {o['param_err']['max_abs']} from one process's")
+        check(o["serve"]["logit_excess"] <= 0,
+              f"phase 22: rank {r}'s logits {o['serve']['logit_err']} from one process's "
+              f"(outside {KV_TOL})")
+    meta = make_mesh(WL_MESH, TRAIN_AXES, device="meta")
+    p_meta, o_meta, _ = steps.build_lm_cell(spec, shape, device="meta", mesh=meta).args
+    want = (rf.arg_counts((p_meta,), meta)["arg_bytes_dev"],
+            rf.arg_counts((o_meta["m"], o_meta["v"]), meta)["arg_bytes_dev"])
+    for r, o in enumerate(outs):
+        check((o["param_bytes"], o["moment_bytes"]) == want,
+              f"phase 22: rank {r} holds {o['param_bytes']} parameter and "
+              f"{o['moment_bytes']} moment bytes, the dry-run {want}")
+    modeled = rf.lm_activation_bytes(cfg, "lm_train", SP_CUT[0], SP_CUT[1], p_meta, meta, 1)
+    mc = o0["model_collectives"]
+    kinds = {k: {"n": v["n"], "MB": round(v["bytes"] / 1e6, 3), "ms": round(v["ms"], 1)}
+             for k, v in sorted(mc.items())}
+    sv = [o["serve"] for o in outs]
+    say(f"phase 22 (a): {SP_ARCH} train_4k at published widths ({cfg.n_heads} heads, kv "
+        f"{cfg.n_kv_heads}, d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
+        f"{cfg.n_layers} layer (published {L0}), f32 compute, {SP_CUT[0]} x {SP_CUT[1]}, remat "
+        f"{cfg.remat}, ZeRO-1, on {n} gloo ranks as {dict(zip(TRAIN_AXES, WL_MESH))} on "
+        f"{sorted({o['device'] for o in outs})}: the attention whole on every rank "
+        f"({cfg.n_heads * cfg.d_head} and {cfg.n_kv_heads * cfg.d_head} columns on model {M}), "
+        f"leaves split over model: {sorted(split)}; rank start-up "
+        f"{min(start_s):.1f}-{max(start_s):.1f} s, the blocks drawn in "
+        f"{max(o['init_ms'] for o in outs) / 1e3:.1f} s, the ranks' whole run {ranks_s:.1f} s; "
+        f"{card_line()}")
+    say(f"phase 22 (a): ms a rank: the step {[round(o['step_ms'], 1) for o in outs]}, of it the "
+        f"gradients {[round(o['grads_ms'], 1) for o in outs]} (taken again: "
+        f"{[round(o['grads_again_ms'], 1) for o in outs]}) and the AdamW update "
+        f"{[round(o['update_ms'], 1) for o in outs]} (one process: gradients "
+        f"{one['grads_ms']:.1f}, a step {one['step_ms']:.1f}); parameters "
+        f"{o0['param_bytes']:,} B and moments {o0['moment_bytes']:,} B a rank (= the dry-run's "
+        f"per-device count; one process {one['param_bytes']:,} / {one['moment_bytes']:,}); peak "
+        f"{[round(o['peak'] / 2**30, 2) for o in outs]} GiB; {card_line()}")
+    say(f"phase 22 (a): rank 0's model collectives of the gradients by caller (count, MB sent "
+        f"a rank, ms): {json.dumps(kinds)}, {sum(v['n'] for v in mc.values())} in all, "
+        f"{sum(v['ms'] for v in mc.values()):.1f} ms of {o0['grads_ms']:.1f}; "
+        f"lm_activation_bytes' per-device count for the step (MB): "
+        f"{ {k: round(v / 1e6, 3) for k, v in modeled.items()} }; {card_line()}")
+    say(f"phase 22 (a): loss {o0['grad_loss']:.6f} (one process {one['loss']:.6f}), grad norm "
+        f"{o0['norm']:.6f} ({one['norm']:.6f}); gradients within {SP_GRAD_TOL} of one "
+        f"process's (largest abs error {max(o['grad_err']['max_abs'] for o in outs):.4g}), the "
+        f"whole leaves' gradients bitwise equal on every rank, parameters after one AdamW step "
+        f"within {TP_PARAM_ATOL:g} (largest {max(o['param_err']['max_abs'] for o in outs):.4g})")
+    say(f"phase 22 (b): a {SP_CUT[1]}-token prefill into {WL_MAX_LEN} positions and {KV_STEPS} "
+        f"decode steps, the cache's spec {sv[0]['spec']}: prefill ms a rank "
+        f"{[round(s['prefill_ms'], 1) for s in sv]} (one process {one['prefill_ms']:.1f}), "
+        f"decode ms a rank {[[round(x, 1) for x in s['decode_ms']] for s in sv]} (one process "
+        f"{[round(x, 1) for x in one['decode_ms']]}); logits bitwise equal on every rank, "
+        f"within {KV_TOL} of one process's (largest abs error "
+        f"{max(s['logit_err'] for s in sv):.4g}); {card_line()}")
+    smoke = _WL_SMOKE
+    report = {
+        "mesh": dict(zip(TRAIN_AXES, WL_MESH)), "layers": cfg.n_layers,
+        "run_batch": list(SP_CUT), "split": sorted(split),
+        "grads_ms_per_rank": [o["grads_ms"] for o in outs],
+        "grads_again_ms_per_rank": [o["grads_again_ms"] for o in outs],
+        "step_ms_per_rank": [o["step_ms"] for o in outs],
+        "prefill_ms_per_rank": [s["prefill_ms"] for s in sv],
+        "decode_ms_per_rank": [s["decode_ms"] for s in sv],
+        "one_process": {k: one[k] for k in ("grads_ms", "step_ms", "prefill_ms", "decode_ms")},
+        "model_collectives_rank0": mc, "lm_activation_bytes": modeled,
+        "param_bytes_per_rank": o0["param_bytes"], "moment_bytes_per_rank": o0["moment_bytes"],
+        "peak_gib_per_rank": [o["peak"] / 2**30 for o in outs],
+        "max_grad_err": max(o["grad_err"]["max_abs"] for o in outs),
+        "max_param_err": max(o["param_err"]["max_abs"] for o in outs),
+        "max_logit_err": max(s["logit_err"] for s in sv),
+        "rank_start_s": start_s, "ranks_s": ranks_s, "smoke": smoke.get("report")}
+    say("phase 22: " + json.dumps(report))
+    say(f"phase 22: {time.perf_counter() - t_phase + smoke.get('s', 0.0):.1f} s (its ranks "
+        f"{ranks_s:.1f} s; the one-process reference is phase 19's, its serving run "
+        f"{one['serve_s']:.1f} s inside phase 19; (c)'s SMOKE checks {smoke.get('s', 0.0):.1f} s "
+        "in phase 18); no run on several cards was possible (one card on this host)")
+
+
+# phase 22 (c)'s results, filled by phase 18 (tensor_parallel_phase)
+_WL_SMOKE: dict = {}
+
+
+def _wl_smoke_cfg(name: str):
+    """A phase 22 (c) case's SMOKE config (f32 compute) and loss."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+
+    arch, fields, _, _ = WL_SMOKE[name]
+    cfg = get_arch(arch).smoke_config
+    if get_arch(arch).family == "recsys":
+        return cfg, steps.recsys_loss(cfg)
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.float32, **fields)
+    return cfg, lambda p, b: tf.loss_fn(cfg, p, b)
+
+
+def _wl_smoke_batch(name: str, cfg, dev) -> dict:
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.lm import LMDataConfig, lm_batch
+    from repro_torch.launch import steps
+
+    if get_arch(WL_SMOKE[name][0]).family == "recsys":
+        return steps.recsys_batch(cfg, SMOKE_ROWS, dev, RECSYS_SEED)
+    B, S = LM_SMOKE_BATCH
+    return lm_batch(LMDataConfig(cfg.vocab, S, B, LM_SEED), 0, dev)
+
+
+def _wl_smoke_one_process(ref_dir: str) -> dict:
+    """Phase 22 (c)'s references: each SMOKE case's one-process step
+    (its ``microbatches``) on the card, its gradients saved to
+    ``ref_dir``."""
+    import os
+
+    import torch
+
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    dev = torch.device(DEVICE)
+    t = time.perf_counter()
+    out = {}
+    for name, (_, _, _, mb) in WL_SMOKE.items():
+        cfg, loss = _wl_smoke_cfg(name)
+        step = make_train_step(loss, OptimizerConfig(**TP_OPT), mb)
+        l, _, grads = step.value_and_grad(cfg.init(LM_SEED, dev), _wl_smoke_batch(name, cfg, dev))
+        _save_leaves(grads, os.path.join(ref_dir, name))
+        out[name] = float(l)
+    out["s"] = time.perf_counter() - t
+    return out
+
+
+def _wl_smoke_rank(device: str, ref_dir: str) -> dict:
+    """Phase 22 (c) in one of phase 18's 4 ranks: each SMOKE case on its
+    mesh, one step's loss and gradient blocks against one process's."""
+    import torch
+
+    from repro_torch.core import make_process_mesh
+    from repro_torch.launch import steps
+    from repro_torch.models.params import param_shardings
+    from repro_torch.sharding.specs import use_sharding
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    cuda = device == "cuda"
+    out = {}
+    t = time.perf_counter()
+    for name, (_, _, shape, mb) in WL_SMOKE.items():
+        mesh = make_process_mesh(shape, TRAIN_AXES, device=None if cuda else device)
+        cfg, loss = _wl_smoke_cfg(name)
+        with use_sharding(mesh):
+            step = make_train_step(loss, OptimizerConfig(**TP_OPT), mb,
+                                   steps.moment_shardings(cfg.param_defs(), mesh))
+        params = cfg.init(LM_SEED, mesh.device, mesh)
+        (l, _, grads), ms = _timed(lambda: step.value_and_grad(
+            params, _wl_smoke_batch(name, cfg, mesh.device)), device)
+        out[name] = {"loss": float(l), "ms": ms, "grad_err": _block_errors(
+            grads, f"{ref_dir}/{name}", param_shardings(cfg.param_defs(), mesh), SP_GRAD_TOL,
+            "phase 22 (c)")}
+    out["s"] = time.perf_counter() - t
+    return out
+
+
+def _wl_smoke_report(outs: list, one: dict) -> None:
+    """Phase 22 (c)'s checks and line, after phase 18's ranks; keeps the
+    report and the seconds for phase 22's lines."""
+    import numpy as np
+
+    runs = [o["wl"] for o in outs]
+    for name in WL_SMOKE:
+        got = [r[name] for r in runs]
+        check(all(g["loss"] == got[0]["loss"] for g in got),
+              f"phase 22 (c): {name}: the ranks' losses differ")
+        check(np.allclose(got[0]["loss"], one[name], **TP_LOSS_TOL),
+              f"phase 22 (c): {name}: loss {got[0]['loss']} vs one process's {one[name]}")
+        for r, g in enumerate(got):
+            check(g["grad_err"]["excess"] <= 0,
+                  f"phase 22 (c): {name}: rank {r}'s gradients outside {SP_GRAD_TOL}: "
+                  f"{g['grad_err']}")
+    report = {name: {"mesh": dict(zip(TRAIN_AXES, WL_SMOKE[name][2])),
+                     "microbatches": WL_SMOKE[name][3], "loss": runs[0][name]["loss"],
+                     "one_process_loss": one[name],
+                     "max_grad_err": max(r[name]["grad_err"]["max_abs"] for r in runs),
+                     "ms_per_rank": [r[name]["ms"] for r in runs]} for name in WL_SMOKE}
+    say("phase 22 (c): SMOKE widths in phase 18's ranks, f32, each against one process's step "
+        "with the same microbatches (losses within TP_LOSS_TOL, gradient blocks within "
+        "SP_GRAD_TOL): " + json.dumps(report))
+    _WL_SMOKE.update(report=report, s=one["s"] + max(r["s"] for r in runs))
 
 
 def _paths(tree) -> list[str]:
@@ -6318,7 +6721,8 @@ def recsys_profiles():
 
 def lm_profiles():
     """Phase 5 for phases 12–13's LMs: one profiler pass over a prefill of
-    ``LM_PROFILE_CUT[0]`` tokens of each published config, one over a
+    ``LM_PROFILE_CUT[0]`` tokens of each published config but
+    ``LM_UNPROFILED``'s, one over a
     decode step at ``LM_PROFILE_CUT[1]`` cached tokens (batch 1) of the
     ``LM_PROFILE_DECODE`` ones, and one over a train step of
     ``LM_PROFILE_CUT[0]`` tokens of ``LM_PROFILE_TRAIN``, each model built
@@ -6332,6 +6736,8 @@ def lm_profiles():
 
     dev = torch.device(DEVICE)
     for name in LM_ARCHS + MOE_ARCHS:
+        if name in LM_UNPROFILED:
+            continue
         spec = get_arch(name)
         params = spec.config.init(LM_SEED, dev)
         shapes = [("prefill_32k", LM_PROFILE_CUT[0])]

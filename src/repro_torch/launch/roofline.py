@@ -356,21 +356,27 @@ def _model_split(t: torch.Tensor, dim: int) -> bool:
 
 
 def lm_activation_bytes(cfg, kind: str, B: int, S: int, params: dict, mesh, batch_split: int):
-    """Per-device tensor- and expert-parallel traffic of an LM step: per
-    layer and pass, the all-reduce of each row-parallel ``wo``'s output;
-    where the heads do not divide ``model`` (the port's sequence-parallel
-    attention, ``models.layers``) also the all-gathers of k and v
-    (``B·S·KVH·Dh`` each) and two all-to-alls of ``B·S·H·Dh``, q to the
+    """Per-device tensor- and expert-parallel traffic of an LM step, as the
+    leaves of ``params`` (meta, sharded on ``mesh``) split over ``model``:
+    per layer and pass, the all-reduce of each row-parallel ``wo``'s output
+    (none for a whole attention or FFN, which runs replicated); where the
+    heads do not divide ``model`` (the port's sequence-parallel attention,
+    ``models.layers``) also two all-to-alls of ``B·S·H·Dh``, q to the
     rank's rows and the output back to its columns (when ``model`` does not
-    divide S, one all-gather of q instead); where the experts are split
-    (``models.moe``), an all-gather of the dispatch buffer ``B·E·C·D`` each
-    pass (the expert outputs, forward and recompute; the dispatched tokens'
-    cotangent, backward) and of the ``D·E`` f32 router each forward pass
-    (its backward keeps the rank's block and moves nothing).  A model of the
-    port's own traffic, each all-to-all and gather at the bytes of its
-    output (each rank receives (M − 1)/M of a gather's).  The MoE aux
+    divide S, one all-gather of q instead), and the all-gathers of k and v
+    (``B·S·KVH·Dh`` each) where ``wk``/``wv`` split, or, where they are
+    whole, the all-reduce of their cotangents in a train step's backward;
+    where the experts are split (``models.moe``; none for whole experts),
+    an all-gather of the dispatch buffer ``B·E·C·D`` each pass (the expert
+    outputs, forward and recompute; the dispatched tokens' cotangent,
+    backward) and of the ``D·E`` f32 router each forward pass (its backward
+    keeps the rank's block and moves nothing).  A model of the port's own
+    traffic, each all-to-all and gather at the bytes of its output (each
+    rank receives (M − 1)/M of a gather's).  Not counted: the MoE aux
     loss's gather over the batch axes (``2·E`` f32 a rank per layer and
-    forward pass) is not counted."""
+    forward pass) and, where the vocab splits, the loss's ``pmax`` and
+    ``psum``s of ``[B, S]`` f32 and the serving logits' gather (the
+    embedding lookup's all-reduce is :func:`count_step`'s)."""
     out: dict = {}
     if "model" not in mesh.axis_names or mesh.shape["model"] == 1:
         return out
@@ -390,7 +396,10 @@ def lm_activation_bytes(cfg, kind: str, B: int, S: int, params: dict, mesh, batc
                 _add(out, "all-gather", passes * cfg.n_layers * q)
             else:
                 _add(out, "all-to-all", passes * cfg.n_layers * 2 * q)
-            _add(out, "all-gather", passes * cfg.n_layers * 2 * kv)
+            if _model_split(lay["attn"]["wk"], 2):
+                _add(out, "all-gather", passes * cfg.n_layers * 2 * kv)
+            elif train:  # whole k and v entered the region: one backward sum
+                _add(out, "all-reduce", cfg.n_layers * 2 * kv)
     if not cfg.is_moe and _model_split(lay["mlp"]["wo"], 1):
         per_layer += act
     _add(out, "all-reduce", passes * cfg.n_layers * per_layer)

@@ -176,10 +176,11 @@ def build_lm_cell(
     :class:`~repro_torch.core.distributed.ProcessMesh` (on its device
     unless ``device`` is given) every cell holds the rank's ``param_specs``
     blocks (``cfg.init(seed, device, mesh)``; whole leaves where ``model``
-    is 1), its attention head-parallel when both head counts divide
-    ``model`` and sequence-parallel otherwise (Qwen2.5-14B's 40 / 8 heads
-    on ``model`` = 16), a MoE config's experts split over ``model``
-    (OLMoE's 64 experts, 32 a rank on ``model`` = 2).  The train cell's
+    is 1 or does not divide them, which run replicated: Qwen2.5-14B's
+    attention on ``model`` = 3), its attention head-parallel when both head
+    counts divide ``model`` and sequence-parallel otherwise (Qwen2.5-14B's
+    40 / 8 heads on ``model`` = 16), a MoE config's experts split over
+    ``model`` (OLMoE's 64 experts, 32 a rank on ``model`` = 2).  The train cell's
     step is data-parallel with ZeRO-1's moment blocks (checkpoint them
     with :func:`state_shardings`): every rank holds the global batch and
     steps on its rows.  The serving cells hold the rank's rows of the
@@ -197,8 +198,6 @@ def build_lm_cell(
     meta = _is_meta(dev)
     B, S = p["global_batch"], p["seq_len"]
     procs = isinstance(mesh, ProcessMesh)
-    if procs and mesh.shape.get("model", 1) > 1:
-        tf_lib.check_model_parallel(cfg, mesh.shape["model"])
     if params is None:
         params = (param_shapes(cfg.param_defs(), mesh) if meta
                   else cfg.init(seed, dev, mesh if procs else None))

@@ -24,11 +24,15 @@ on the rank's rows of the graph.  With M > 1 the lm family is also
 tensor-parallel: each rank holds its ``param_specs`` blocks, and attention
 runs head-parallel where both head counts divide M and sequence-parallel
 otherwise (the Qwen2.5 configs' 5 / 1 and 40 / 8 heads); a MoE arch's
-experts split over M too.  The recsys family takes M too: each rank holds
+experts split over M too, and a leaf that M does not divide stays whole
+on every rank, as the reference's ``logical_spec`` keeps it (any M:
+``--model-parallel 3``).  The recsys family takes M too: each rank holds
 its blocks of the embedding tables' rows, the first MLP layers' columns
 and the attention heads (``models.recsys``).  Where the data axis is > 1
 a MoE arch's aux loss and the two-tower in-batch softmax are the global
-batch's, and ``--microbatches`` must stay 1 for them.  Every
+batch's (with ``--microbatches`` m, each microbatch's: a rank steps on its
+rows of each of the global batch's m blocks, as the reference's step cuts
+them).  Every
 rank takes part in a checkpoint (the blocks gathered into global arrays);
 rank 0 alone logs and writes the files.
 """

@@ -17,8 +17,22 @@ enters through :func:`~repro_torch.core.collectives.replicated` over
 ``model`` (its backward sums the input's cotangents over the group) and
 leaves its row-parallel ``wo`` through one
 :func:`~repro_torch.core.collectives.psum` over ``model``.
-:func:`attention_block` splits attention as the reference's adaptive rule
-does (``repro/models/layers.py:136-154``, :func:`head_parallel`):
+
+Where M does not divide a leaf, the reference's shape-aware
+``logical_spec`` keeps it whole (``models.params.split_over_model`` says
+which), and a layer whose leaves are whole runs replicated, as the norms
+do: the caller passes it no mesh, so it enters no region and closes with
+no ``psum``; every rank computes one process's values, and its gradients
+are one process's on every rank.  ``wq`` and ``wo`` share the ``H·Dh``
+dimension, so they are whole or split together, and since ``H·Dh =
+G·KVH·Dh`` k and v are whole whenever q is.  Where q splits and k and v
+are whole (``kv_whole``), k and v are computed from the whole input
+outside the region and enter it through ``replicated``, as the input does:
+the backward adds each rank's share of their cotangents once, and nothing
+is gathered.  Such kv heads never divide M, so that attention is
+sequence-parallel.  :func:`attention_block` splits attention as the
+reference's adaptive rule does (``repro/models/layers.py:136-154``,
+:func:`head_parallel`):
 
 * heads that divide M run head-parallel: the rank's H/M query and KVH/M kv
   heads (GQA groups stay whole), with no other collective;
@@ -26,13 +40,14 @@ does (``repro/models/layers.py:136-154``, :func:`head_parallel`):
   rule): the rank's column blocks cut through heads, so an
   :func:`~repro_torch.core.collectives.all_to_all` sends q to the rank's
   S/M contiguous rows with every head, k and v are gathered whole
-  (:func:`~repro_torch.core.collectives.all_gather` of the columns), the
-  norms and RoPE act on whole heads there, the rank's rows attend
-  causally from their offset, and a second ``all_to_all`` brings the
-  output back to the rank's column block for ``wo``.  When M does not
-  divide S the reference's shape-aware spec drops the axis: q is gathered
-  whole, every rank attends all rows and keeps its output columns.  A
-  decode step (S = 1) with a cache always takes this branch.
+  (:func:`~repro_torch.core.collectives.all_gather` of the columns; whole
+  leaves give them whole already), the norms and RoPE act on whole heads
+  there, the rank's rows attend causally from their offset, and a second
+  ``all_to_all`` brings the output back to the rank's column block for
+  ``wo``.  When M does not divide S the reference's shape-aware spec
+  drops the axis: q is gathered whole, every rank attends all rows and
+  keeps its output columns.  A decode step (S = 1) with a cache always
+  takes this branch.
 
 A KV cache across the ranks of a process mesh is held as the reference's
 ``cache_defs`` spec places it (:class:`CacheBlock`: ``batch`` over (pod,
@@ -231,6 +246,7 @@ def attention_block(
     kv_valid_len: "torch.Tensor | int | None" = None,
     mesh=None,
     block: CacheBlock | None = None,
+    kv_whole: bool = False,
 ):
     """GQA attention with an optional KV cache (decode).
 
@@ -239,29 +255,38 @@ def attention_block(
     returns updated copies) and attention runs over the whole cache.
     Returns (out [B, S, D], (k, v): the cache, or this call's full k/v).
     With a model-parallel ``mesh`` (module docstring) ``p`` holds the
-    rank's blocks and ``out`` is summed over ``model``; without a cache the
-    k/v returned are the rank's heads (head-parallel) or whole
-    (sequence-parallel).  ``block``: the :class:`CacheBlock` the cache
-    layer is (module docstring); default the whole layer.
+    rank's blocks of ``wq`` and ``wo`` and ``out`` is summed over
+    ``model``; ``kv_whole``: ``wk`` and ``wv`` are whole leaves.  Without a
+    cache the k/v returned are the rank's heads (head-parallel) or whole
+    (sequence-parallel).  Without ``mesh`` every leaf is whole and the
+    block runs as one process's (``block`` may still be a rank's).
+    ``block``: the :class:`CacheBlock` the cache layer is (module
+    docstring); default the whole layer.
     """
     B, S, D = x.shape
     H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     seq_parallel = False
+    kv = None
     if mesh is not None:
         M = mesh.shape["model"]
+        if kv_whole:  # from the whole x, entering the region as x does
+            kv = col.replicated(mesh, _kv(x, p, cfg), col.MODEL)[0]
         x = col.replicated(mesh, x, col.MODEL)[0]
         if cfg.qk_norm:  # whole leaves applied to the rank's heads or rows only
             p = {**p, **col.replicated(mesh, {k: p[k] for k in ("q_norm", "k_norm")},
                                        col.MODEL)[0]}
-        if head_parallel(H, KVH, M):
+        if head_parallel(H, KVH, M):  # never with kv_whole: KVH does not divide M
             H, KVH = H // M, KVH // M
         elif k_cache is None:
-            return _sequence_parallel(x, p, cfg, positions, mesh)
+            return _sequence_parallel(x, p, cfg, positions, mesh, kv)
         else:  # with a cache: every row on every rank, q, k and v whole
             seq_parallel = True
-    q, k, v = _qkv(x, p, cfg)
+    q = _q(x, p, cfg)
+    k, v = _kv(x, p, cfg) if kv is None else kv
     if seq_parallel:
-        q, k, v = (col.all_gather(mesh, [t], col.MODEL, dim=2)[0] for t in (q, k, v))
+        q = col.all_gather(mesh, [q], col.MODEL, dim=2)[0]
+        if kv is None:
+            k, v = (col.all_gather(mesh, [t], col.MODEL, dim=2)[0] for t in (k, v))
     q = q.reshape(B, S, H, Dh)
     k = k.reshape(B, S, KVH, Dh)
     v = v.reshape(B, S, KVH, Dh)
@@ -305,17 +330,22 @@ def attention_block(
     return out, new_kv
 
 
-def _qkv(x: torch.Tensor, p: dict, cfg):
-    """The q, k, v projections (the rank's column blocks on a model mesh),
-    with their biases: ``[B, S, H·Dh]``, ``[B, S, KVH·Dh]`` twice."""
+def _q(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
+    """The q projection (the rank's column block on a model mesh), with its
+    bias: ``[B, S, H·Dh]``."""
     q = _proj(x, p["wq"])
+    return q + p["bq"].to(x.dtype) if cfg.qkv_bias else q
+
+
+def _kv(x: torch.Tensor, p: dict, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k and v projections (the rank's column blocks, or whole), with
+    their biases: ``[B, S, KVH·Dh]`` each."""
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
     if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    return q, k, v
+    return k, v
 
 
 def head_parallel(n_heads: int, n_kv_heads: int, model: int) -> bool:
@@ -325,15 +355,22 @@ def head_parallel(n_heads: int, n_kv_heads: int, model: int) -> bool:
     return n_heads % model == 0 and n_kv_heads % model == 0
 
 
-def _sequence_parallel(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, mesh):
+def _sequence_parallel(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, mesh,
+                       kv=None):
     """Sequence-parallel attention on a model mesh (module docstring):
-    ``x`` [B, S, D] entered the region; returns (the ``psum`` of the rank's
-    ``wo`` rows, (k, v) whole)."""
+    ``x`` [B, S, D] entered the region; ``kv``: the whole k and v, entered
+    too, where they are whole leaves (else the rank's column blocks are
+    gathered); returns (the ``psum`` of the rank's ``wo`` rows, (k, v)
+    whole)."""
     B, S, _ = x.shape
     H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     M = mesh.shape["model"]
     r = mesh.coords_of(mesh.rank)["model"]
-    q, k, v = _qkv(x, p, cfg)
+    q = _q(x, p, cfg)
+    if kv is None:
+        k, v = (col.all_gather(mesh, [t], col.MODEL, dim=2)[0] for t in _kv(x, p, cfg))
+    else:
+        k, v = kv
     if S % M == 0:  # the rank's contiguous rows, every head
         n = S // M
         q = col.all_to_all(mesh, [q], col.MODEL, split_dim=1, concat_dim=2)[0]
@@ -342,8 +379,8 @@ def _sequence_parallel(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, m
         n = S
         q = col.all_gather(mesh, [q], col.MODEL, dim=2)[0]
         q_pos, q_offset = positions, 0
-    k = col.all_gather(mesh, [k], col.MODEL, dim=2)[0].reshape(B, S, KVH, Dh)
-    v = col.all_gather(mesh, [v], col.MODEL, dim=2)[0].reshape(B, S, KVH, Dh)
+    k = k.reshape(B, S, KVH, Dh)
+    v = v.reshape(B, S, KVH, Dh)
     q = q.reshape(B, n, H, Dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
@@ -364,7 +401,8 @@ def _sequence_parallel(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, m
 def swiglu(x: torch.Tensor, p: dict, mesh=None) -> torch.Tensor:
     """SwiGLU; with a model-parallel ``mesh`` column-parallel ``wi_gate`` /
     ``wi_up`` and row-parallel ``wo`` (the rank's d_ff/M columns), summed
-    over ``model``."""
+    over ``model``; without one (one process, or a d_ff that ``model``
+    does not divide) on the whole leaves."""
     if mesh is not None:
         x = col.replicated(mesh, x, col.MODEL)[0]
     gate = _proj(x, p["wi_gate"])

@@ -56,6 +56,11 @@ on the batch axes):
   and the combine adds in ascending slot order as one process does (no
   combine on each rank followed by a ``psum``, which would reorder the
   sums).
+* **whole experts.**  Where M does not divide the expert count, the
+  reference's ``logical_spec`` keeps the router and the experts whole
+  (``split=False``): every rank routes, dispatches and combines every
+  expert as one process does, with no gather over ``model`` and no
+  ``split``; the aux loss is still the global batch's.
 """
 from __future__ import annotations
 
@@ -164,16 +169,18 @@ def _route(x: torch.Tensor, p: dict, cfg):
     return probs, top_p, top_e
 
 
-def moe_ffn(x: torch.Tensor, p: dict, cfg, mesh=None,
-            global_aux: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(x: torch.Tensor, p: dict, cfg, mesh=None, global_aux: bool = True,
+            split: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] → (out [B, S, D], aux_loss f32 scalar).  ``mesh``: a
     process mesh (module docstring), where ``x`` is the rank's rows and
     ``p`` the rank's blocks; None on one process.  ``global_aux``: the aux
     over the global batch on a data-split mesh (the train step's), else
-    over the rank's rows (serving, which discards it)."""
+    over the rank's rows (serving, which discards it).  ``split``: whether
+    ``p``'s router and experts are blocks over ``model``
+    (``models.params.split_over_model``); False where they are whole."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    M = 1 if mesh is None else mesh.shape.get("model", 1)
+    M = 1 if mesh is None or not split else mesh.shape.get("model", 1)
     if M > 1:
         p = {**p, "router": col.all_gather_invariant(mesh, [p["router"]], col.MODEL,
                                                      dim=1)[0]}

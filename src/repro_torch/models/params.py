@@ -10,7 +10,8 @@ arrays across, checked against the definitions, so that both packages
 compute with the same weights.  On a
 :class:`~repro_torch.core.distributed.ProcessMesh` a rank holds only its
 block of each leaf (``param_shardings``, ``place_params``,
-``init_params(..., mesh=...)``).
+``init_params(..., mesh=...)``), and :func:`split_over_model` says which
+leaves those blocks cut over ``model``.
 """
 from __future__ import annotations
 
@@ -115,6 +116,22 @@ def param_shardings(defs: dict, mesh) -> dict:
     """The :class:`~repro_torch.sharding.specs.NamedSharding` of every leaf
     of ``defs`` on ``mesh`` (its :func:`param_specs` entry)."""
     return _unflatten(dict(_flatten_shardings(defs, mesh)))
+
+
+def split_over_model(defs: dict, mesh) -> dict:
+    """Per leaf of ``defs`` (a tree like it of bools), whether a rank of
+    ``mesh`` holds it as a block over ``model``: its sharding
+    (:func:`param_shardings`) names ``model``, which has more than one
+    position, and splits the leaf across the ranks of a process mesh
+    (:func:`~repro_torch.sharding.specs.splits`).  A leaf whose dimension
+    ``model`` does not divide is False: ``logical_spec`` drops the axis
+    and keeps it whole, and the layers that use it run replicated."""
+    def walk(s):
+        if isinstance(s, dict):
+            return {k: walk(v) for k, v in s.items()}
+        return splits(s) and s.mesh.shape.get("model", 1) > 1 and "model" in s.spec.axes()
+
+    return walk(param_shardings(defs, mesh))
 
 
 def place_params(params: dict, shardings: dict) -> dict:

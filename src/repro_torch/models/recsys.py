@@ -72,7 +72,7 @@ from repro_torch.kernels.geo_score.ops import geo_score_docs
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamDef, init_params, param_count, param_shardings
 from repro_torch.sharding.specs import DEFAULT_RULES, get_context, splits
-from repro_torch.train.loop import batch_axes, rank_microbatches
+from repro_torch.train.loop import batch_axes
 
 
 # ---------------------------------------------------------------------------
@@ -381,20 +381,17 @@ def two_tower_loss(cfg: TwoTowerConfig, params: dict, batch: dict):
     batch's mean, as the reference's loss on its mesh; the gradient is
     that mean's: each rank's loss has the gradient of its rows' mean, the
     gather's backward and ``replicated``'s add the ranks' terms, and the
-    step's division by D makes the sum of D row means the global mean.  A
-    step that cuts each rank's rows into microbatches raises
-    ``NotImplementedError``: the reference's microbatches are blocks of
-    the global batch, each spread over the devices."""
+    step's division by D makes the sum of D row means the global mean.
+    With ``microbatches`` > 1 the step gives each rank its rows of one
+    microbatch of the global batch at a time (the reference's order), so
+    the gathered columns are that microbatch's, as the reference's
+    negatives are."""
     u = two_tower_user(cfg, params, batch)  # [B, E]
     v = two_tower_item(cfg, params, batch["target"], batch["item_fields"])  # [B, E]
     logq, row0 = batch["logq"], 0
     mesh = get_context().mesh
     axes = batch_axes(mesh) if isinstance(mesh, ProcessMesh) else ()
     if axes and col.group_size(mesh, axes) > 1:
-        if rank_microbatches() > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: a step with microbatches > 1 on the data-split mesh {mesh.shape} "
-                "(the in-batch softmax over each rank's microbatches is not the reference's)")
         row0 = mesh.group(axes, mesh.rank).index(mesh.rank) * u.shape[0]
         v = col.all_gather(mesh, [v], axes, dim=0)[0]
         logq = col.all_gather(mesh, [logq], axes, dim=0)[0]

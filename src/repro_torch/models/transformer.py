@@ -35,9 +35,13 @@ over ``model`` (:mod:`~repro_torch.models.moe`: the rank's E/M experts
 and router columns), and on any process mesh whose batch axes split the
 batch its aux loss is the global batch's: :func:`loss_fn` then passes the
 process mesh to the MoE layers.  Remat "full" recomputes the collectives
-in the backward, in the same order on every rank.  Projection widths or
-expert counts that M does not divide raise ``NotImplementedError``
-(:func:`check_model_parallel`).
+in the backward, in the same order on every rank.  A leaf that M does not
+divide (a projection width, d_ff, the expert count or the padded vocab)
+is kept whole, as the reference's ``logical_spec`` keeps it
+(:func:`~repro_torch.models.params.split_over_model` says which, once a
+call: :func:`_parts`), and the part that uses it runs replicated on every
+rank: whole attention, FFN or experts with no collective over ``model``,
+a whole vocab's plain lookup and loss (no ``psum``, no ``pmax``).
 
 Serving across ranks: under ``use_sharding(ProcessMesh)`` :func:`prefill`
 and :func:`decode_step` take the rank's rows of the batch (the ``batch``
@@ -48,9 +52,9 @@ the kv heads, ``kv_seq`` over (pod, data) where the batch does not
 divide).  The layers run as in the loss, attention with the cache block
 (:mod:`~repro_torch.models.layers`), and the logits are one process's for
 the rank's rows: the rank's vocab columns joined by one exact
-``all_gather`` over ``model``.  A MoE config's experts split over
-``model`` as in training; its aux loss, which serving discards, is the
-rank's rows' (no gather over the batch axes).
+``all_gather`` over ``model`` (none where the vocab is whole).  A MoE
+config's experts split over ``model`` as in training; its aux loss, which
+serving discards, is the rank's rows' (no gather over the batch axes).
 """
 from __future__ import annotations
 
@@ -71,9 +75,15 @@ from repro_torch.core.distributed import ProcessMesh
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.params import ParamDef, init_params, param_count, param_shardings
+from repro_torch.models.params import (
+    ParamDef,
+    init_params,
+    param_count,
+    param_shardings,
+    split_over_model,
+)
 from repro_torch.sharding.specs import get_context, splits
-from repro_torch.train.loop import batch_axes, rank_microbatches
+from repro_torch.train.loop import batch_axes
 
 
 @dataclass(frozen=True)
@@ -169,9 +179,8 @@ class TransformerConfig:
 
     def init(self, seed: int = 0, device=None, mesh=None) -> dict:
         """Parameters from ``seed`` on ``device``; on a process mesh the
-        rank's blocks (:func:`~repro_torch.models.params.init_params`)."""
-        if mesh is not None:
-            check_model_parallel(self, mesh.shape.get("model", 1))
+        rank's blocks (:func:`~repro_torch.models.params.init_params`;
+        whole leaves where ``model`` does not divide them)."""
         return init_params(self.param_defs(), seed, device, mesh)
 
     def n_params(self) -> int:
@@ -186,53 +195,44 @@ class TransformerConfig:
         return int(total - expert_p * (1 - self.top_k / self.n_experts))
 
 
-def check_model_parallel(cfg: TransformerConfig, model: int) -> None:
-    """Raise ``NotImplementedError`` unless the LM splits over ``model``
-    ranks as its ``param_specs`` say: projection widths ``H·Dh`` and
-    ``KVH·Dh``, the padded vocab, and ``d_ff`` (a dense config) or the
-    expert count (a MoE config; ``expert_ffn`` is never split) that divide
-    it.  Else the reference's ``logical_spec`` leaves those leaves whole,
-    which the port does not do yet (ROADMAP Queue 1, item 6h).  Any head
-    count is taken: heads that do not divide ``model`` run
-    sequence-parallel (:func:`~repro_torch.models.layers.head_parallel`)."""
-    if model == 1:
-        return
-    split = (("the expert count", cfg.n_experts) if cfg.is_moe else ("d_ff", cfg.d_ff),)
-    for what, n in (("the q projection width H*Dh", cfg.n_heads * cfg.d_head),
-                    ("the kv projection width KVH*Dh", cfg.n_kv_heads * cfg.d_head),
-                    *split, ("the padded vocab", cfg.padded_vocab)):
-        if n % model:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} {n} does not divide model = {model} (a leaf the "
-                "reference keeps whole: ROADMAP Queue 1, item 6h)")
+@dataclass(frozen=True)
+class _Parts:
+    """The model mesh each part of the LM computes on: the mesh where the
+    part's leaves are the rank's blocks over ``model``, None where they are
+    whole and the part runs replicated (:func:`_parts`)."""
+
+    vocab: Any = None  # embed / unembed and the loss
+    attn: Any = None  # wq, wo (and bq)
+    kv_whole: bool = False  # wk, wv whole while wq splits
+    ffn: Any = None  # a dense config's MLP
+    experts: bool = False  # a MoE config's router and experts split
 
 
-def _model_mesh(cfg: TransformerConfig, mesh):
-    """:func:`~repro_torch.core.collectives.model_mesh` of ``mesh``,
-    checked for ``cfg``."""
-    mesh = col.model_mesh(mesh)
-    if mesh is not None:
-        check_model_parallel(cfg, mesh.shape["model"])
-    return mesh
+def _parts(cfg: TransformerConfig, mesh) -> _Parts:
+    """The :class:`_Parts` of ``cfg`` on ``mesh`` (a model mesh, or None:
+    every part whole), read from the leaves' shardings
+    (:func:`~repro_torch.models.params.split_over_model`)."""
+    if mesh is None:
+        return _Parts()
+    split = split_over_model(cfg.param_defs(), mesh)
+    lay = split["layers"]
+    q = lay["attn"]["wq"]
+    return _Parts(vocab=mesh if split["embed"] else None, attn=mesh if q else None,
+                  kv_whole=q and not lay["attn"]["wk"],
+                  ffn=mesh if not cfg.is_moe and lay["mlp"]["wo"] else None,
+                  experts=cfg.is_moe and lay["moe"]["wi_gate"])
 
 
 def _moe_mesh(cfg: TransformerConfig, mesh, train: bool = True):
     """The process mesh a MoE config's layers take (:func:`moe_lib.moe_ffn`):
     the sharding context's ``mesh`` when it splits the batch (``train``:
-    the aux loss is the global batch's) or the experts, else None.  A
-    data-split train step that cuts each rank's rows into microbatches
-    raises ``NotImplementedError``: its aux loss would be over other rows
-    than the reference's microbatches."""
+    the aux loss is the global batch's) or has a ``model`` axis, else
+    None."""
     if not cfg.is_moe or not isinstance(mesh, ProcessMesh):
         return None
     D = col.group_size(mesh, batch_axes(mesh)) if train else 1
     if D == 1 and mesh.shape.get("model", 1) == 1:
         return None
-    if D > 1 and rank_microbatches() > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: a MoE step with microbatches > 1 on the data-split mesh "
-            f"{mesh.shape} (the aux loss over each rank's microbatches is not the "
-            "reference's)")
     return mesh
 
 
@@ -282,27 +282,35 @@ def _layer(params: dict, i: int) -> dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in params.items()}
 
 
-def _ffn(cfg: TransformerConfig, x: torch.Tensor, lp: dict, mesh=None, moe_mesh=None,
+def _ffn(cfg: TransformerConfig, x: torch.Tensor, lp: dict, parts: _Parts, moe_mesh=None,
          global_aux: bool = True):
-    """The FFN half of a layer: (x + FFN(norm(x)), aux).  ``mesh``: a
-    model mesh or None; ``moe_mesh``: the process mesh of a MoE config's
-    layers (:func:`_moe_mesh`) or None; ``global_aux`` as
+    """The FFN half of a layer: (x + FFN(norm(x)), aux).  ``parts``: the
+    call's :class:`_Parts`; ``moe_mesh``: the process mesh of a MoE
+    config's layers (:func:`_moe_mesh`) or None; ``global_aux`` as
     :func:`moe_lib.moe_ffn`'s."""
     y = L.rms_norm(x, lp["ln2"])
     if cfg.is_moe:
-        f, aux = moe_lib.moe_ffn(y, lp["moe"], cfg, moe_mesh, global_aux)
+        f, aux = moe_lib.moe_ffn(y, lp["moe"], cfg, moe_mesh, global_aux, parts.experts)
     else:  # a dense layer's aux loss is 0
-        f = L.swiglu(y, lp["mlp"], mesh)
+        f = L.swiglu(y, lp["mlp"], parts.ffn)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + f, aux
 
 
+def _attention(cfg: TransformerConfig, x: torch.Tensor, lp: dict, positions: torch.Tensor,
+               parts: _Parts, **cache):
+    """The attention block of layer ``lp`` on the normed ``x``, as
+    ``parts`` splits it; ``cache``: :func:`~repro_torch.models.layers.attention_block`'s
+    cache arguments."""
+    return L.attention_block(L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions,
+                             mesh=parts.attn, kv_whole=parts.kv_whole, **cache)
+
+
 def _layer_body(cfg: TransformerConfig, x: torch.Tensor, lp: dict, positions: torch.Tensor,
-                mesh=None, moe_mesh=None):
-    """One layer; ``mesh``: a model mesh or None; ``moe_mesh`` as
-    :func:`_ffn`'s."""
-    h, _ = L.attention_block(L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions, mesh=mesh)
-    return _ffn(cfg, x + h, lp, mesh, moe_mesh)
+                parts: _Parts = _Parts(), moe_mesh=None):
+    """One layer; ``parts`` and ``moe_mesh`` as :func:`_ffn`'s."""
+    h, _ = _attention(cfg, x, lp, positions, parts)
+    return _ffn(cfg, x + h, lp, parts, moe_mesh)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -330,37 +338,45 @@ def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, mesh=Non
     """tokens i32[B, S] → (logits f32[B, S, V], aux_loss: the sum over
     layers).  ``mesh``: a model mesh (:func:`loss_fn` passes the sharding
     context's), where ``params`` are the rank's blocks and the logits the
-    rank's vocab columns; ``moe_mesh``: the process mesh of a MoE config's
-    layers (:func:`_moe_mesh`).  The layers take both as arguments, as
-    remat recomputes them on autograd's device thread."""
+    rank's vocab columns (all of them where the vocab is whole);
+    ``moe_mesh``: the process mesh of a MoE config's layers
+    (:func:`_moe_mesh`)."""
+    return _forward(cfg, params, tokens, _parts(cfg, mesh), moe_mesh)
+
+
+def _forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, parts: _Parts,
+             moe_mesh=None):
+    """:func:`forward` as ``parts`` splits the LM.  The layers take the
+    meshes as arguments, as remat recomputes them on autograd's device
+    thread."""
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens, mesh)
+    x = _embed(cfg, params, tokens, parts.vocab)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
-    body = _remat(cfg, functools.partial(_layer_body, cfg, mesh=mesh, moe_mesh=moe_mesh))
+    body = _remat(cfg, functools.partial(_layer_body, cfg, parts=parts, moe_mesh=moe_mesh))
     auxs = []
     for i in range(cfg.n_layers):
         x, a = body(x, _layer(params["layers"], i), positions)
         auxs.append(a)
     x = L.rms_norm(x, params["ln_f"])
-    return _unembed(cfg, params, x, mesh), torch.stack(auxs).sum()
+    return _unembed(cfg, params, x, parts.vocab), torch.stack(auxs).sum()
 
 
 def loss_fn(cfg: TransformerConfig, params: dict, batch: dict):
     """batch: tokens i32[B, S], labels i32[B, S] (−1 = ignore).  Returns
     (total, metrics): the reference's loss, z-loss and weighted aux loss;
-    vocab-parallel under a model mesh, the sharding context's
-    (:func:`_vocab_parallel_terms`); a MoE config's aux over the global
-    batch on a data-split process mesh (:func:`_moe_mesh`)."""
+    under a model mesh, the sharding context's, vocab-parallel where the
+    vocab splits (:func:`_vocab_parallel_terms`); a MoE config's aux over
+    the global batch on a data-split process mesh (:func:`_moe_mesh`)."""
     ctx_mesh = get_context().mesh
-    mesh = _model_mesh(cfg, ctx_mesh)
-    logits, aux = forward(cfg, params, batch["tokens"], mesh, _moe_mesh(cfg, ctx_mesh))
+    parts = _parts(cfg, col.model_mesh(ctx_mesh))
+    logits, aux = _forward(cfg, params, batch["tokens"], parts, _moe_mesh(cfg, ctx_mesh))
     labels = batch["labels"].long()
     mask = labels >= 0
-    if mesh is None:
+    if parts.vocab is None:
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
     else:
-        lse, ll = _vocab_parallel_terms(mesh, logits, labels)
+        lse, ll = _vocab_parallel_terms(parts.vocab, logits, labels)
     nll = (lse - ll) * mask
     n = torch.clamp(mask.sum(), min=1)
     loss = nll.sum() / n
@@ -433,7 +449,7 @@ def cache_block(cache: dict) -> L.CacheBlock:
 
 
 def _serving(cfg: TransformerConfig, cache: dict, rows: int):
-    """(model mesh, MoE mesh, cache block) of a serving call under the
+    """(:class:`_Parts`, MoE mesh, cache block) of a serving call under the
     sharding context, checked against the cache and the ``rows`` given."""
     ctx_mesh = get_context().mesh
     if (isinstance(ctx_mesh, ProcessMesh) and ctx_mesh.size > 1
@@ -447,12 +463,14 @@ def _serving(cfg: TransformerConfig, cache: dict, rows: int):
     if rows != block.size[1]:
         raise ValueError(f"{rows} rows of tokens for a cache block of {block.size[1]} rows "
                          "(on a process mesh, pass the rank's rows of the batch)")
-    return _model_mesh(cfg, ctx_mesh), _moe_mesh(cfg, ctx_mesh, train=False), block
+    return (_parts(cfg, col.model_mesh(ctx_mesh)), _moe_mesh(cfg, ctx_mesh, train=False),
+            block)
 
 
 def _serve_logits(cfg: TransformerConfig, params: dict, x: torch.Tensor, mesh):
     """f32 logits [B, 1, padded_vocab] of ``x`` [B, 1, D]: on a model mesh
-    the ranks' vocab columns gathered in rank order."""
+    whose ranks hold vocab blocks (``mesh``) their columns gathered in
+    rank order."""
     logits = _unembed(cfg, params, x, mesh)
     if mesh is not None:
         logits = col.all_gather(mesh, [logits], col.MODEL, dim=-1)[0]
@@ -467,23 +485,22 @@ def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, cache: d
     holding a second copy of it.  Across ranks (module docstring) each rank
     writes and zeroes its block only."""
     B, S = tokens.shape
-    mesh, moe_mesh, block = _serving(cfg, cache, B)
+    parts, moe_mesh, block = _serving(cfg, cache, B)
     if S > block.shape[2]:
         raise ValueError(f"a prompt of {S} tokens for a cache of {block.shape[2]} positions")
-    x = _embed(cfg, params, tokens, mesh)
+    x = _embed(cfg, params, tokens, parts.vocab)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        h, (k, v) = L.attention_block(L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions,
-                                      mesh=mesh)
+        h, (k, v) = _attention(cfg, x, lp, positions, parts)
         block.write(cache["k"][i], k, 0)
         block.write(cache["v"][i], v, 0)
-        x, _ = _ffn(cfg, x + h, lp, mesh, moe_mesh, global_aux=False)
+        x, _ = _ffn(cfg, x + h, lp, parts, moe_mesh, global_aux=False)
     first = max(S - block.start[2], 0)  # the block's position S
     cache["k"][:, :, first:] = 0
     cache["v"][:, :, first:] = 0
     x = L.rms_norm(x, params["ln_f"])
-    logits = _serve_logits(cfg, params, x[:, -1:, :], mesh)
+    logits = _serve_logits(cfg, params, x[:, -1:, :], parts.vocab)
     return logits[:, 0], cache
 
 
@@ -498,18 +515,16 @@ def decode_step(
     place.  Returns (logits f32[B, V], cache).  Across ranks (module
     docstring) the write lands in the block that holds ``pos``."""
     B = tokens.shape[0]
-    mesh, moe_mesh, block = _serving(cfg, cache, B)
-    x = _embed(cfg, params, tokens, mesh)[:, None, :]  # [B, 1, D]
+    parts, moe_mesh, block = _serving(cfg, cache, B)
+    x = _embed(cfg, params, tokens, parts.vocab)[:, None, :]  # [B, 1, D]
     pos = int(pos)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        h, _ = L.attention_block(
-            L.rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions,
-            k_cache=cache["k"][i], v_cache=cache["v"][i], cache_pos=pos,
-            kv_valid_len=pos + 1, mesh=mesh, block=block,
-        )
-        x, _ = _ffn(cfg, x + h, lp, mesh, moe_mesh, global_aux=False)
+        h, _ = _attention(cfg, x, lp, positions, parts, k_cache=cache["k"][i],
+                          v_cache=cache["v"][i], cache_pos=pos, kv_valid_len=pos + 1,
+                          block=block)
+        x, _ = _ffn(cfg, x + h, lp, parts, moe_mesh, global_aux=False)
     x = L.rms_norm(x, params["ln_f"])
-    logits = _serve_logits(cfg, params, x, mesh)
+    logits = _serve_logits(cfg, params, x, parts.vocab)
     return logits[:, 0], cache

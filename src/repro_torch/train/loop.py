@@ -20,7 +20,6 @@ restores its own blocks of the global arrays.
 """
 from __future__ import annotations
 
-import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -63,18 +62,6 @@ def batch_axes(mesh) -> tuple[str, ...]:
     return tuple(a for a in DEFAULT_RULES["batch"] if a in mesh.axis_names)
 
 
-_STEP = threading.local()
-
-
-def rank_microbatches() -> int:
-    """The microbatches each rank's rows are cut into by the data-parallel
-    step running on this thread (1 outside one).  A loss whose terms are
-    statistics of the global batch reads it: the rank's rows-then-
-    microbatches order groups other rows than the reference's
-    microbatches-then-devices order."""
-    return getattr(_STEP, "microbatches", 1)
-
-
 def make_train_step(
     loss_fn: Callable,  # (params, batch) -> (loss, metrics)
     opt_cfg: OptimizerConfig,
@@ -89,26 +76,29 @@ def make_train_step(
 
     Built under ``use_sharding(mesh)`` with a
     :class:`~repro_torch.core.distributed.ProcessMesh`, the step is
-    data-parallel: every rank is given the global batch and takes its rows
-    (the leading dimension over :func:`batch_axes`, by its place there);
-    the parameters enter the loss through
+    data-parallel: every rank is given the global batch, cuts it into
+    ``microbatches`` blocks as the reference's step does, and takes its
+    rows of each (the block's leading dimension over :func:`batch_axes`,
+    by its place there): the reference's microbatches-then-devices order,
+    so a microbatch's rows across the ranks are the reference's
+    microbatch.  The parameters enter the loss through
     :func:`~repro_torch.core.collectives.replicated`, whose backward adds
-    the ranks' gradients from zero in rank order, and the step divides by
-    the ``D`` batch shards; the losses are added the same way.  Those are
-    the ``microbatches=D`` step's operations, so a ``D``-rank step of a
-    loss that is a mean of per-row terms (the dense LMs, the CTR models)
-    equals it bitwise.  Two losses are statistics of the global batch,
-    which they gather over the batch axes: a MoE config's aux loss
+    the ranks' gradients of each microbatch from zero in rank order, and
+    the step divides by ``microbatches · D`` (``D`` the batch shards); the
+    losses are added the same way.  Those are the one-process
+    ``microbatches=m·D`` step's operations, so a ``D``-rank step of a loss
+    that is a mean of per-row terms (the dense LMs, the CTR models) equals
+    it bitwise.  Two losses are statistics of the global batch, which they
+    gather over the batch axes: a MoE config's aux loss
     (:mod:`~repro_torch.models.moe`) and the two-tower in-batch softmax,
     whose negatives are every row's target
     (:func:`~repro_torch.models.recsys.two_tower_loss`: the rank's loss is
     its rows' mean against the gathered targets, so the step's sum over
     ``D`` divided by ``D`` is the global mean, and so are its gradients).
-    Their ``D``-rank step equals the one-process ``microbatches=1`` step
-    within rounding, and with ``microbatches`` > 1 on a data-split mesh
-    their loss raises ``NotImplementedError`` (:func:`rank_microbatches`),
-    as the reference's microbatches are blocks of the global batch.  A
-    :func:`global_loss` is run on the batch as given.
+    Each gathers over its microbatch's rows on every rank, so their
+    ``D``-rank step equals the one-process step with the same
+    ``microbatches`` within rounding.  A :func:`global_loss` is run on the
+    batch as given.
 
     With a ``model`` axis > 1 the parameters are the rank's blocks and
     the loss is tensor-parallel over ``model`` (the LM's, its experts too,
@@ -156,15 +146,15 @@ def _microbatch(batch, n: int, i: int):
 
 
 def _mean_over_microbatches(loss_fn, params, batch, n: int, count: int,
-                            reduce=lambda loss: loss):
-    """(loss, grads) over ``n`` microbatches: the gradients summed in f32
-    from zero, the losses (each through ``reduce``) likewise, both divided
-    by ``count``."""
+                            reduce=lambda loss: loss, rows=lambda mb: mb):
+    """(loss, grads) over ``n`` microbatches (each through ``rows``): the
+    gradients summed in f32 from zero, the losses (each through
+    ``reduce``) likewise, both divided by ``count``."""
     grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
                      params)
     loss_sum = torch.zeros((), dtype=torch.float32, device=leaves(params)[0].device)
     for i in range(n):
-        l, _, g = value_and_grad(loss_fn, params, _microbatch(batch, n, i))
+        l, _, g = value_and_grad(loss_fn, params, rows(_microbatch(batch, n, i)))
         for acc, gi in zip(leaves(grads), leaves(g)):
             acc.add_(gi)
         loss_sum = loss_sum + reduce(l)
@@ -192,16 +182,12 @@ def _data_parallel_grads(mesh: ProcessMesh, loss_fn, microbatches, moment_shardi
         if is_global:
             return value_and_grad(loss_fn, params, batch)
         for x in leaves(batch):
-            if x.shape[0] % D:
-                raise ValueError(f"a batch of {x.shape[0]} rows does not split over the "
-                                 f"{D} batch shards of {mesh.shape}")
-        _STEP.microbatches = microbatches
-        try:
-            loss, grads = _mean_over_microbatches(
-                local_loss, params, _microbatch(batch, D, shard), microbatches,
-                microbatches * D, lambda l: col.psum(mesh, [l], axes)[0])
-        finally:
-            _STEP.microbatches = 1
+            if (x.shape[0] // microbatches) % D:
+                raise ValueError(f"a batch of {x.shape[0]} rows in {microbatches} microbatches "
+                                 f"does not split over the {D} batch shards of {mesh.shape}")
+        loss, grads = _mean_over_microbatches(
+            local_loss, params, batch, microbatches, microbatches * D,
+            lambda l: col.psum(mesh, [l], axes)[0], lambda mb: _microbatch(mb, D, shard))
         return loss, {}, grads
 
     return grads_of

@@ -171,11 +171,14 @@ def _lm_cfg(**kw):
     return SimpleNamespace(**{**base, **kw})
 
 
-def _lm_params(mesh, mlp_split=True):
+def _lm_params(mesh, mlp_split=True, kv_width=8):
     from repro_torch.models.params import meta_tensor
 
     return {"layers": {
-        "attn": {"wo": meta_tensor((3, 8, 16), torch.float32, mesh, ("layers", "heads", "embed"))},
+        "attn": {"wo": meta_tensor((3, 8, 16), torch.float32, mesh, ("layers", "heads", "embed")),
+                 # kv_out: split over model = 4 at width 8, whole at 2
+                 "wk": meta_tensor((3, 16, kv_width), torch.float32, mesh,
+                                   ("layers", "embed", "kv_out"))},
         "mlp": {"wo": meta_tensor((3, 32, 16), torch.float32, mesh,
                                   ("layers", "ffn" if mlp_split else None, "embed"))},
         "moe": {"wi_gate": meta_tensor((3, 4, 16, 8), torch.float32, mesh,
@@ -205,15 +208,22 @@ def _lm_params(mesh, mlp_split=True):
     # of k and v (256 B each)
     ("lm_train", {"n_kv_heads": 2}, True,
      {"all-reduce": 3 * 3 * 2 * 512, "all-to-all": 3 * 3 * 2 * 512, "all-gather": 3 * 3 * 2 * 256}),
+    # kv heads 1 whose wk/wv model does not divide (kept whole): no kv
+    # gathers; the whole k and v enter the region, their cotangents
+    # all-reduced once in the backward (4·8·1·4·2 / 2 = 128 B each)
+    ("lm_train", {"n_kv_heads": 1, "kv_width": 2}, True,
+     {"all-reduce": 3 * 3 * 2 * 512 + 3 * 2 * 128, "all-to-all": 3 * 3 * 2 * 512}),
 ])
 def test_lm_activation_bytes_by_hand(kind, cfg_kw, mlp_split, want):
     mesh = _mesh("2x4")
     cfg = _lm_cfg(**cfg_kw)
-    got = rf.lm_activation_bytes(cfg, kind, 4, 8, _lm_params(mesh, mlp_split), mesh, 2)
+    kv_width = cfg_kw.get("kv_width", 8)
+    got = rf.lm_activation_bytes(cfg, kind, 4, 8, _lm_params(mesh, mlp_split, kv_width), mesh, 2)
     assert got == want
     # a model axis of 1 moves nothing
     one = _mesh("8x1")
-    assert rf.lm_activation_bytes(cfg, kind, 4, 8, _lm_params(one, mlp_split), one, 8) == {}
+    assert rf.lm_activation_bytes(cfg, kind, 4, 8, _lm_params(one, mlp_split, kv_width), one,
+                                  8) == {}
 
 
 # N = 100 nodes of H + 3 = 8 + 3 features in f32: 4,400 B of state; 2 layers

@@ -23,9 +23,10 @@ the reference's seed-0 weights (``params_from_numpy``), held to
   mean of the data shards' own aux values lies more than 100 x ``TOL``
   away (a step that averaged the ranks' aux values would fail);
 * (e) bf16 compute on (2, 2): the gaps from one process's bf16 step within
-  ``BF16_GAP_FACTOR`` times that step's own gaps from f32;
-* (f) the guards: experts that ``model`` does not divide, and
-  ``microbatches`` > 1 with a MoE config on a data-split mesh.
+  ``BF16_GAP_FACTOR`` times that step's own gaps from f32.
+
+Experts that ``model`` does not divide, kept whole, and ``microbatches`` >
+1 on a data-split mesh: ``tests/test_torch_whole_leaves.py``.
 
 Besides, ``collectives.split`` and ``all_gather_invariant`` on the (1, 4)
 process mesh are bitwise their loop form on a plain ``Mesh``, forward and
@@ -190,32 +191,6 @@ def _collectives(mesh, ranks: list[int]) -> list:
     return [tuple(t.detach().numpy() for t in ts) for ts in zip(sp, g_sp, gat, g_gat)]
 
 
-def _guards(rank: int) -> dict:
-    out = {}
-    cfg = dataclasses.replace(CFGS["olmoe"], n_experts=6)  # 6 experts on model = 4
-    mesh = make_process_mesh((1, 4), AXES, device="cpu")
-    try:
-        cfg.init(SEED, "cpu", mesh)
-    except NotImplementedError as e:
-        out["experts_init"] = str(e)
-    try:
-        with use_sharding(mesh):
-            loss_fn(cfg, cfg.init(SEED, "cpu"), _batch(cfg))
-    except NotImplementedError as e:
-        out["experts_loss"] = str(e)
-    cfg = CFGS["olmoe"]
-    mesh = make_process_mesh((2, 2), AXES, device="cpu")
-    ms = p_steps.moment_shardings(cfg.param_defs(), mesh)
-    with use_sharding(mesh):
-        step = make_train_step(lambda p, b: loss_fn(cfg, p, b), OPT, microbatches=2,
-                               moment_shardings=ms)
-    try:
-        step.value_and_grad(cfg.init(SEED, "cpu", mesh), _batch(cfg))
-    except NotImplementedError as e:
-        out["microbatches"] = str(e)
-    return out
-
-
 def _rank4(rank: int, weights: dict) -> dict:
     torch.set_num_threads(1)
     out = {"runs": {}, "aux": {}}
@@ -230,7 +205,6 @@ def _rank4(rank: int, weights: dict) -> dict:
     mesh = make_process_mesh((2, 2), AXES, device="cpu")
     cfg16 = dataclasses.replace(CFGS["olmoe"], compute_dtype=torch.bfloat16)
     out["bf16"] = _run(cfg16, weights["olmoe"], mesh)
-    out["guards"] = _guards(rank)
     return out
 
 
@@ -437,17 +411,6 @@ def test_expert_parallel_bf16_step_equals_one_process(world, one_process, refere
     print(f"(2, 2) bf16 gaps {tp}; one process's bf16 from f32 {bf16}")
     for k in tp:
         assert tp[k] <= BF16_GAP_FACTOR * bf16[k], (k, tp, bf16)
-
-
-def test_guards_raise(world):
-    """(f) Experts that ``model`` does not divide (6 on 4) raise
-    ``NotImplementedError`` at init and in the loss; a MoE step with
-    ``microbatches`` > 1 on the data-split (2, 2) mesh raises too."""
-    for o in world:
-        g = o["guards"]
-        for k in ("experts_init", "experts_loss"):
-            assert "the expert count 6 does not divide model = 4" in g[k], g
-        assert "microbatches > 1" in g["microbatches"], g
 
 
 def test_split_and_all_gather_invariant_bitwise_their_loop_form(world):

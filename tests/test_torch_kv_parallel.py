@@ -33,8 +33,9 @@ The cases:
 
 Besides: the serving cells of ``build_lm_cell`` build and run on a
 process mesh, a data-split cell holding only its rows; an OLMoE prefill
-and decode inside a data-parallel step's ``microbatches`` = 2 run as
-outside it; the serving cells keep ``check_model_parallel``'s refusal.
+and decode after a data-parallel ``microbatches`` = 2 train step on the
+same mesh run as without it; the serving guards (leaves that ``model``
+does not divide: ``tests/test_torch_whole_leaves.py``).
 Every launch is bounded by a timeout."""
 import dataclasses
 import json
@@ -63,6 +64,7 @@ from repro_torch.models.params import (  # noqa: E402
 )
 from repro_torch.sharding.specs import local_block, named_sharding, use_sharding  # noqa: E402
 from repro_torch.train import loop as p_loop  # noqa: E402
+from repro_torch.train.optimizer import OptimizerConfig  # noqa: E402
 from repro_torch.train.tree import flatten_with_paths, leaves  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -97,6 +99,7 @@ CASES = {
 KV_SEQ = [k for k, c in CASES.items() if c[3][2] is not None]
 # the serving cells on (2, 2): Qwen1.5 SMOKE at 2 x 32 (a 32-position cache)
 CELL_ARCH, CELL_B, CELL_S = "qwen1.5-0.5b", 2, 32
+MB_OPT = OptimizerConfig(zero1=True)  # the step before serving
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -174,10 +177,9 @@ def _cells(mesh) -> dict:
 
 
 def _guards(mesh) -> dict:
-    """A kv projection width that ``model`` = 2 does not divide (d_head
-    15, one kv head) still raises in a serving cell; a whole cache (made
-    without the mesh) raises in a prefill on the process mesh, and a
-    rank's cache block outside the mesh's sharding context."""
+    """A whole cache (made without the mesh) raises in a prefill on the
+    process mesh, and a rank's cache block outside the mesh's sharding
+    context."""
     out = {"whole_cache": "", "no_context": ""}
     cfg = CFGS["qwen15"]
     params, tokens = cfg.init(SEED, "cpu", mesh), torch.zeros((1, 16), dtype=torch.int32)
@@ -188,17 +190,6 @@ def _guards(mesh) -> dict:
                 pt.prefill(cfg, params, tokens, cache)
         except ValueError as e:
             out[guard] = str(e)
-    spec = get_arch(CELL_ARCH)
-    spec = dataclasses.replace(spec, config=dataclasses.replace(CFGS["qwen15"], d_model=60,
-                                                                n_kv_heads=1))
-    shape = spec.shape("prefill_32k")
-    shape = dataclasses.replace(shape, params={**shape.params, "global_batch": CELL_B,
-                                               "seq_len": CELL_S})
-    out["model_parallel"] = ""
-    try:
-        p_steps.build_lm_cell(spec, shape, device="cpu", seed=SEED, mesh=mesh)
-    except NotImplementedError as e:
-        out["model_parallel"] = str(e)
     return out
 
 
@@ -209,14 +200,19 @@ def _rank4(rank: int, weights: dict, tokens: dict) -> dict:
         mesh = make_process_mesh(shape, AXES, device="cpu")
         out[name] = _serve(arch, weights[arch], tokens[name], mesh)
     mesh = make_process_mesh((2, 2), AXES, device="cpu")
-    # a serving call inside a data-parallel step that cuts each rank's rows
-    # into 2 microbatches: MoE serving takes no aux over the batch
-    p_loop._STEP.microbatches = 2
-    try:
-        out["olmoe_microbatches"] = _serve("olmoe", weights["olmoe"], tokens["olmoe_2x2_b2"],
-                                           mesh)
-    finally:
-        p_loop._STEP.microbatches = 1
+    # a serving call after a data-parallel train step that cuts the batch
+    # into 2 microbatches on the same mesh: MoE serving takes no aux over
+    # the batch, and the step leaves nothing behind that serving reads
+    cfg = CFGS["olmoe"]
+    with use_sharding(mesh):
+        step = p_loop.make_train_step(lambda p, b: pt.loss_fn(cfg, p, b), MB_OPT, 2,
+                                      p_steps.moment_shardings(cfg.param_defs(), mesh))
+    params = place_params(params_from_numpy(cfg.param_defs(), weights["olmoe"], "cpu"),
+                          param_shardings(cfg.param_defs(), mesh))
+    toks = torch.from_numpy(tokens["olmoe_2x2_b2"]).repeat(2, 1)  # 2 rows a microbatch
+    step.value_and_grad(params, {"tokens": toks[:, :PROMPT], "labels": toks[:, 1:PROMPT + 1]})
+    out["olmoe_microbatches"] = _serve("olmoe", weights["olmoe"], tokens["olmoe_2x2_b2"],
+                                       mesh)
     out["cells"] = _cells(mesh)
     out["guards"] = _guards(mesh)
     return out
@@ -477,9 +473,9 @@ def test_serving_cells_on_a_process_mesh(world, kind):
 
 def test_moe_serving_inside_train_microbatches(world):
     """An OLMoE SMOKE prefill and decode on the data-split (2, 2) mesh
-    while a data-parallel step runs with ``microbatches`` = 2 (the train
-    loss's refusal case): they run, bitwise as outside it (serving takes no
-    aux over the batch)."""
+    after a data-parallel ``microbatches`` = 2 step's gradients on that
+    mesh: bitwise as without it (serving takes no aux over the batch, and
+    the step leaves no state behind)."""
     for o in world["ranks"]:
         a, b = o["olmoe_microbatches"], o["olmoe_2x2_b2"]
         for k in ("logits", "k", "v"):
@@ -487,8 +483,6 @@ def test_moe_serving_inside_train_microbatches(world):
 
 
 GUARDS = {
-    # ROADMAP Queue 1, item 6h
-    "model_parallel": "the kv projection width KVH*Dh 15 does not divide model = 2",
     "whole_cache": "make the cache with make_cache(..., mesh=mesh)",
     "no_context": "served under that mesh's use_sharding context",
 }
@@ -496,9 +490,9 @@ GUARDS = {
 
 @pytest.mark.parametrize("guard", list(GUARDS))
 def test_guards_raise(world, guard):
-    """A kv projection width that ``model`` = 2 does not divide (15) still
-    raises ``NotImplementedError`` in a serving cell; a prefill on a
-    process mesh with a cache made without it, or with a rank's cache
-    block outside the mesh's sharding context, raises ``ValueError``."""
+    """A prefill on a process mesh with a cache made without it, or with a
+    rank's cache block outside the mesh's sharding context, raises
+    ``ValueError`` (a kv projection width that ``model`` does not divide
+    serves with its leaves whole: ``tests/test_torch_whole_leaves.py``)."""
     for o in world["ranks"]:
         assert GUARDS[guard] in o["guards"][guard], o["guards"]

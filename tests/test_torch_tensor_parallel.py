@@ -13,9 +13,10 @@ kv 2, d_ff 128, vocab 256, seq 32, batch 8, f32 compute), held to
   twice that step's own gaps from f32;
 * the ZeRO-1 checkpoint: a fault replayed by ``loop.run`` is bitwise the
   uninterrupted run, and every rank restores its own moment blocks;
-* the guards: a projection width or an expert count that ``model`` does
-  not divide, a restore onto other shapes (and the recsys train cell over
-  ``model`` building with its parameters in blocks);
+* the guards: a restore onto other shapes, a model-parallel step without
+  moment shardings; a projection width or an expert count that ``model``
+  does not divide initialising those leaves whole (the recsys train cell
+  over ``model`` building with its parameters in blocks);
 * the elastic story of ``tests/test_elastic.py`` at 4 -> 2 ranks: train
   on (2, 2), checkpoint, resume on ``plan_elastic_mesh``'s (1, 2);
 * the reference, in subprocesses on fake XLA devices (``AxisType.Auto``):
@@ -216,24 +217,20 @@ def _rank4(rank: int, dirs: dict) -> dict:
     return out
 
 
+# leaves that model = 2 does not divide, kept whole as logical_spec keeps
+# them: d_head 15 and kv 1, a kv projection width of 15 (a d_head that
+# RoPE cannot halve, on one process too: whole kv projections run at
+# d_head 16 on model = 3 in tests/test_torch_whole_leaves.py); 3 experts
+# (their steps there on 6 experts over model = 4)
+WHOLE = {"width": dataclasses.replace(CFG, d_model=60, n_kv_heads=1),
+         "moe": dataclasses.replace(CFG, n_experts=3, top_k=2)}
+
+
 def _guards(mesh, ckpt_dir) -> dict:
     out = {}
-    # d_head 15 and kv 1: a kv projection width of 15 that model = 2 does not
-    # divide (the heads that do not divide run sequence-parallel:
-    # tests/test_torch_seq_parallel.py)
-    for what, cfg in (("width", dataclasses.replace(CFG, d_model=60, n_kv_heads=1)),
-                      # 3 experts that model = 2 does not divide (experts that
-                      # divide it split: tests/test_torch_expert_parallel.py)
-                      ("moe", dataclasses.replace(CFG, n_experts=3, top_k=2))):
-        try:
-            cfg.init(SEED, "cpu", mesh)
-        except NotImplementedError as e:
-            out[what + "_init"] = str(e)
-        try:
-            with use_sharding(mesh):
-                loss_fn(cfg, cfg.init(SEED, "cpu"), _batch(0))
-        except NotImplementedError as e:
-            out[what + "_loss"] = str(e)
+    for what, cfg in WHOLE.items():
+        params = cfg.init(SEED, "cpu", mesh)
+        out[what + "_init"] = {p: tuple(x.shape) for p, x in flatten_with_paths(params)}
     wide = dataclasses.replace(CFG, d_ff=256)
     like = (wide.init(SEED, "cpu", mesh), init_opt_state(OPT, wide.init(SEED, "cpu", mesh)))
     try:
@@ -694,19 +691,35 @@ def test_cell_bytes_equal_the_dry_run_per_device(world, name):
 
 def test_guards_raise(world):
     """(h) A projection width and an expert count that ``model`` does not
-    divide (``logical_spec`` would leave the leaf whole) raise
-    ``NotImplementedError`` at init and in the loss; a restore whose
-    ``like`` blocks differ from the checkpoint's raises ``ValueError``; a
-    model-parallel step without moment shardings raises too.  The recsys
-    train cell, refused here until the recsys models split over ``model``,
+    divide initialise those leaves whole, as ``logical_spec`` keeps them,
+    and halve the others (steps with whole leaves:
+    ``tests/test_torch_whole_leaves.py``); a restore whose ``like`` blocks
+    differ from the checkpoint's raises ``ValueError``; a model-parallel
+    step without moment shardings raises too.  The recsys train cell
     builds with its parameters in blocks
     (``tests/test_torch_recsys_parallel.py`` holds its steps)."""
+    want = {what: {p: tuple(x.shape) for p, x in flatten_with_paths(cfg.init(SEED, "cpu"))}
+            for what, cfg in WHOLE.items()}
     for o in world["two"]:
         g = o["guards"]
-        for k in ("width_init", "width_loss"):
-            assert "kv projection width" in g[k], g
-        for k in ("moe_init", "moe_loss"):
-            assert "the expert count 3 does not divide model = 2" in g[k], g
+        for what in WHOLE:
+            got, whole = g[what + "_init"], want[what]
+            assert got.keys() == whole.keys()
+            halved = {p for p in got if got[p] != whole[p]}
+            for p in halved:  # a block over model = 2: one dim halved
+                assert sum(a != b for a, b in zip(got[p], whole[p])) == 1, p
+                assert [b // 2 for a, b in zip(got[p], whole[p]) if a != b] == [
+                    a for a, b in zip(got[p], whole[p]) if a != b], p
+        # the kv projections (15 columns) whole, q and wo (30) split; the
+        # 3 experts and their router whole, the 4 / 2 heads and vocab split
+        assert {p for p in g["width_init"] if g["width_init"][p] != want["width"][p]} == {
+            "['embed']", "['unembed']", "['layers']/['attn']/['wq']",
+            "['layers']/['attn']/['wo']", "['layers']/['mlp']/['wi_gate']",
+            "['layers']/['mlp']/['wi_up']", "['layers']/['mlp']/['wo']"}
+        assert {p for p in g["moe_init"] if g["moe_init"][p] != want["moe"][p]} == {
+            "['embed']", "['unembed']", "['layers']/['attn']/['wq']",
+            "['layers']/['attn']/['wk']", "['layers']/['attn']/['wv']",
+            "['layers']/['attn']/['wo']"}
         assert "expected" in g["restore"], g
         assert "moment_shardings" in g["no_shardings"], g
         # the SMOKE DCN-v2 train cell builds on (1, 2), its table rows
